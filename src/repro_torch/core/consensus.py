@@ -1,0 +1,213 @@
+"""Soft-consensus family (paper §3 Alg. 1, §7.1): the flat-engine lowering.
+
+Counterpart of ``repro/core/consensus.py``, flat path only. Every method
+is a ``MethodSpec`` (``core/methods.py``); ``lower_stages`` turns a spec
+into generic engine stages over the persistent ``(R, n)`` view and
+``apply_round`` runs them. Every branch emits the same metrics dict:
+``consensus_dist``, ``pre_dist``, ``pull_force``, ``push_force``.
+
+The stacked-pytree reference path (``engine=None``) is not ported yet and
+raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import methods as _methods
+from repro_torch.core.methods import get_method
+
+
+def init_state(method, params, *, engine=None):
+    """Per-method consensus state on the flat path: LPF-SGD's filtered
+    gradient is a worker-shaped EMA buffer; row-shaped state (the
+    easgd/parle center) lives in the flat view's aux rows."""
+    if engine is None:
+        raise NotImplementedError("not yet ported: tree consensus state")
+    spec = get_method(method)
+    if spec.filter_mu:
+        L = engine.layout
+        return {"g_ema": torch.zeros((L.M, L.n), dtype=torch.float32,
+                                     device=engine.device)}
+    return {}
+
+
+def _metrics(consensus_dist, pre_dist, pull_force, push_force, *, device):
+    """The ONE metrics schema every branch of every path emits."""
+    def f(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=device)
+    return {"consensus_dist": f(consensus_dist), "pre_dist": f(pre_dist),
+            "pull_force": f(pull_force), "push_force": f(push_force)}
+
+
+def _pull_coef(spec, dcfg, lam_t, pull_scale):
+    """The effective pull coefficient: alpha, hard-pulled to 1, ramped by
+    the replica-coupling schedule (Parle: lam_t / lam), and scaled by the
+    clock's inner/outer plan (Entropy-SGD sub-rounds)."""
+    pull = 1.0 if spec.hard_pull else dcfg.alpha
+    if spec.pull_ramp and dcfg.lam > 0:
+        pull = pull * (lam_t / dcfg.lam)
+    return pull * pull_scale
+
+
+def apply_round(params, dcfg, lam_t, state, *, losses=None, grad_norms=None,
+                push_from="average", engine=None, first_gram=None, mask=None,
+                push_vec=None, pull_scale=1.0):
+    """One communication round on the engine's flat ``(R, n)`` view.
+    Returns ``(params, state, metrics)``. On the kernel path the view is
+    updated in place. ``mask`` is the elastic participation vector
+    ``(M,)``; ``push_vec`` the ``(M, n)`` push field of
+    ``push_source="filtered_grad"`` specs (LPF-SGD)."""
+    if engine is None:
+        raise NotImplementedError("not yet ported: tree consensus path "
+                                  "(apply_round without an engine)")
+    if first_gram is not None:
+        raise NotImplementedError("not yet ported: first_gram (overlap)")
+    return _apply_round_flat(engine, params, dcfg, lam_t, state,
+                             losses=losses, grad_norms=grad_norms,
+                             push_from=push_from, mask=mask,
+                             push_vec=push_vec, pull_scale=pull_scale)
+
+
+def as_participation_mask(mask, n_workers, *, device="cpu"):
+    """Canonicalize a membership provider's output to the
+    ``(n_workers,)`` float32 participation vector (1.0 = in, 0.0 = out).
+    Raises ``ValueError`` on a wrong shape."""
+    act = torch.as_tensor(mask, dtype=torch.float32, device=device)
+    if act.dim() != 1 or act.shape[0] != int(n_workers):
+        raise ValueError(
+            f"participation mask shape {tuple(act.shape)} != "
+            f"({int(n_workers)},) (one entry per worker row)")
+    return act
+
+
+def _set(vec, stop, value):
+    """``vec.at[:stop].set(value)`` — a new vector."""
+    out = vec.clone()
+    out[:stop] = value
+    return out
+
+
+def lower_stages(engine, dcfg, lam_t, *, losses=None, grad_norms=None,
+                 push_from="average", mask=None, pull_scale=1.0):
+    """Lower a consensus method's ``MethodSpec`` to its flat-engine stages.
+
+    Returns ``(stages, pull)`` with each stage ``("coef", T, c0, c1)``,
+    ``("exact", lam_r)`` or ``("vec", cvec)``; an empty list means no
+    consensus stage (ddp). ``mask`` renormalizes the target weights over
+    active rows and zeroes inactive rows' coefficients, so an inactive row
+    passes through the mixing stages: exactly in the fast mode, and up to
+    the gap form's rounding (``tx + 1 * (x - tx)``) in the kernel and
+    precise modes, as in the reference.
+    """
+    spec = get_method(dcfg.consensus)
+    pull = _pull_coef(spec, dcfg, lam_t, pull_scale)
+    push = dcfg.push and spec.pushes
+    L = engine.layout
+    M, R = L.M, L.R
+    dev = engine.device
+    eye = torch.eye(R, dtype=torch.float32, device=dev)
+    u = engine.uniform                       # (R,) worker mean weights
+    zeros = torch.zeros((R,), dtype=torch.float32, device=dev)
+    act = gate = None
+    if mask is not None:
+        act = as_participation_mask(mask, M, device=dev)
+        mfull = _set(zeros, M, act)
+        # masked uniform: the worker mean over active rows only
+        u = mfull / torch.clamp(torch.sum(mfull), min=1.0)
+        # aux rows follow the fleet while any worker is active and freeze
+        # with it when everyone is out
+        aux_on = (torch.sum(act) > 0).to(torch.float32)
+        gate = _set(aux_on * torch.ones((R,), dtype=torch.float32,
+                                        device=dev), M, act)
+
+    def worker_T(w):
+        """All worker rows target the combination w; aux rows stay put."""
+        T = w.expand(R, R)
+        if L.aux:
+            T = torch.cat([T[:M], eye[M:]], dim=0)
+        return T.contiguous()
+
+    stages = []      # ("coef", T, c0, c1) | ("exact", lam_r) | ("vec", cvec)
+    if spec.communicates:
+        if spec.needs_losses and losses is None:
+            raise ValueError(f"{spec.name} needs per-worker losses")
+        if spec.needs_grad_norms and grad_norms is None:
+            raise ValueError(f"{spec.name} needs grad norms")
+        w = spec.weight_fn(_methods.WeightCtx(
+            M=M, R=R, eye=eye, u=u, zeros=zeros, act=act, losses=losses,
+            grad_norms=grad_norms))
+        c_pull = _set(zeros, M, pull)
+        if spec.fuse_eq5 and push and not dcfg.exact_second_term \
+                and push_from == "average":
+            # Eq. 5: pull and push share the x_A target -> ONE fused stage
+            stages.append(("coef", worker_T(w), c_pull,
+                           _set(zeros, M, -lam_t)))
+        else:
+            if spec.center_beta:
+                # every row targets z' = beta (w.x) + (1-beta) z; the aux
+                # row adopts it at aux_pull — one mixing stage
+                w_z = spec.center_beta * w \
+                    + (1.0 - spec.center_beta) * eye[M]
+                T1 = w_z.expand(R, R).contiguous()
+                c_pull = c_pull.clone()
+                c_pull[M:] = spec.aux_pull
+            else:
+                T1 = worker_T(w)
+            stages.append(("coef", T1, c_pull, zeros))
+            if push:
+                if spec.push_source == "filtered_grad":
+                    stages.append(("vec", _set(zeros, M, -lam_t)))
+                elif dcfg.exact_second_term:
+                    stages.append(("exact", lam_t * M))
+                elif push_from == "leader" and spec.leader:
+                    stages.append(("coef", worker_T(w), zeros,
+                                   _set(zeros, M, -lam_t)))
+                else:
+                    stages.append(("coef", worker_T(u), zeros,
+                                   _set(zeros, M, -lam_t)))
+    if gate is not None:
+        if any(s[0] == "exact" for s in stages):
+            raise ValueError("elastic mask does not support "
+                             "exact_second_term stages")
+        stages = [("coef", s[1], s[2] * gate, s[3] * gate)
+                  if s[0] == "coef" else ("vec", s[1] * gate)
+                  for s in stages]
+    return stages, pull
+
+
+def _apply_round_flat(engine, flat, dcfg, lam_t, state, *, losses, grad_norms,
+                      push_from, mask=None, push_vec=None, pull_scale=1.0):
+    spec = get_method(dcfg.consensus)
+    if engine.eps != dcfg.eps:
+        # the engine's norm guard must match the config's
+        engine = dataclasses.replace(engine, eps=dcfg.eps)
+    stages, pull = lower_stages(engine, dcfg, lam_t, losses=losses,
+                                grad_norms=grad_norms, push_from=push_from,
+                                mask=mask, pull_scale=pull_scale)
+    if any(s[0] == "vec" for s in stages) and push_vec is None:
+        raise ValueError(f"{spec.name} needs push_vec (the filtered-"
+                         f"gradient field) on the flat path")
+
+    pre = post = None
+    for stage in stages:
+        if stage[0] == "coef":
+            _, T, c0, c1 = stage
+            flat, _, s_pre, s_post = engine.stage(flat, T, c0, c1)
+        elif stage[0] == "vec":
+            _, cvec = stage
+            flat, _, s_pre, s_post = engine.vec_stage(flat, push_vec, cvec)
+        else:
+            _, lam_r = stage
+            flat, _, s_pre, s_post = engine.exact_stage(flat, lam_r)
+        pre = s_pre if pre is None else pre
+        post = s_post
+
+    if post is None:                        # no consensus stage: metrics only
+        pre = torch.mean(engine.dists_to_mean(flat))
+        return flat, state, _metrics(pre, pre, 0.0, 0.0, device=flat.device)
+
+    push = dcfg.push and spec.pushes
+    return flat, state, _metrics(post, pre, pull * pre,
+                                 lam_t if push else 0.0, device=flat.device)
