@@ -19,6 +19,24 @@ Phases (any failure raises, and the script exits non-zero):
    Launch counters are zeroed just before and read just after.
 4. The launcher: ``repro_torch.launch.train.main`` (``--smoke``) on the
    card.
+5. Attention kernel: ``swa_attention`` against its plain version in fp32
+   and bf16 on the six cases of ``tests/test_kernels.py``, a ragged
+   non-causal case, an ``Sq > Skv`` case and the serving shapes (B = 4,
+   H = 8 over 4 kv heads, S = 8160, hd = 256: local window 4096 with cap
+   50, global with cap 50, and cap 0 / window 0 where one PyTorch call,
+   ``scaled_dot_product_attention``, computes the same function); times
+   kernel, plain version and that call (CUDA events, median of 20 after 3
+   warm-ups).
+6. Serving gemma2-2b at full width and full depth (26 layers, bf16,
+   random weights from a seeded generator): (0) the kernel route of the
+   prefill against the ``attend`` path at full width, 2 layers, fp32;
+   (a) ``generate`` on 4 prompts of 8160 tokens, greedy, 32 new tokens,
+   buf_len 8192 — the main path, launch counters zeroed just before and
+   read just after — then the same call traced with ``torch.profiler``
+   (8 new tokens: device busy time, idle share, the longest kernels);
+   (b) one prompt through ``make_state`` +
+   ``prefill_chunk`` in chunks of 512; (c) the continuous-batching
+   launcher ``repro_torch.launch.serve.main`` at full size.
 
 It prints a ``kernels`` line, the ``{"kernels": [...]}`` record and, last,
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -34,7 +52,11 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks (NVIDIA's data sheet): HBM bytes/s and
@@ -48,6 +70,31 @@ MAIN_R, MAIN_N = 4, 1_216_385_024
 LAYERS, LR = 4, 0.3
 TOL = 1e-4          # max abs error relative to the output's scale
 SOURCE = "src/repro_torch/kernels/pullpush/csrc/pullpush.cu"
+# H100 SXM dense bf16 tensor-core peak (NVIDIA's data sheet)
+BF16_FLOPS = 989e12
+# swa_attention cases: (B, H, Hkv, Sq, Skv, hd, window, cap, causal); the
+# first six are tests/test_kernels.py::ATTN_CASES
+ATTN_CASES = (
+    (1, 4, 4, 128, 128, 64, 0, 0.0, True),
+    (2, 4, 2, 256, 256, 64, 0, 0.0, True),
+    (1, 8, 4, 384, 384, 128, 128, 0.0, True),
+    (1, 2, 1, 512, 512, 64, 0, 50.0, True),
+    (2, 4, 4, 200, 200, 64, 96, 30.0, True),
+    (1, 4, 2, 128, 1024, 64, 256, 0.0, True),
+    (1, 2, 1, 128, 200, 64, 0, 0.0, False),     # ragged, not causal
+    (1, 2, 1, 300, 200, 64, 0, 0.0, True),      # Sq > Skv
+)
+# the serving shapes: gemma2-2b's local and global layers at S = 8160,
+# and the cap 0 / window 0 case one PyTorch call computes
+SERVE_S = 8160
+ATTN_SLICE = {
+    "local": (4, 8, 4, SERVE_S, SERVE_S, 256, 4096, 50.0, True),
+    "global": (4, 8, 4, SERVE_S, SERVE_S, 256, 0, 50.0, True),
+    "library": (4, 8, 4, SERVE_S, SERVE_S, 256, 0, 0.0, True),
+}
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+ATTN_SOURCE = "src/repro_torch/kernels/swa_attention/csrc/swa_attention.cu"
+ATTN_REPLACES = "src/repro/kernels/swa_attention/swa_attention.py:85"
 REPLACES = {
     "fused_round": "src/repro/kernels/pullpush/pullpush.py:194",
     "partial_gram": "src/repro/kernels/pullpush/pullpush.py:298",
@@ -320,14 +367,305 @@ def phase_launcher(pk):
           f"{json.dumps(dict(pk.LAUNCHES))}")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the attention kernel
+# ---------------------------------------------------------------------------
+
+def _in_band_pairs(Sq, Skv, causal, window):
+    """(q, k) pairs the mask keeps, counted for these shapes."""
+    qp = np.arange(Sq)
+    lo = np.maximum(qp - window + 1, 0) if window > 0 else np.zeros_like(qp)
+    hi = np.minimum(qp, Skv - 1) if causal else np.full_like(qp, Skv - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _attn_bound(case, dtype):
+    """Least time in ms: 4 hd FLOPs per in-band pair per (b, h) over the
+    peak of the inputs' type, or q, k, v read once and the output written
+    once over the memory rate, whichever is larger."""
+    B, H, Hkv, Sq, Skv, hd, window, cap, causal = case
+    flops = _in_band_pairs(Sq, Skv, causal, window) * 4 * hd * B * H
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = esize * hd * (2 * B * H * Sq + 2 * B * Hkv * Skv)
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes"), flops
+
+
+def _attn_plain_rows(plain, q, k, v, **kw):
+    """The plain version one batch row at a time: one row of the serving
+    shape's fp32 scores is 2.1 GB."""
+    return torch.cat([plain(q[b:b + 1], k[b:b + 1], v[b:b + 1], **kw)
+                      for b in range(q.shape[0])])
+
+
+def _attn_case(swa, plain, case, dtype, gen, name):
+    B, H, Hkv, Sq, Skv, hd, window, cap, causal = case
+    q = torch.randn((B, H, Sq, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Hkv, Skv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Hkv, Skv, hd), generator=gen, device="cuda").to(dtype)
+    kw = dict(causal=causal, window=window, cap=cap)
+    got = swa.swa_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = _attn_plain_rows(plain, q, k, v, **kw)
+    err = float((got.float() - want.float()).abs().max())
+    scale = max(float(want.float().abs().max()), 1e-30)
+    tol = ATTN_TOL[dtype]
+    if not err <= tol * scale:
+        raise AssertionError(f"swa_attention {name} {dtype}: max abs err "
+                             f"{err:.3e} > {tol} x {scale:.3e}")
+    del got, want
+    bound, bound_by, flops = _attn_bound(case, dtype)
+    row = {"case": name, "shape": list(case), "dtype": str(dtype)[6:],
+           "max_abs_err": err, "max_rel_err": err / scale, "tol_rel": tol,
+           "ms": _time_ms(lambda: swa.swa_attention(q, k, v, **kw)),
+           "plain_ms": _time_ms(lambda: _attn_plain_rows(plain, q, k, v,
+                                                         **kw)),
+           "bound_ms": bound, "bound_by": bound_by, "flops": flops,
+           "library_ms": None}
+    if causal and not window and not cap and Sq == Skv:
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        row["library_ms"] = _time_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                                  enable_gqa=True))
+    print("  attention " + json.dumps(row))
+    return row
+
+
+def phase_attention(swa, plain):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, case in enumerate(ATTN_CASES):
+            rows.append(_attn_case(swa, plain, case, dtype, gen, f"case{i}"))
+        for name, case in ATTN_SLICE.items():
+            rows.append(_attn_case(swa, plain, case, dtype, gen, name))
+            torch.cuda.empty_cache()
+    by = {(r["case"], r["dtype"]): r for r in rows}
+    head, local = by[("global", "bfloat16")], by[("local", "bfloat16")]
+    lib = by[("library", "bfloat16")]
+    return {
+        "name": "swa_attention", "route": "cuda", "source": ATTN_SOURCE,
+        "replaces": ATTN_REPLACES, "launches": 0,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "max_rel_err": max(r["max_rel_err"] for r in rows
+                           if r["dtype"] == "bfloat16"),
+        "tol_rel": ATTN_TOL[torch.bfloat16],
+        "max_rel_err_fp32": max(r["max_rel_err"] for r in rows
+                                if r["dtype"] == "float32"),
+        "tol_rel_fp32": ATTN_TOL[torch.float32],
+        # the headline: a global layer of the serving prefill, bf16, cap 50
+        "shape": head["shape"], "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        # scaled_dot_product_attention(is_causal, enable_gqa) at cap 0
+        "library_ms": lib["library_ms"], "ms_library_case": lib["ms"],
+        "ms_local": local["ms"], "plain_ms_local": local["plain_ms"],
+        "bound_ms_local": local["bound_ms"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: serving gemma2-2b
+# ---------------------------------------------------------------------------
+
+def _events_of(model, names):
+    """The model with CUDA events around each call of the named lanes."""
+    events = {n: [] for n in names}
+
+    def wrap(name, fn):
+        def run(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            events[name].append((e0, e1))
+            return out
+        return run
+    return dataclasses.replace(model, **{n: wrap(n, getattr(model, n))
+                                         for n in names}), events
+
+
+def _serve_reference_check(swa, cfg):
+    """(0) The kernel route of the prefill (fresh caches at index 0)
+    against the training path's ``attend`` on the same input, at full
+    width, 2 layers (one local, one global) and fp32; S = 4608 crosses
+    the local window. Hidden states at every position, tolerance 1e-4 of
+    their scale."""
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as lm
+
+    small = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    params = build_model(small).init(
+        torch.Generator(device="cuda").manual_seed(3), "cuda")
+    tokens = torch.randint(0, small.vocab_size, (1, 4608), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(4))
+    with torch.no_grad():
+        x = lm._embed(params, small, tokens)
+        want, _, _ = lm.run_blocks(params["blocks"], x, small)
+        before = swa.LAUNCHES["swa_attention"]
+        states = lm.init_states(small, 1, 4608, torch.float32, device="cuda")
+        got, _, _ = lm.run_blocks(params["blocks"], x, small, states=states,
+                                  index=0)
+    if swa.LAUNCHES["swa_attention"] - before != small.n_layers:
+        raise AssertionError("the kernel route was not taken")
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    print(f"  (0) kernel route vs attend, full width, 2 layers, fp32, "
+          f"S=4608: max abs err {err:.3e} (scale {scale:.3e})")
+    if not err <= 1e-4 * scale:
+        raise AssertionError(f"prefill kernel route differs from attend: "
+                             f"{err:.3e} > 1e-4 x {scale:.3e}")
+
+
+def _profile_generate(generate, model, params, prompts, buf, new):
+    """``torch.profiler`` over one ``generate`` call (prefill + new - 1
+    decode steps): wall time, the device's busy time (the sum of its
+    kernels' and copies' spans: one stream, so they do not overlap) and
+    idle share, and the kernels that hold the device longest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        generate(model, params, {"tokens": prompts}, max_new_tokens=new,
+                 buf_len=buf)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    out = {"new_tokens": new, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+           "device_launches": sum(n for _, n in by_name.values()),
+           "top": [[name[:70], ms, n] for name, (ms, n) in top]}
+    if not busy_ms:
+        out["note"] = "the profiler recorded no device time: not measured"
+    return out
+
+
+def phase_serving(swa):
+    from repro_torch.configs import get_arch
+    from repro_torch.core.engine import tree_items
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import build_model
+    from repro_torch.serving import generate
+
+    cfg = get_arch("gemma2-2b")
+    _serve_reference_check(swa, cfg)
+    torch.cuda.empty_cache()
+
+    B, NEW, BUF = 4, 32, 8192
+    print(f"  config {cfg.name}: d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}, head_dim {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, layers {cfg.n_layers}, "
+          f"window {cfg.sliding_window}, dtype {cfg.dtype}; B={B} "
+          f"S={SERVE_S} new={NEW} buf_len={BUF}")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    n = sum(leaf.numel() for _, leaf in tree_items(params))
+    # param_count() leaves out gemma2's post-block norms (ROADMAP Queue 3)
+    post = 2 * cfg.d_model * cfg.n_layers if cfg.post_block_norm else 0
+    print(f"  parameters {n} = param_count() {cfg.param_count()} + "
+          f"post-block norms {post}")
+    if n != cfg.param_count() + post:
+        raise AssertionError("parameter count differs from the config's")
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, SERVE_S))).cuda()
+
+    # (a) the main path: generate, counters zeroed just before
+    timed, events = _events_of(model, ("prefill", "decode_step"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    swa.reset_launches()
+    t0 = time.perf_counter()
+    toks, logits = generate(timed, params, {"tokens": prompts},
+                            max_new_tokens=NEW, buf_len=BUF)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = swa.LAUNCHES["swa_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    prefill_ms = events["prefill"][0][0].elapsed_time(events["prefill"][0][1])
+    dec = [a.elapsed_time(b) for a, b in events["decode_step"]]
+    a = {"prefill_ms": prefill_ms, "ttft_ms": prefill_ms,
+         "decode_ms_per_token": statistics.mean(dec),
+         "decode_ms_median": statistics.median(dec),
+         "wall_s": wall, "tok_s": B * NEW / wall,
+         "prefill_tok_s": B * SERVE_S / (prefill_ms / 1e3),
+         "peak_bytes": peak, "swa_launches": launches}
+    print("  (a) generate " + json.dumps(a))
+    print(f"  first tokens {toks[:, :8].tolist()}")
+    if launches != cfg.n_layers:
+        raise AssertionError(f"swa_attention launched {launches} times in "
+                             f"the prefill, not {cfg.n_layers}")
+    if toks.shape != (B, NEW) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("generate gave a bad shape or non-finite logits")
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError("token ids out of the vocabulary")
+    # where the time goes: the same call, traced, with 8 new tokens
+    print("  (a) profile " + json.dumps(_profile_generate(
+        generate, model, params, prompts, BUF, 8)))
+
+    # (b) one prompt in chunks of 512: the first through the kernel
+    swa.reset_launches()
+    states, start = model.make_state(params, {"tokens": prompts[:1]}, BUF)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for j in range(0, SERVE_S, 512):
+        lg, states = model.prefill_chunk(params, states,
+                                         prompts[:1, j:j + 512], start + j)
+    e1.record()
+    torch.cuda.synchronize()
+    diff = float((lg[0] - logits[0]).abs().max())
+    print(f"  (b) chunked prefill (512): {e0.elapsed_time(e1):.1f} ms, "
+          f"swa launches {swa.LAUNCHES['swa_attention']}, max |last-token "
+          f"logits - (a)'s| {diff:.4f} (information; logits scale "
+          f"{float(logits[0].abs().max()):.2f})")
+    if swa.LAUNCHES["swa_attention"] != cfg.n_layers:
+        raise AssertionError("the first chunk did not run the kernel")
+    del params, states, timed, model, lg, logits
+    torch.cuda.empty_cache()
+
+    # (c) the continuous-batching launcher at full size
+    swa.reset_launches()
+    report = serve_main(["--arch", "gemma2-2b", "--requests", "8",
+                         "--max-slots", "4", "--prompt-len", "512",
+                         "--new-tokens", "32", "--chunk", "64"])
+    c = {"steps": report.steps, "generated": report.generated,
+         "occupancy": report.occupancy, "wall_s": report.wall_s,
+         "tok_s": report.tok_s, "ttft_mean_ms": report.ttft_mean_s * 1e3,
+         "swa_launches": swa.LAUNCHES["swa_attention"]}
+    print("  (c) launcher " + json.dumps(c))
+    if sorted(report.results) != list(range(8)) or any(
+            len(r.tokens) != 32 for r in report.results.values()):
+        raise AssertionError("the launcher left requests unfinished")
+    if swa.LAUNCHES["swa_attention"] == 0:
+        raise AssertionError("the launcher launched no swa_attention")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device — the port's smoke run "
                          "needs the card")
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    import importlib
+    from repro_torch.kernels import _build
     from repro_torch.kernels.pullpush import pullpush as pk
     from repro_torch.kernels.pullpush import ref
+    from repro_torch.kernels.swa_attention import swa_attention_plain
+    swa = importlib.import_module(
+        "repro_torch.kernels.swa_attention.swa_attention")
 
     print("phase 1: card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -337,11 +675,12 @@ def main():
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    pk.build()
-    print(f"  kernels built in {time.perf_counter() - t0:.2f} s "
-          f"({pk.build_info['path']})")
-    print("\n".join("  " + line for line in pk.build_info["log"].splitlines()
-                    if "registers" in line or "spill" in line))
+    _build.build(pk.SOURCE, swa.SOURCE)     # one nvcc per source, in parallel
+    print(f"  kernels built in {time.perf_counter() - t0:.2f} s")
+    for name, info in _build.build_info.items():
+        print(f"  {name}: {info['path']}")
+        print("\n".join("    " + line for line in info["log"].splitlines()
+                        if "registers" in line or "spill" in line))
 
     secs = {"card": time.perf_counter() - t_start}
 
@@ -361,12 +700,22 @@ def main():
     t0 = time.perf_counter()
     phase_launcher(pk)
     secs["launcher"] = time.perf_counter() - t0
+
+    print("phase 5: swa_attention against its plain version")
+    t0 = time.perf_counter()
+    rows["swa_attention"] = phase_attention(swa, swa_attention_plain)
+    secs["attention"] = time.perf_counter() - t0
+
+    print("phase 6: serving gemma2-2b (full width, full depth)")
+    t0 = time.perf_counter()
+    rows["swa_attention"]["launches"] = phase_serving(swa)
+    secs["serving"] = time.perf_counter() - t0
     secs["total"] = time.perf_counter() - t_start
     print("phase seconds " + json.dumps(secs))
 
     record = list(rows.values())
     print("kernels " + json.dumps([
-        {k: r[k] for k in ("name", "launches", "ms", "bound_ms",
+        {k: r[k] for k in ("name", "launches", "ms", "plain_ms", "bound_ms",
                            "library_ms")} | {"max_err": r["max_rel_err"]}
         for r in record]))
     print(json.dumps({"kernels": record}))

@@ -103,7 +103,7 @@ class ConsensusEngine:
     use_kernel: bool = False      # CUDA fused_round vs torch Gram+GEMM
     precise: bool = False         # torch path: exact gap-space stages
     eps: float = 1e-12
-    device: str = "cpu"           # where the flat view lives
+    device: str = "cuda"          # where the flat view lives
     shard: Optional[Any] = None   # multi-GPU layout: not ported yet
 
     def __post_init__(self):

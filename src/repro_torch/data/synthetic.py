@@ -83,7 +83,7 @@ def make_round_batch(task: TokenTask, seed: int, n_workers: int, tau: int,
 
 def classification_task(n_train=2048, n_test=1024, dim=32, n_classes=10,
                         noise=1.8, label_noise=0.15, seed=0, *,
-                        device="cpu"):
+                        device="cuda"):
     """Gaussian clusters with feature noise + TRAIN-set label noise (the
     reference's numpy draws, so the data equals the JAX package's)."""
     rng = np.random.default_rng(seed)

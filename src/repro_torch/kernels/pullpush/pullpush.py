@@ -23,21 +23,18 @@ Every wrapper checks its inputs before it dispatches, on either device.
 For tensors on the CPU it runs the plain version from ``ref.py``; for a
 CUDA tensor it launches the kernel or raises — there is no fallback. The
 shared library is built from ``csrc/pullpush.cu`` with ``nvcc`` on first
-CUDA use (``build()``), never at import. ``LAUNCHES`` counts kernel
-launches per kernel; ``fused_round`` counts its calls.
+CUDA use (``build()``, through ``kernels/_build.py``), never at import.
+``LAUNCHES`` counts kernel launches per kernel; ``fused_round`` counts its
+calls.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.pullpush.ref import (
     fused_round_plain, gram_coef_plain, mix_shard_plain, partial_gram_plain,
 )
@@ -49,51 +46,8 @@ BLOCKS_PER_SM = 8      # grid of the two streaming kernels: 8 x 256 threads/SM
 LAUNCHES = {"fused_round": 0, "partial_gram": 0, "gram_coef": 0,
             "mix_shard": 0}
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "pullpush.cu"
-# <repo>/build/repro_torch: listed in .gitignore
-_BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lib = None
-build_info = {}        # seconds, ptxas log and path of the last build()
-
-
-def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _nvcc():
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the pull-push kernels are built "
-                           "from csrc/pullpush.cu at first CUDA use")
-    return path
-
-
-def build():
-    """Compile ``csrc/pullpush.cu`` (once per source hash) and load it.
-    Returns the ``ctypes.CDLL``; ``build_info`` records the build seconds
-    and the ptxas register / spill report."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = _BUILD_DIR / f"libpullpush-{tag}.so"
-    t0 = time.perf_counter()
-    log = ""
-    if not so.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-                               str(_SRC)], capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, so)         # atomic: concurrent builds agree
-    lib = ctypes.CDLL(str(so))
+def _bind(lib):
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.pp_partial_gram.argtypes = [vp, i32, i64, vp, i32, i32, vp]
     lib.pp_gram_coef.argtypes = [vp, i32, i32, vp, vp, vp, ctypes.c_float,
@@ -103,10 +57,23 @@ def build():
         fn.restype = i32
     lib.pp_error_string.argtypes = [i32]
     lib.pp_error_string.restype = ctypes.c_char_p
-    build_info.update(seconds=time.perf_counter() - t0, log=log,
-                      path=str(so))
-    _lib = lib
-    return lib
+    lib.error_string = lib.pp_error_string
+
+
+SOURCE = _build.Source("pullpush", Path(__file__).resolve().parent / "csrc"
+                       / "pullpush.cu", _bind)
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def build():
+    """Compile ``csrc/pullpush.cu`` (once per source hash) and load it
+    (``kernels/_build.py``). Returns the ``ctypes.CDLL``;
+    ``_build.build_info["pullpush"]`` records the build."""
+    return _build.build(SOURCE)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -186,18 +153,11 @@ def workspace_blocks(flat):
     return _grid(flat, _vec(flat))
 
 
-def _stream(t):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+_stream, _ptr = _build.stream, _build.ptr
 
 
 def _raise_if(code, what):
-    if code != 0:
-        msg = _lib.pp_error_string(code).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
+    _build.raise_if(build(), code, what)
 
 
 def _launch_partial_gram(flat):

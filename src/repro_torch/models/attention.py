@@ -3,9 +3,12 @@ attention with sliding-window banding and logit softcap.
 
 Counterpart of ``repro/models/attention.py``. ``attend`` is written with
 plain torch ops, as the reference writes it in jnp (no fused attention
-operator): one fp32 softmax when the keys fit one ``_CHUNK``, else an
-online softmax over ``_CHUNK``-sized key blocks. The KV cache belongs to
-serving and is not ported yet.
+operator): one fp32 softmax when the keys fit one block (``_CHUNK`` keys
+in training), else an online softmax over key blocks. The serving KV
+cache is the reference's position-tagged buffer (full length or ring);
+the port writes it in place. Attention over it takes larger blocks
+(``serve_block``): serving keeps nothing for a backward pass, and every
+block is a dozen more eager launches per layer.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from repro_torch.models.layers import dense_init, rope, softcap
 
 NEG_INF = -1e30
 _CHUNK = 1024  # kv-block size for the online softmax
+_SERVE_SCORES = 1 << 25  # fp32 scores per kv block over a serving cache
 
 
 # ---------------------------------------------------------------------------
@@ -77,8 +81,17 @@ def _mask(q_pos, kv_pos, causal, window):
     return m
 
 
-def attend(q, k, v, *, q_pos, kv_pos, causal=True, window=0, cap=0.0):
-    """GQA attention with online softmax over kv chunks.
+def serve_block(B, Sq, nq):
+    """kv-block size for attention over a serving cache: the most keys
+    (a multiple of ``_CHUNK``) whose (B, nq, Sq, block) fp32 scores stay
+    within ``_SERVE_SCORES`` (128 MiB), and at least ``_CHUNK``. A decode
+    step over an 8192-slot cache then takes one block."""
+    return max(_CHUNK, _SERVE_SCORES // (B * nq * Sq) // _CHUNK * _CHUNK)
+
+
+def attend(q, k, v, *, q_pos, kv_pos, causal=True, window=0, cap=0.0,
+           block=_CHUNK):
+    """GQA attention with online softmax over kv blocks of ``block`` keys.
 
     q: (B, Sq, nq, hd); k, v: (B, Skv, nkv, hd); q_pos (Sq,), kv_pos (Skv,).
     Returns (B, Sq, nq, hd).
@@ -94,7 +107,7 @@ def attend(q, k, v, *, q_pos, kv_pos, causal=True, window=0, cap=0.0):
     def finish(o):
         return o.reshape(B, nkv * g, Sq, hd).permute(0, 2, 1, 3).to(q.dtype)
 
-    if Skv <= _CHUNK:
+    if Skv <= block:
         s = torch.einsum("bqkgh,bskh->bkgqs", qg, kf)
         s = softcap(s, cap)
         s = torch.where(_mask(q_pos, kv_pos, causal, window)[None, None, None],
@@ -106,13 +119,13 @@ def attend(q, k, v, *, q_pos, kv_pos, causal=True, window=0, cap=0.0):
                                                                    min=1e-30)
         return finish(o)
 
-    # chunked path: pad Skv to a multiple of _CHUNK with invalid slots
-    pad = (-Skv) % _CHUNK
+    # chunked path: pad Skv to a multiple of block with invalid slots
+    pad = (-Skv) % block
     if pad:
         kf = torch.nn.functional.pad(kf, (0, 0, 0, 0, 0, pad))
         vf = torch.nn.functional.pad(vf, (0, 0, 0, 0, 0, pad))
         kv_pos = torch.nn.functional.pad(kv_pos, (0, pad), value=-1)
-    n_chunks = kf.shape[1] // _CHUNK
+    n_chunks = kf.shape[1] // block
 
     def body(m, l, acc, kch, vch, pch):
         s = torch.einsum("bqkgh,bskh->bkgqs", qg, kch)
@@ -135,7 +148,7 @@ def attend(q, k, v, *, q_pos, kv_pos, causal=True, window=0, cap=0.0):
     acc = torch.zeros((B, nkv, g, Sq, hd), dtype=torch.float32,
                       device=q.device)
     for c in range(n_chunks):
-        sl = slice(c * _CHUNK, (c + 1) * _CHUNK)
+        sl = slice(c * block, (c + 1) * block)
         # rematerialized in the backward pass, as the reference's
         # jax.checkpoint'ed scan body
         m, l, acc = torch.utils.checkpoint.checkpoint(
@@ -144,4 +157,43 @@ def attend(q, k, v, *, q_pos, kv_pos, causal=True, window=0, cap=0.0):
     return finish(acc / torch.clamp(l, min=1e-30)[..., None])
 
 
-__all__ = ["attend", "init_attention", "out_proj", "qkv_proj", "rope"]
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+def init_cache(batch, n_kv, buf_len, head_dim, dtype, *, device):
+    """Position-tagged cache. ``pos`` = -1 marks empty slots; a windowed
+    buffer (buf_len == window) becomes a ring buffer transparently."""
+    return {
+        "k": torch.zeros((batch, buf_len, n_kv, head_dim), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, buf_len, n_kv, head_dim), dtype=dtype,
+                         device=device),
+        "pos": torch.full((buf_len,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def cache_update(cache, k_new, v_new, index: int):
+    """Write k/v for ``k_new.shape[1]`` tokens starting at absolute position
+    ``index`` into the (possibly ring) buffer, IN PLACE (the reference
+    returns a new cache; the port saves the copy). Returns ``cache``.
+
+    Invariant: position ``p`` always lives in slot ``p % buf``, so a chunk
+    write that crosses the ring seam wraps, and a later decode step
+    overwrites exactly the slot whose position expired."""
+    buf = cache["k"].shape[1]
+    S = k_new.shape[1]
+    if S > buf:
+        raise ValueError(
+            f"cache_update: {S}-token write exceeds buf_len {buf} — stream "
+            f"the prompt in chunks of at most buf_len")
+    pos = index + torch.arange(S, dtype=torch.int32, device=k_new.device)
+    slots = (pos % buf).long()
+    cache["k"][:, slots] = k_new.to(cache["k"].dtype)
+    cache["v"][:, slots] = v_new.to(cache["v"].dtype)
+    cache["pos"][slots] = pos
+    return cache
+
+
+__all__ = ["attend", "cache_update", "init_attention", "init_cache",
+           "out_proj", "qkv_proj", "rope", "serve_block"]

@@ -59,7 +59,7 @@ def rope(x, positions, theta: float):
     half = hd // 2
     log_theta = torch.tensor(math.log(theta), dtype=torch.float32)
     freqs = torch.exp(-log_theta * torch.arange(
-        0, half, dtype=torch.float32) / half).to(x.device)
+        0, half, dtype=torch.float32, device=x.device) / half)
     ang = positions[..., None].to(torch.float32) * freqs   # (..., S, half)
     ang = ang[..., None, :]                     # (..., S, 1, half)
     cos, sin = torch.cos(ang), torch.sin(ang)

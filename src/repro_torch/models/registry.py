@@ -2,15 +2,21 @@
 
 ``build_model(cfg)`` returns a ``ModelAPI``:
 
-    init(gen, device)       -> params (nested dict, the reference's tree)
-    loss(params, batch)     -> (loss, metrics)
+    init(gen, device)                           -> params (the reference's tree)
+    loss(params, batch)                         -> (loss, metrics)
+    prefill(params, batch, buf_len, window=0)   -> (last_logits, states)
+    decode_step(params, states, token, index, window=0) -> (logits, states)
+    make_state(params, batch, buf_len, window=0) -> (blank states, start)
+    prefill_chunk(params, states, tokens, index, window=0) -> (logits, states)
 
-for decoder-only configs whose blocks are all ``attn``/``local_attn``.
-The serving lanes (``prefill``, ``decode_step``, ``make_state``,
-``prefill_chunk``) and the other families are not ported yet.
+for decoder-only configs whose blocks are all ``attn``/``local_attn``; the
+other families are not ported yet. ``batch["tokens"]`` may be a tensor or
+a numpy array; the serving lanes move it to the parameters' device. The
+serving lanes run without gradients and update ``states`` in place.
 
-``params_from_numpy`` / ``flat_from_numpy`` carry the JAX package's
-weights (as numpy) across, so both packages compute from the same numbers.
+``params_from_numpy`` / ``flat_from_numpy`` / ``states_from_numpy`` carry
+the JAX package's weights and decode states (as numpy) across, so both
+packages compute from the same numbers.
 """
 from __future__ import annotations
 
@@ -36,8 +42,11 @@ class ModelAPI:
     prefill_chunk: Callable[..., Any]
 
 
-def _serving_not_ported(*args, **kwargs):
-    raise NotImplementedError("not yet ported: serving lanes")
+def _tokens(tokens, device):
+    """(B, S) int64 tokens on ``device`` from a tensor or numpy array."""
+    if not isinstance(tokens, torch.Tensor):
+        tokens = torch.from_numpy(np.asarray(tokens))
+    return tokens.to(device=device, dtype=torch.int64)
 
 
 def build_model(cfg: ModelConfig) -> ModelAPI:
@@ -53,11 +62,32 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
     def loss(params, batch):
         return lm.lm_loss(cfg, params, batch)
 
-    return ModelAPI(cfg=cfg, init=init, loss=loss,
-                    prefill=_serving_not_ported,
-                    decode_step=_serving_not_ported,
-                    make_state=_serving_not_ported,
-                    prefill_chunk=_serving_not_ported)
+    def dev(params):
+        return params["embed"].device
+
+    def prefill(params, batch, buf_len, window=0):
+        return lm.lm_prefill(cfg, params,
+                             _tokens(batch["tokens"], dev(params)), buf_len,
+                             prefix=batch.get("prefix"), serve_window=window)
+
+    def decode_step(params, states, token, index, window=0):
+        return lm.lm_decode_step(cfg, params, states,
+                                 _tokens(token, dev(params)), index,
+                                 serve_window=window)
+
+    def make_state(params, batch, buf_len, window=0):
+        return lm.lm_make_state(cfg, params, batch["tokens"].shape[0],
+                                buf_len, prefix=batch.get("prefix"),
+                                serve_window=window)
+
+    def prefill_chunk(params, states, tokens, index, window=0):
+        return lm.lm_prefill_chunk(cfg, params, states,
+                                   _tokens(tokens, dev(params)), index,
+                                   serve_window=window)
+
+    return ModelAPI(cfg=cfg, init=init, loss=loss, prefill=prefill,
+                    decode_step=decode_step, make_state=make_state,
+                    prefill_chunk=prefill_chunk)
 
 
 def _to_torch(a, device, dtype):
@@ -72,20 +102,41 @@ def params_from_numpy(cfg: ModelConfig, tree, *, device, dtype=None):
     ``jax.tree.map(np.asarray, params)`` gives it) -> the port's params on
     ``device`` in ``dtype`` (default: ``cfg.dtype``). Raises ``ValueError``
     on a missing or extra leaf or a shape mismatch."""
-    want = dict(tree_items(lm.init_lm(cfg, None, device="meta")))
+    dtype = dtype or getattr(torch, cfg.dtype)
+    return _tree_from_numpy(lm.init_lm(cfg, None, device="meta"), tree,
+                            f"parameter tree of {cfg.name}", device,
+                            lambda want: dtype)
+
+
+def _tree_from_numpy(want, tree, what, device, dtype_of):
+    """Check a numpy tree against the port's ``want`` (paths and shapes)
+    and copy it onto ``device``."""
+    want = dict(tree_items(want))
     got = dict(tree_items(tree))
     missing = sorted(set(want) - set(got))
     extra = sorted(set(got) - set(want))
     if missing or extra:
-        raise ValueError(f"parameter tree mismatch for {cfg.name}: missing "
-                         f"{missing}, extra {extra}")
+        raise ValueError(f"{what} mismatch: missing {missing}, extra "
+                         f"{extra}")
     for path, leaf in got.items():
         if tuple(np.shape(leaf)) != tuple(want[path].shape):
             raise ValueError(f"{'/'.join(path)}: shape {np.shape(leaf)} != "
                              f"{tuple(want[path].shape)}")
-    dtype = dtype or getattr(torch, cfg.dtype)
-    return tree_from_items([(p, _to_torch(got[p], device, dtype))
+    return tree_from_items([(p, _to_torch(got[p], device, dtype_of(want[p])))
                             for p in sorted(got)])
+
+
+def states_from_numpy(cfg: ModelConfig, tree, *, device, dtype=None):
+    """The reference's decode states (``jax.tree.map(np.asarray,
+    states)`` of ``make_state`` / ``prefill``) -> the port's stacked KV
+    caches on ``device``; k / v in ``dtype`` (default ``cfg.dtype``), pos
+    int32. Batch and buffer length are read from the tree."""
+    k = np.shape(tree["k"])
+    want = lm.init_states(cfg, k[1], k[2], torch.float32, device="meta")
+    dtype = dtype or getattr(torch, cfg.dtype)
+    return _tree_from_numpy(want, tree, f"state tree of {cfg.name}", device,
+                            lambda w: torch.int32 if w.dtype == torch.int32
+                            else dtype)
 
 
 def flat_from_numpy(layout, flat, *, device):

@@ -6,8 +6,17 @@ Parameters keep the reference's tree: the layers are stacked on a leading
 dim under ``blocks/stack``, and ``run_blocks`` is a Python loop over that
 dim where the reference scans. Per-layer sliding windows follow the
 pattern (``local_attn`` -> ``sliding_window``, ``attn`` -> 0 = global).
-MoE, Mamba, xLSTM and shared-attention blocks, and the decode caches, are
-not ported yet.
+
+Serving: ``lm_prefill`` / ``lm_make_state`` / ``lm_prefill_chunk`` /
+``lm_decode_step`` run the stack over the stacked position-tagged KV
+caches (``init_states``), which the port updates in place. At ``index ==
+0`` the cache is blank, so attention over it is exactly causal
+self-attention over the chunk: there ``_self_attention`` calls the
+hand-written ``swa_attention`` kernel (``kernels/swa_attention``). Decode
+steps and later chunks attend over the cache with ``attend``, as the
+reference does in jnp; training keeps ``attend`` too (the kernel has no
+backward). MoE, Mamba, xLSTM and shared-attention blocks are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -15,6 +24,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.core.engine import tree_from_items, tree_items
+from repro_torch.kernels.swa_attention import ops as swa_ops
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     embed_init, init_mlp, mlp, rms_norm, softcap,
@@ -46,20 +56,36 @@ def init_attn_block(gen, cfg, dtype, *, device):
     return p
 
 
-def _self_attention(p, h, cfg, window):
+def _self_attention(p, h, cfg, window, cache=None, index=0):
+    """Shared attention plumbing. Returns (attn output, cache). With a
+    cache, ``index`` is the chunk's first absolute position (a Python
+    int) and the cache is written in place."""
     S = h.shape[1]
     q, k, v = attn.qkv_proj(p, h, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
-    pos = torch.arange(S, dtype=torch.int32, device=h.device)
+    pos = index + torch.arange(S, dtype=torch.int32, device=h.device)
     q = attn.rope(q, pos, cfg.rope_theta)
     k = attn.rope(k, pos, cfg.rope_theta)
-    o = attn.attend(q, k, v, q_pos=pos, kv_pos=pos, causal=True,
-                    window=window, cap=cfg.attn_logit_softcap)
-    return attn.out_proj(p, o)
+    if cache is None:
+        o = attn.attend(q, k, v, q_pos=pos, kv_pos=pos, causal=True,
+                        window=window, cap=cfg.attn_logit_softcap)
+        return attn.out_proj(p, o), None
+    attn.cache_update(cache, k, v, index)
+    if index == 0:
+        # blank cache: every slot the write left holds pos -1, so attention
+        # over the cache is causal self-attention over the fresh k, v
+        o = swa_ops.attention(q, k, v, causal=True, window=window or 0,
+                              cap=cfg.attn_logit_softcap)
+    else:
+        o = attn.attend(q, cache["k"], cache["v"], q_pos=pos,
+                        kv_pos=cache["pos"], causal=True, window=window,
+                        cap=cfg.attn_logit_softcap,
+                        block=attn.serve_block(*q.shape[:3]))
+    return attn.out_proj(p, o), cache
 
 
-def attn_block(p, x, cfg, window=None):
+def attn_block(p, x, cfg, window=None, cache=None, index=0):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    o = _self_attention(p["attn"], h, cfg, window)
+    o, cache = _self_attention(p["attn"], h, cfg, window, cache, index)
     if "post1" in p:
         o = rms_norm(o, p["post1"], cfg.norm_eps)
     x = x + o
@@ -68,19 +94,28 @@ def attn_block(p, x, cfg, window=None):
         if "post2" in p:
             m = rms_norm(m, p["post2"], cfg.norm_eps)
         x = x + m
-    return x
+    return x, cache
 
 
-def _apply_block(kind, p, x, cfg, window):
-    """Dispatch; with ``cfg.remat`` the block body is rematerialized in the
-    backward pass (activation checkpointing)."""
+def _apply_block(kind, p, x, cfg, window, state=None, index=0):
+    """Dispatch. Returns (x, new_state). With ``cfg.remat`` (and no state)
+    the block body is rematerialized in the backward pass (activation
+    checkpointing)."""
     if kind != "attn":
         raise _not_ported(f"{kind!r} blocks")
-    if cfg.remat:
+    if cfg.remat and state is None:
         return torch.utils.checkpoint.checkpoint(
-            lambda pp, xx: attn_block(pp, xx, cfg, window), p, x,
-            use_reentrant=False)
-    return attn_block(p, x, cfg, window)
+            lambda pp, xx: attn_block(pp, xx, cfg, window)[0], p, x,
+            use_reentrant=False), None
+    return attn_block(p, x, cfg, window, state, index)
+
+
+def _block_state(kind, cfg, batch, buf_len, dtype, *, device):
+    """Fresh decode/prefill state for one block."""
+    if kind != "attn":
+        raise _not_ported(f"{kind!r} block states")
+    return attn.init_cache(batch, cfg.n_kv_heads, buf_len, cfg.head_dim,
+                           dtype, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -121,16 +156,36 @@ def init_blocks(cfg, gen, dtype, *, device):
     return {"stack": tree_from_items(stacked)}
 
 
+def init_states(cfg, batch, buf_len, dtype, *, device):
+    """Fresh stacked states matching ``run_blocks``: the reference's tree
+    ``{"k", "v": (L, B, buf, nkv, hd), "pos": (L, buf)}``."""
+    _check_supported(cfg)
+    one = _block_state("attn", cfg, batch, buf_len, dtype, device=device)
+    return {name: leaf.unsqueeze(0).repeat((cfg.n_layers,)
+                                           + (1,) * leaf.dim())
+            for name, leaf in one.items()}
+
+
+def _serve_windows(cfg, serve_window):
+    """Per-layer windows; a serving window caps every layer's (global
+    layers take it as their window)."""
+    ws = _windows(cfg)
+    if serve_window:
+        ws = [min(w if w else serve_window, serve_window) for w in ws]
+    return ws
+
+
 def run_blocks(blocks, x, cfg, states=None, index=0, serve_window=0):
-    """Execute the block stack. Returns (x, new_states, aux)."""
-    if states is not None or serve_window:
-        raise _not_ported("decode states (serving)")
+    """Execute the block stack. Returns (x, states, aux); ``states`` (if
+    given) are updated in place, layer by layer."""
     _check_supported(cfg)
     items = tree_items(blocks["stack"])
-    for layer, window in enumerate(_windows(cfg)):
+    for layer, window in enumerate(_serve_windows(cfg, serve_window)):
         p = tree_from_items([(path, leaf[layer]) for path, leaf in items])
-        x = _apply_block("attn", p, x, cfg, window)
-    return x, None, torch.zeros((), dtype=torch.float32, device=x.device)
+        st = None if states is None else {
+            name: leaf[layer] for name, leaf in states.items()}
+        x, _ = _apply_block("attn", p, x, cfg, window, st, index)
+    return x, states, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -155,8 +210,9 @@ def _embed(params, cfg, tokens, prefix=None):
     if prefix is not None:
         raise _not_ported("prefix embeddings (vlm / audio)")
     x = params["embed"][tokens]
-    return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
-                            device=x.device)
+    # made on the device: a host tensor copied over would synchronise
+    return x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
+                          device=x.device)
 
 
 def _head(params, cfg, x):
@@ -191,3 +247,54 @@ def lm_loss(cfg, params, batch):
     loss = cross_entropy(logits, batch["labels"])
     total = loss + cfg.router_aux_coef * aux
     return total, {"loss": loss, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# Serving lanes (forward only; states are updated in place)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def lm_prefill(cfg, params, tokens, buf_len, prefix=None, serve_window=0):
+    """Run the prompt through the stack, filling fresh caches.
+    Returns (last-token logits, states)."""
+    x = _embed(params, cfg, tokens, prefix)
+    states = init_states(cfg, x.shape[0], buf_len, x.dtype, device=x.device)
+    x, states, _ = run_blocks(params["blocks"], x, cfg, states=states,
+                              index=0, serve_window=serve_window)
+    return _head(params, cfg, x[:, -1:])[:, 0], states
+
+
+@torch.no_grad()
+def lm_make_state(cfg, params, batch_size, buf_len, prefix=None,
+                  serve_window=0):
+    """Blank decode states for ``batch_size`` sequences plus the stream
+    start index (serving slot-reset / chunked-prefill entry point). Prefix
+    inputs (vlm / audio) are not ported, so the start is always 0."""
+    if prefix is not None:
+        raise _not_ported("prefix embeddings (vlm / audio)")
+    del serve_window
+    states = init_states(cfg, batch_size, buf_len,
+                         params["embed"].dtype, device=params["embed"].device)
+    return states, 0
+
+
+@torch.no_grad()
+def lm_prefill_chunk(cfg, params, states, tokens, index, serve_window=0):
+    """Run ``tokens`` (B, C) through the stack at absolute positions
+    ``index..index+C-1``, updating the (possibly ring) caches in place.
+    Returns (last-token logits (B, V), states): feeding a prompt chunk by
+    chunk reproduces the one-shot ``lm_prefill``."""
+    x = _embed(params, cfg, tokens)
+    x, states, _ = run_blocks(params["blocks"], x, cfg, states=states,
+                              index=int(index), serve_window=serve_window)
+    return _head(params, cfg, x[:, -1:])[:, 0], states
+
+
+@torch.no_grad()
+def lm_decode_step(cfg, params, states, token, index, serve_window=0):
+    """One decode step. token: (B, 1) int; index: the token's absolute
+    position. Returns (logits (B, V), states)."""
+    x = _embed(params, cfg, token)
+    x, states, _ = run_blocks(params["blocks"], x, cfg, states=states,
+                              index=int(index), serve_window=serve_window)
+    return _head(params, cfg, x)[:, 0], states

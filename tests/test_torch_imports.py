@@ -1,0 +1,51 @@
+"""Every module of the port imports without JAX and without the JAX
+package, and the port's entry points default to the card."""
+from __future__ import annotations
+
+import dataclasses
+import inspect
+import os
+import pathlib
+import subprocess
+import sys
+
+from repro_torch.core.engine import ConsensusEngine
+from repro_torch.data.synthetic import classification_task
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_WALK = """
+import pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    __import__(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_every_port_module_imports_without_jax():
+    """A fresh interpreter imports every module of ``repro_torch`` (found
+    by ``pkgutil.walk_packages``); neither ``jax`` nor ``repro`` ends up in
+    ``sys.modules``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _WALK], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n = int(out.stdout.strip().splitlines()[-1])
+    expected = {".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+                for p in (ROOT / "src" / "repro_torch").rglob("*.py")}
+    assert n == len(expected) - 1      # all but the package's own __init__
+
+
+def test_entry_points_default_to_the_card():
+    fields = {f.name: f.default for f in dataclasses.fields(ConsensusEngine)}
+    assert fields["device"] == "cuda"
+    sig = inspect.signature(classification_task)
+    assert sig.parameters["device"].default == "cuda"
+    data = classification_task(n_train=16, n_test=8, device="cpu")
+    assert data["x_train"].device.type == "cpu"

@@ -20,6 +20,7 @@ import torch
 from repro.kernels.pullpush import (
     fused_round as jax_fused_round, fused_round_ref as jax_fused_round_ref,
 )
+from repro_torch.kernels import _build
 from repro_torch.kernels.pullpush import pullpush as pk
 from repro_torch.kernels.pullpush import ref
 
@@ -124,7 +125,7 @@ def test_wrappers_on_cpu_take_the_plain_version():
     assert res.data_ptr() == inplace.data_ptr()
     assert torch.equal(inplace, p_out)
     assert all(v == 0 for v in pk.LAUNCHES.values())
-    assert pk._lib is None          # nothing was built for the CPU path
+    assert "pullpush" not in _build._libs   # nothing built for the CPU path
 
 
 @pytest.mark.parametrize("bad, err", [
@@ -163,10 +164,10 @@ def test_guards_run_before_dispatch_and_build(monkeypatch):
         pk.mix_shard(torch.zeros((4, 8), device="meta"),
                      torch.zeros((4, 4)), torch.zeros(4))
     monkeypatch.undo()
-    monkeypatch.setattr(pk, "_lib", None)
-    monkeypatch.setattr(pk.shutil, "which", lambda name: None)
-    monkeypatch.setattr(pk.os.path, "exists", lambda p: False)
-    monkeypatch.setattr(pk, "_BUILD_DIR", pk._BUILD_DIR / "no-such-dir")
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR / "no-such-dir")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         pk.build()
 
@@ -180,7 +181,8 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
             "from repro_torch.kernels.pullpush import pullpush as pk\n"
             "x = torch.ones((2, 8)); T = torch.full((2, 2), 0.5)\n"
             "pk.fused_round(x, T, 0.1, 0.0)\n"
-            "assert pk._lib is None and not pk.build_info\n"
+            "from repro_torch.kernels import _build\n"
+            "assert not _build._libs and not _build.build_info\n"
             "print('ok')\n")
     env = {"PATH": str(tmp_path), "PYTHONPATH": ":".join(sys.path)}
     out = subprocess.run([sys.executable, "-c", code], env=env,
