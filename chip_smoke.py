@@ -6,7 +6,8 @@
 Phases (any failure raises, and the script exits non-zero):
 
 1. Card: requires CUDA, prints ``nvidia-smi``'s name and power limit,
-   builds the kernels from ``src/repro_torch/kernels/pullpush/csrc``.
+   builds the three CUDA sources (``src/repro_torch/kernels/{pullpush,
+   swa_attention,mamba_scan}/csrc``), one ``nvcc`` each, all at once.
 2. Kernels: every kernel of the DPPF round against its plain PyTorch
    version at (4, 300), (8, 4097), (5, 2^26 + 3), (32, 65537) and at the
    main path's shape R = 4, n = 1,216,385,024 (yi-6b at LAYERS = 4); then
@@ -21,10 +22,12 @@ Phases (any failure raises, and the script exits non-zero):
    card.
 5. Attention kernel: ``swa_attention`` against its plain version in fp32
    and bf16 on the six cases of ``tests/test_kernels.py``, a ragged
-   non-causal case, an ``Sq > Skv`` case and the serving shapes (B = 4,
-   H = 8 over 4 kv heads, S = 8160, hd = 256: local window 4096 with cap
-   50, global with cap 50, and cap 0 / window 0 where one PyTorch call,
-   ``scaled_dot_product_attention``, computes the same function); times
+   non-causal case, an ``Sq > Skv`` case, an hd = 112 case and the
+   serving shapes (B = 4, H = 8 over 4 kv heads, S = 8160, hd = 256:
+   local window 4096 with cap 50, global with cap 50, and cap 0 / window 0
+   where one PyTorch call, ``scaled_dot_product_attention``, computes the
+   same function; zamba2-7b's B = 4, 32 heads over 32, S = 8160,
+   hd = 112, cap 0 / window 0); times
    kernel, plain version and that call (CUDA events, median of 20 after 3
    warm-ups).
 6. Serving gemma2-2b at full width and full depth (26 layers, bf16,
@@ -37,6 +40,25 @@ Phases (any failure raises, and the script exits non-zero):
    (b) one prompt through ``make_state`` +
    ``prefill_chunk`` in chunks of 512; (c) the continuous-batching
    launcher ``repro_torch.launch.serve.main`` at full size.
+7. SSD kernel: ``ssd_chunks`` against its plain version on the three
+   cases of ``tests/test_kernels.py``, then in the model's layout a
+   ragged sequence (S = 70 in chunks of 32) and the serving shape
+   (B = 4, S = 8160 -> 64 chunks of 128 with a 96-token last one,
+   H = 112, P = N = 64, B_ / C_ as strided column slices); times kernel
+   and plain version (CUDA events, median of 20 after 3 warm-ups). No
+   single PyTorch call computes this function.
+8. Serving zamba2-7b at full width and full depth (81 layers: 68 Mamba2
+   blocks and 13 occurrences of one shared attention + MLP block, bf16,
+   5,737,416,000 random parameters from a seeded generator): (0) one
+   Mamba2 block's kernel route against the plain ``_ssd_chunked`` route
+   at full width, fp32, S = 1024, with non-zero carried-in states;
+   (a) ``generate`` on 4 prompts of 8160 tokens, greedy, 32 new tokens,
+   buf_len 8192 (counters zeroed just before and read just after: 68
+   ``ssd_chunks`` and 13 ``swa_attention`` launches), then the same call
+   traced (8 new tokens) with CUDA events around each SSD scan and its
+   kernel; (b) one prompt in chunks of 512 (carried ssm and conv states);
+   (c) the serving launcher: 5 requests of 256 / 512 / 1024 / 256 / 512
+   tokens, 4 slots, chunk 64, 16 new tokens.
 
 It prints a ``kernels`` line, the ``{"kernels": [...]}`` record and, last,
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -70,8 +92,9 @@ MAIN_R, MAIN_N = 4, 1_216_385_024
 LAYERS, LR = 4, 0.3
 TOL = 1e-4          # max abs error relative to the output's scale
 SOURCE = "src/repro_torch/kernels/pullpush/csrc/pullpush.cu"
-# H100 SXM dense bf16 tensor-core peak (NVIDIA's data sheet)
+# H100 SXM dense bf16 and TF32 tensor-core peaks (NVIDIA's data sheet)
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 # swa_attention cases: (B, H, Hkv, Sq, Skv, hd, window, cap, causal); the
 # first six are tests/test_kernels.py::ATTN_CASES
 ATTN_CASES = (
@@ -83,6 +106,7 @@ ATTN_CASES = (
     (1, 4, 2, 128, 1024, 64, 256, 0.0, True),
     (1, 2, 1, 128, 200, 64, 0, 0.0, False),     # ragged, not causal
     (1, 2, 1, 300, 200, 64, 0, 0.0, True),      # Sq > Skv
+    (1, 4, 4, 200, 200, 112, 96, 30.0, True),   # zamba2-7b's head_dim
 )
 # the serving shapes: gemma2-2b's local and global layers at S = 8160,
 # and the cap 0 / window 0 case one PyTorch call computes
@@ -91,10 +115,26 @@ ATTN_SLICE = {
     "local": (4, 8, 4, SERVE_S, SERVE_S, 256, 4096, 50.0, True),
     "global": (4, 8, 4, SERVE_S, SERVE_S, 256, 0, 50.0, True),
     "library": (4, 8, 4, SERVE_S, SERVE_S, 256, 0, 0.0, True),
+    # zamba2-7b's shared attention: 32 heads over 32 kv heads, hd 112
+    "zamba2": (4, 32, 32, SERVE_S, SERVE_S, 112, 0, 0.0, True),
 }
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 ATTN_SOURCE = "src/repro_torch/kernels/swa_attention/csrc/swa_attention.cu"
 ATTN_REPLACES = "src/repro/kernels/swa_attention/swa_attention.py:85"
+# ssd_chunks cases: (B, H, nc, L, P, N), tests/test_kernels.py::SSD_CASES
+SSD_CASES = (
+    (1, 2, 2, 32, 16, 8),
+    (2, 4, 3, 64, 32, 16),
+    (1, 1, 4, 128, 64, 64),
+)
+# in the model's layout, (Bt, S, H, P, N, L): a ragged last chunk (70 =
+# 2 x 32 + 6), and zamba2-7b's prefill
+SSD_RAGGED = (2, 70, 3, 16, 8, 32)
+SSD_SLICE = (4, SERVE_S, 112, 64, 64, 128)
+SSD_SOURCE = "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu"
+SSD_REPLACES = "src/repro/kernels/mamba_scan/mamba_scan.py:46"
+# zamba2-7b's parameter tree, counted from the reference's init
+ZAMBA2_PARAMS = 5_737_416_000
 REPLACES = {
     "fused_round": "src/repro/kernels/pullpush/pullpush.py:194",
     "partial_gram": "src/repro/kernels/pullpush/pullpush.py:298",
@@ -444,6 +484,7 @@ def phase_attention(swa, plain):
     by = {(r["case"], r["dtype"]): r for r in rows}
     head, local = by[("global", "bfloat16")], by[("local", "bfloat16")]
     lib = by[("library", "bfloat16")]
+    z = by[("zamba2", "bfloat16")]
     return {
         "name": "swa_attention", "route": "cuda", "source": ATTN_SOURCE,
         "replaces": ATTN_REPLACES, "launches": 0,
@@ -461,7 +502,9 @@ def phase_attention(swa, plain):
         # scaled_dot_product_attention(is_causal, enable_gqa) at cap 0
         "library_ms": lib["library_ms"], "ms_library_case": lib["ms"],
         "ms_local": local["ms"], "plain_ms_local": local["plain_ms"],
-        "bound_ms_local": local["bound_ms"]}
+        "bound_ms_local": local["bound_ms"],
+        "ms_hd112": z["ms"], "plain_ms_hd112": z["plain_ms"],
+        "bound_ms_hd112": z["bound_ms"], "library_ms_hd112": z["library_ms"]}
 
 
 # ---------------------------------------------------------------------------
@@ -653,6 +696,312 @@ def phase_serving(swa):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the SSD kernel
+# ---------------------------------------------------------------------------
+
+def _rel_err(got, want):
+    """(max abs error, the plain output's scale)."""
+    return (float((got - want).abs().max()),
+            max(float(want.abs().max()), 1e-30))
+
+
+def _ssd_check(name, errs, got, want):
+    for what, g, w in zip(("y", "states"), got, want):
+        err, scale = _rel_err(g, w)
+        errs.append((err, err / scale))
+        if not err <= TOL * scale:
+            raise AssertionError(f"ssd_chunks {name} {what}: max abs err "
+                                 f"{err:.3e} > {TOL} x {scale:.3e}")
+
+
+def _ssd_bound(Bt, S, H, P, N, L):
+    """Least time in ms for ``ssd_chunks_seq`` on S tokens in chunks of L:
+    x, B, C, a read once and y, states written once over the memory rate,
+    or the operations the function needs over the fp32 peak, whichever is
+    larger. A chunk of v tokens has v (v + 1) / 2 causal (t, s) pairs; per
+    pair y = (G o decay) x needs 2 P FLOPs per head and S = G o decay one
+    multiply per head, G = C B^T needs 2 N once per (b, chunk) (it does
+    not depend on the head), and the state x^T (B o rem) needs 2 P N per
+    token and head. Pairs with s > t and tokens past S need nothing."""
+    nc = -(-S // L)
+    pairs = sum(v * (v + 1) // 2 for v in (min(L, S - c * L)
+                                            for c in range(nc)))
+    nbytes = 4 * (2 * Bt * S * H * P + Bt * H * nc * P * N
+                  + 2 * Bt * S * N + Bt * S * H)
+    flops = (Bt * H * (2 * P * pairs + pairs + 2 * P * N * S)
+             + Bt * 2 * N * pairs)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), t_bytes, t_ops, flops
+
+
+def phase_ssd(mk, ssd_ref):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    errs = []
+
+    def a_log_of(shape, scale=1.0):
+        return -scale * torch.nn.functional.softplus(
+            torch.randn(shape, generator=gen, device="cuda"))
+    for i, (B, H, nc, L, P, N) in enumerate(SSD_CASES):
+        x = torch.randn((B, H, nc, L, P), generator=gen, device="cuda")
+        B_, C_ = (torch.randn((B, nc, L, N), generator=gen, device="cuda")
+                  for _ in range(2))
+        a = a_log_of((B, H, nc, L))
+        got = mk.ssd_chunks(x, B_, C_, a)
+        torch.cuda.synchronize()
+        _ssd_check(f"case{i}", errs, got,
+                   ssd_ref.ssd_chunks_plain(x, B_, C_, a))
+        print(f"  checked case{i} {(B, H, nc, L, P, N)}")
+
+    def seq_inputs(Bt, S, H, P, N, decay):
+        xh = torch.randn((Bt, S, H, P), generator=gen, device="cuda")
+        conv = torch.randn((Bt, S, 2 * N + 64), generator=gen,
+                           device="cuda")
+        # B_ and C_ as strided column slices, as the conv output gives them
+        return (xh, conv[..., :N], conv[..., N:2 * N],
+                a_log_of((Bt, S, H)) * decay)
+    # the model's layout: a ragged last chunk (the plain version pads it
+    # with zeros, the kernel reads past S as zero), then the serving shape,
+    # whose decay spans zamba2's A = 1..8 (la falls to about -700 over a
+    # chunk)
+    for name, (Bt, S, H, P, N, L), decay in (
+            ("ragged", SSD_RAGGED, 1.0),
+            ("serving shape", SSD_SLICE,
+             torch.linspace(1.0, 8.0, SSD_SLICE[2], device="cuda"))):
+        xh, B_, C_, a = seq_inputs(Bt, S, H, P, N, decay)
+        got = mk.ssd_chunks_seq(xh, B_, C_, a, L)
+        torch.cuda.synchronize()
+        _ssd_check(name, errs, got,
+                   ssd_ref.ssd_chunks_seq_plain(xh, B_, C_, a, L))
+        del got
+        torch.cuda.empty_cache()
+        print(f"  checked the {name} {(Bt, S, H, P, N, L)}: "
+              f"{-(-S // L)} chunks")
+    ms = _time_ms(lambda: mk.ssd_chunks_seq(xh, B_, C_, a, L))
+    plain_ms = _time_ms(lambda: ssd_ref.ssd_chunks_seq_plain(xh, B_, C_, a,
+                                                             L))
+    bound, bound_by, t_bytes, t_ops, flops = _ssd_bound(Bt, S, H, P, N, L)
+    row = {"name": "ssd_chunks", "route": "cuda", "source": SSD_SOURCE,
+           "replaces": SSD_REPLACES, "launches": 0,
+           "max_abs_err": max(e for e, _ in errs),
+           "max_rel_err": max(r for _, r in errs), "tol_rel": TOL,
+           "shape": [Bt, S, H, P, N, L], "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": bound_by,
+           "bound_ms_bytes": t_bytes, "bound_ms_fp32_ops": t_ops,
+           "bound_ms_tf32_ops": flops / TF32_FLOPS * 1e3, "flops": flops,
+           "library_ms": None,
+           "library_note": "no single PyTorch call computes the SSD chunk"}
+    print("  ssd_chunks " + json.dumps(row))
+    del xh, B_, C_, a
+    torch.cuda.empty_cache()
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 8: serving zamba2-7b
+# ---------------------------------------------------------------------------
+
+def _mamba_route_check(mk, cfg):
+    """(0) One Mamba2 block at full width in fp32, S = 1024, with non-zero
+    carried-in ssm and conv states: the kernel route (no gradient
+    recorded) against the plain ``_ssd_chunked`` route (a gradient
+    recorded), outputs and new states within 1e-4 of their scale."""
+    from repro_torch.models import ssm
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    p = ssm.init_mamba(gen, cfg, torch.float32, device="cuda")
+    x = torch.randn((1, 1024, cfg.d_model), generator=gen, device="cuda")
+    state = ssm.init_mamba_state(cfg, 1, torch.float32, device="cuda")
+    state["ssm"].normal_(generator=gen)
+    state["conv"].normal_(generator=gen)
+    plain_state = {k: v.clone() for k, v in state.items()}
+    before = mk.LAUNCHES["ssd_chunks"]
+    with torch.no_grad():
+        got, _ = ssm.mamba_forward(p, x, cfg, state)
+    if mk.LAUNCHES["ssd_chunks"] != before + 1:
+        raise AssertionError("the kernel route was not taken")
+    with torch.enable_grad():
+        want, _ = ssm.mamba_forward(p, x.clone().requires_grad_(True), cfg,
+                                    plain_state)
+    if mk.LAUNCHES["ssd_chunks"] != before + 1:
+        raise AssertionError("the plain route launched the kernel")
+    out = {}
+    for name, g, w in (("out", got, want),
+                       ("ssm", state["ssm"], plain_state["ssm"]),
+                       ("conv", state["conv"], plain_state["conv"])):
+        err, scale = _rel_err(g, w.detach())
+        out[name] = [err, scale]
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"mamba kernel route {name}: {err:.3e} > "
+                                 f"1e-4 x {scale:.3e}")
+    print("  (0) mamba block, kernel route vs plain, full width, fp32, "
+          "S=1024, carried states: [max abs err, scale] " + json.dumps(out))
+
+
+def _scan_events():
+    """CUDA events around every SSD scan and its kernel call (the glue is
+    the scan less the kernel). Returns (events, undo)."""
+    from repro_torch.kernels.mamba_scan import ops
+    events = {"scan": [], "kernel": []}
+    real = {"ssd_scan": ops.ssd_scan, "ssd_chunks_seq": ops.ssd_chunks_seq}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            events[name].append((e0, e1))
+            return out
+        return run
+    ops.ssd_scan = timed("scan", real["ssd_scan"])
+    ops.ssd_chunks_seq = timed("kernel", real["ssd_chunks_seq"])
+
+    def undo():
+        ops.ssd_scan = real["ssd_scan"]
+        ops.ssd_chunks_seq = real["ssd_chunks_seq"]
+    return events, undo
+
+
+def phase_zamba2(swa, mk):
+    from repro_torch.configs import get_arch
+    from repro_torch.core.engine import tree_items
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import build_model
+    from repro_torch.serving import generate
+
+    cfg = get_arch("zamba2-7b")
+    _mamba_route_check(mk, cfg)
+    torch.cuda.empty_cache()
+
+    B, NEW, BUF = 4, 32, 8192
+    n_mamba = cfg.blocks().count("mamba")
+    n_attn = cfg.blocks().count("shared_attn")
+    print(f"  config {cfg.name}: d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}, head_dim {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, layers {cfg.n_layers} "
+          f"({n_mamba} mamba, {n_attn} shared_attn), ssm heads "
+          f"{cfg.ssm_heads}, state {cfg.ssm_state}, chunk {cfg.ssm_chunk}, "
+          f"dtype {cfg.dtype}; B={B} S={SERVE_S} new={NEW} buf_len={BUF}")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    n = sum(leaf.numel() for _, leaf in tree_items(params))
+    print(f"  parameters {n} (param_count() says {cfg.param_count()}: it "
+          "overcounts Mamba blocks, ROADMAP Queue 3)")
+    if n != ZAMBA2_PARAMS:
+        raise AssertionError(f"zamba2-7b has {n} parameters, not "
+                             f"{ZAMBA2_PARAMS}")
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, SERVE_S))).cuda()
+
+    # (a) the main path: generate, counters zeroed just before
+    timed, events = _events_of(model, ("prefill", "decode_step"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    swa.reset_launches()
+    mk.reset_launches()
+    t0 = time.perf_counter()
+    toks, logits = generate(timed, params, {"tokens": prompts},
+                            max_new_tokens=NEW, buf_len=BUF)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"ssd_chunks": mk.LAUNCHES["ssd_chunks"],
+                "swa_attention": swa.LAUNCHES["swa_attention"]}
+    peak = torch.cuda.max_memory_allocated()
+    prefill_ms = events["prefill"][0][0].elapsed_time(events["prefill"][0][1])
+    dec = [a.elapsed_time(b) for a, b in events["decode_step"]]
+    a = {"prefill_ms": prefill_ms, "ttft_ms": prefill_ms,
+         "decode_ms_per_token": statistics.mean(dec),
+         "decode_ms_median": statistics.median(dec),
+         "wall_s": wall, "tok_s": B * NEW / wall,
+         "prefill_tok_s": B * SERVE_S / (prefill_ms / 1e3),
+         "peak_bytes": peak, "allocated_before_bytes": before,
+         "launches": launches}
+    print("  (a) generate " + json.dumps(a))
+    print(f"  first tokens {toks[:, :8].tolist()}")
+    if launches != {"ssd_chunks": n_mamba, "swa_attention": n_attn}:
+        raise AssertionError(f"launches in the prefill {launches}, not "
+                             f"{n_mamba} ssd_chunks and {n_attn} "
+                             "swa_attention")
+    if toks.shape != (B, NEW) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("generate gave a bad shape or non-finite logits")
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError("token ids out of the vocabulary")
+    # where the time goes: the same call traced (8 new tokens), with
+    # events around each SSD scan and its kernel
+    scan_events, undo = _scan_events()
+    try:
+        prof = _profile_generate(generate, timed, params, prompts, BUF, 8)
+    finally:
+        undo()
+    scan_ms = sum(a.elapsed_time(b) for a, b in scan_events["scan"])
+    kernel_ms = sum(a.elapsed_time(b) for a, b in scan_events["kernel"])
+    traced_prefill = events["prefill"][-1][0].elapsed_time(
+        events["prefill"][-1][1])
+    prof["prefill_ms"] = traced_prefill
+    prof["ssd_scans"] = len(scan_events["scan"])
+    prof["ssd_scan_ms"] = scan_ms
+    prof["ssd_kernel_ms"] = kernel_ms
+    prof["ssd_glue_ms"] = scan_ms - kernel_ms
+    prof["ssd_glue_share_of_prefill"] = (scan_ms - kernel_ms) / traced_prefill
+    print("  (a) profile " + json.dumps(prof))
+
+    # (b) one prompt in chunks of 512: ssm and conv states carried
+    swa.reset_launches()
+    mk.reset_launches()
+    states, start = model.make_state(params, {"tokens": prompts[:1]}, BUF)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for j in range(0, SERVE_S, 512):
+        lg, states = model.prefill_chunk(params, states,
+                                         prompts[:1, j:j + 512], start + j)
+    e1.record()
+    torch.cuda.synchronize()
+    n_chunks = -(-SERVE_S // 512)
+    diff = float((lg[0] - logits[0]).abs().max())
+    print(f"  (b) chunked prefill (512): {e0.elapsed_time(e1):.1f} ms, "
+          f"ssd launches {mk.LAUNCHES['ssd_chunks']}, swa launches "
+          f"{swa.LAUNCHES['swa_attention']}, max |last-token logits - "
+          f"(a)'s| {diff:.4f} (information; logits scale "
+          f"{float(logits[0].abs().max()):.2f})")
+    if (mk.LAUNCHES["ssd_chunks"] != n_mamba * n_chunks
+            or swa.LAUNCHES["swa_attention"] != n_attn):
+        raise AssertionError("the chunks did not run the kernels")
+    if not bool(torch.isfinite(lg).all()):
+        raise AssertionError("non-finite chunked-prefill logits")
+    del params, states, timed, model, lg, logits, toks
+    torch.cuda.empty_cache()
+
+    # (c) the continuous-batching launcher at full size
+    swa.reset_launches()
+    mk.reset_launches()
+    # prompts of 256 / 512 / 1024 / 256 / 512 tokens: each ends in a
+    # 64-token tail fed one token per decode step, as the reference's
+    # scheduler does; 5 requests (cut from 8 for time) so that one is
+    # admitted mid-stream
+    report = serve_main(["--arch", "zamba2-7b", "--requests", "5",
+                         "--max-slots", "4", "--prompt-len", "512",
+                         "--new-tokens", "16", "--chunk", "64"])
+    c = {"steps": report.steps, "generated": report.generated,
+         "occupancy": report.occupancy, "wall_s": report.wall_s,
+         "tok_s": report.tok_s, "ttft_mean_ms": report.ttft_mean_s * 1e3,
+         "ssd_launches": mk.LAUNCHES["ssd_chunks"],
+         "swa_launches": swa.LAUNCHES["swa_attention"]}
+    print("  (c) launcher " + json.dumps(c))
+    if sorted(report.results) != list(range(5)) or any(
+            len(r.tokens) != 16 for r in report.results.values()):
+        raise AssertionError("the launcher left requests unfinished")
+    if mk.LAUNCHES["ssd_chunks"] == 0 or swa.LAUNCHES["swa_attention"] == 0:
+        raise AssertionError("the launcher launched no ssd_chunks or "
+                             "swa_attention")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -664,8 +1013,10 @@ def main():
     from repro_torch.kernels.pullpush import pullpush as pk
     from repro_torch.kernels.pullpush import ref
     from repro_torch.kernels.swa_attention import swa_attention_plain
+    from repro_torch.kernels.mamba_scan import ref as ssd_ref
     swa = importlib.import_module(
         "repro_torch.kernels.swa_attention.swa_attention")
+    mk = importlib.import_module("repro_torch.kernels.mamba_scan.mamba_scan")
 
     print("phase 1: card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -675,7 +1026,8 @@ def main():
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    _build.build(pk.SOURCE, swa.SOURCE)     # one nvcc per source, in parallel
+    # one nvcc per source, all started together
+    _build.build(pk.SOURCE, swa.SOURCE, mk.SOURCE)
     print(f"  kernels built in {time.perf_counter() - t0:.2f} s")
     for name, info in _build.build_info.items():
         print(f"  {name}: {info['path']}")
@@ -708,8 +1060,26 @@ def main():
 
     print("phase 6: serving gemma2-2b (full width, full depth)")
     t0 = time.perf_counter()
-    rows["swa_attention"]["launches"] = phase_serving(swa)
+    by_path = {"gemma2-2b serving": phase_serving(swa)}
     secs["serving"] = time.perf_counter() - t0
+
+    print("phase 7: ssd_chunks against its plain version")
+    t0 = time.perf_counter()
+    rows["ssd_chunks"] = phase_ssd(mk, ssd_ref)
+    secs["ssd"] = time.perf_counter() - t0
+
+    print("phase 8: serving zamba2-7b (full width, full depth)")
+    t0 = time.perf_counter()
+    zamba = phase_zamba2(swa, mk)
+    secs["zamba2"] = time.perf_counter() - t0
+    # launches on each main path that runs the kernel, and their sum
+    rows["swa_attention"]["launches_by_path"] = dict(
+        by_path, **{"zamba2-7b serving": zamba["swa_attention"]})
+    rows["swa_attention"]["launches"] = sum(
+        rows["swa_attention"]["launches_by_path"].values())
+    rows["ssd_chunks"]["launches_by_path"] = {
+        "zamba2-7b serving": zamba["ssd_chunks"]}
+    rows["ssd_chunks"]["launches"] = zamba["ssd_chunks"]
     secs["total"] = time.perf_counter() - t_start
     print("phase seconds " + json.dumps(secs))
 

@@ -73,6 +73,20 @@ def tree_from_items(items):
     return out
 
 
+def tree_stack(trees):
+    """One tree whose leaves stack the given trees' leaves on a new dim 0."""
+    items = [tree_items(t) for t in trees]
+    return tree_from_items([(path, torch.stack([it[i][1] for it in items]))
+                            for i, (path, _) in enumerate(items[0])])
+
+
+def tree_at(tree, i):
+    """The views ``leaf[i]`` of a stacked tree: writes through them reach
+    the stack."""
+    return tree_from_items([(path, leaf[i]) for path, leaf in
+                            tree_items(tree)])
+
+
 @dataclass(frozen=True)
 class FlatLayout:
     """Static description of the flat view (hashable)."""

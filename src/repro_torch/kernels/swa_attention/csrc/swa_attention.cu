@@ -9,7 +9,8 @@
 // (window > 0); softmax and the product with v accumulate in fp32, and the
 // output is written in the inputs' type.
 //
-// Design. One block of 256 threads per (q tile of 64 rows, head, batch).
+// Design. One block of 256 threads per (q tile of 64 rows, head, batch),
+// one template instance per head_dim: 64, 112 (zamba2-7b), 128 and 256.
 // The block stages its Q tile once (scaled, fp32) in shared memory, then
 // walks the kv band in tiles of 64 keys:
 //   1. K and V tiles are staged in shared memory as fp32 (rows padded to
@@ -255,6 +256,9 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<T, 64>(q, k, v, o, sq, sk, sv, so, B, H, Hkv, Sq, Skv,
                            causal, window, cap, scale, stream);
+    case 112:  // zamba2-7b's shared attention (7 x 16 columns a thread)
+      return launch<T, 112>(q, k, v, o, sq, sk, sv, so, B, H, Hkv, Sq, Skv,
+                            causal, window, cap, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, sq, sk, sv, so, B, H, Hkv, Sq, Skv,
                             causal, window, cap, scale, stream);

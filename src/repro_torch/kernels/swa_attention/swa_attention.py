@@ -26,7 +26,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.swa_attention.ref import swa_attention_plain
 
-HEAD_DIMS = (64, 128, 256)        # the kernel's template instances
+HEAD_DIMS = (64, 112, 128, 256)   # the kernel's template instances
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = {"swa_attention": 0}

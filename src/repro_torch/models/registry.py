@@ -9,8 +9,9 @@
     make_state(params, batch, buf_len, window=0) -> (blank states, start)
     prefill_chunk(params, states, tokens, index, window=0) -> (logits, states)
 
-for decoder-only configs whose blocks are all ``attn``/``local_attn``; the
-other families are not ported yet. ``batch["tokens"]`` may be a tensor or
+for decoder-only configs whose blocks are all ``attn``/``local_attn`` and
+for the hybrid one (``mamba`` + ``shared_attn``, zamba2-7b); the other
+families are not ported yet. ``batch["tokens"]`` may be a tensor or
 a numpy array; the serving lanes move it to the parameters' device. The
 serving lanes run without gradients and update ``states`` in place.
 
@@ -20,6 +21,7 @@ packages compute from the same numbers.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -100,17 +102,20 @@ def _to_torch(a, device, dtype):
 def params_from_numpy(cfg: ModelConfig, tree, *, device, dtype=None):
     """The reference's parameter tree (nested dicts of numpy arrays, as
     ``jax.tree.map(np.asarray, params)`` gives it) -> the port's params on
-    ``device`` in ``dtype`` (default: ``cfg.dtype``). Raises ``ValueError``
-    on a missing or extra leaf or a shape mismatch."""
-    dtype = dtype or getattr(torch, cfg.dtype)
+    ``device``: leaves the model keeps in its working type in ``dtype``
+    (default: ``cfg.dtype``), fp32 leaves (Mamba's ``A_log``, ``D``,
+    ``dt_bias``) in fp32. Raises ``ValueError`` on a missing or extra leaf
+    or a shape mismatch."""
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg,
+                                  dtype=str(dtype).removeprefix("torch."))
     return _tree_from_numpy(lm.init_lm(cfg, None, device="meta"), tree,
-                            f"parameter tree of {cfg.name}", device,
-                            lambda want: dtype)
+                            f"parameter tree of {cfg.name}", device)
 
 
-def _tree_from_numpy(want, tree, what, device, dtype_of):
+def _tree_from_numpy(want, tree, what, device):
     """Check a numpy tree against the port's ``want`` (paths and shapes)
-    and copy it onto ``device``."""
+    and copy it onto ``device`` in ``want``'s dtypes."""
     want = dict(tree_items(want))
     got = dict(tree_items(tree))
     missing = sorted(set(want) - set(got))
@@ -122,21 +127,22 @@ def _tree_from_numpy(want, tree, what, device, dtype_of):
         if tuple(np.shape(leaf)) != tuple(want[path].shape):
             raise ValueError(f"{'/'.join(path)}: shape {np.shape(leaf)} != "
                              f"{tuple(want[path].shape)}")
-    return tree_from_items([(p, _to_torch(got[p], device, dtype_of(want[p])))
+    return tree_from_items([(p, _to_torch(got[p], device, want[p].dtype))
                             for p in sorted(got)])
 
 
 def states_from_numpy(cfg: ModelConfig, tree, *, device, dtype=None):
     """The reference's decode states (``jax.tree.map(np.asarray,
-    states)`` of ``make_state`` / ``prefill``) -> the port's stacked KV
-    caches on ``device``; k / v in ``dtype`` (default ``cfg.dtype``), pos
-    int32. Batch and buffer length are read from the tree."""
-    k = np.shape(tree["k"])
-    want = lm.init_states(cfg, k[1], k[2], torch.float32, device="meta")
-    dtype = dtype or getattr(torch, cfg.dtype)
-    return _tree_from_numpy(want, tree, f"state tree of {cfg.name}", device,
-                            lambda w: torch.int32 if w.dtype == torch.int32
-                            else dtype)
+    states)`` of ``make_state`` / ``prefill``) -> the port's stacked states
+    on ``device``: KV caches and conv states in ``dtype`` (default
+    ``cfg.dtype``), ``pos`` int32, SSM states fp32. Batch and buffer length
+    are read from the first KV cache of the tree."""
+    path, k = next((path, np.shape(leaf)) for path, leaf in tree_items(tree)
+                   if path[-1] == "k")
+    lead = 0 if path[0] == "remainder" else 1    # the stacked layer dim
+    want = lm.init_states(cfg, k[lead], k[lead + 1],
+                          dtype or getattr(torch, cfg.dtype), device="meta")
+    return _tree_from_numpy(want, tree, f"state tree of {cfg.name}", device)
 
 
 def flat_from_numpy(layout, flat, *, device):

@@ -1,31 +1,41 @@
-"""Decoder-only LM assembly for attention block patterns.
+"""Decoder-only LM assembly, config-driven over the block pattern.
 
-Counterpart of ``repro/models/transformer.py`` for ``attn``/``local_attn``
-patterns (the dense families: yi-6b, gemma2-2b, internlm2-20b, qwen2-72b).
-Parameters keep the reference's tree: the layers are stacked on a leading
-dim under ``blocks/stack``, and ``run_blocks`` is a Python loop over that
-dim where the reference scans. Per-layer sliding windows follow the
-pattern (``local_attn`` -> ``sliding_window``, ``attn`` -> 0 = global).
+Counterpart of ``repro/models/transformer.py`` for the dense families
+(``attn``/``local_attn`` patterns: yi-6b, gemma2-2b, internlm2-20b,
+qwen2-72b) and the hybrid one (zamba2-7b: ``mamba`` blocks with one
+``shared_attn`` block). Parameters keep the reference's trees:
+
+* uniform layout: the layers are stacked on a leading dim under
+  ``blocks/stack``;
+* cycle layout: ``{"cycle": {"b<j>": stacked over the full pattern
+  cycles}, "shared": one attention + MLP block used at every shared_attn
+  position, "remainder": {"b<j>": the layers after the last full cycle}}``.
+
+``run_blocks`` is a Python loop where the reference scans. Per-layer
+sliding windows follow the pattern (``local_attn`` -> ``sliding_window``,
+``attn`` -> 0 = global).
 
 Serving: ``lm_prefill`` / ``lm_make_state`` / ``lm_prefill_chunk`` /
-``lm_decode_step`` run the stack over the stacked position-tagged KV
-caches (``init_states``), which the port updates in place. At ``index ==
-0`` the cache is blank, so attention over it is exactly causal
+``lm_decode_step`` run the stack over the stacked states (``init_states``:
+position-tagged KV caches, one per attention occurrence, and Mamba
+(ssm, conv) states), which the port updates in place. At ``index == 0``
+the cache is blank, so attention over it is exactly causal
 self-attention over the chunk: there ``_self_attention`` calls the
 hand-written ``swa_attention`` kernel (``kernels/swa_attention``). Decode
 steps and later chunks attend over the cache with ``attend``, as the
 reference does in jnp; training keeps ``attend`` too (the kernel has no
-backward). MoE, Mamba, xLSTM and shared-attention blocks are not ported
-yet.
+backward). Mamba blocks route their chunked scan as ``models/ssm.py``
+says. MoE and xLSTM blocks are not ported yet.
 """
 from __future__ import annotations
 
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.core.engine import tree_from_items, tree_items
+from repro_torch.core.engine import tree_at, tree_stack
 from repro_torch.kernels.swa_attention import ops as swa_ops
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     embed_init, init_mlp, mlp, rms_norm, softcap,
 )
@@ -97,25 +107,42 @@ def attn_block(p, x, cfg, window=None, cache=None, index=0):
     return x, cache
 
 
+def _apply_block_inner(kind, p, x, cfg, window, state, index):
+    if kind in ("attn", "shared_attn"):
+        return attn_block(p, x, cfg, window, state, index)
+    if kind == "mamba":
+        out, state = ssm_lib.mamba_forward(p, x, cfg, state)
+        return x + out, state
+    raise _not_ported(f"{kind!r} blocks")
+
+
 def _apply_block(kind, p, x, cfg, window, state=None, index=0):
     """Dispatch. Returns (x, new_state). With ``cfg.remat`` (and no state)
     the block body is rematerialized in the backward pass (activation
     checkpointing)."""
-    if kind != "attn":
-        raise _not_ported(f"{kind!r} blocks")
     if cfg.remat and state is None:
         return torch.utils.checkpoint.checkpoint(
-            lambda pp, xx: attn_block(pp, xx, cfg, window)[0], p, x,
+            lambda pp, xx: _apply_block_inner(kind, pp, xx, cfg, window,
+                                              None, index)[0], p, x,
             use_reentrant=False), None
-    return attn_block(p, x, cfg, window, state, index)
+    return _apply_block_inner(kind, p, x, cfg, window, state, index)
+
+
+_INIT = {
+    "attn": init_attn_block,
+    "shared_attn": init_attn_block,
+    "mamba": ssm_lib.init_mamba,
+}
 
 
 def _block_state(kind, cfg, batch, buf_len, dtype, *, device):
     """Fresh decode/prefill state for one block."""
-    if kind != "attn":
-        raise _not_ported(f"{kind!r} block states")
-    return attn.init_cache(batch, cfg.n_kv_heads, buf_len, cfg.head_dim,
-                           dtype, device=device)
+    if kind in ("attn", "shared_attn"):
+        return attn.init_cache(batch, cfg.n_kv_heads, buf_len, cfg.head_dim,
+                               dtype, device=device)
+    if kind == "mamba":
+        return ssm_lib.init_mamba_state(cfg, batch, dtype, device=device)
+    raise _not_ported(f"{kind!r} block states")
 
 
 # ---------------------------------------------------------------------------
@@ -142,28 +169,55 @@ def _windows(cfg):
 
 
 def _check_supported(cfg):
-    if _layout(cfg) != "uniform" or _merged_pattern(cfg)[0][0] != "attn":
+    kinds = {k for k, _ in _merged_pattern(cfg)}
+    if kinds != {"attn"} and not kinds <= {"mamba", "shared_attn"}:
         raise _not_ported(f"block pattern {cfg.layer_pattern}")
 
 
+def _cycles(cfg):
+    """(pattern, full cycles, remainder layers) of the cycle layout."""
+    pat = _merged_pattern(cfg)
+    return (pat,) + divmod(cfg.n_layers, len(pat))
+
+
 def init_blocks(cfg, gen, dtype, *, device):
-    """The stacked layer tree ``{"stack": {...}}`` (leaves (L, ...))."""
+    """The layer tree: ``{"stack": {...}}`` (leaves (L, ...)) for uniform
+    patterns, ``{"cycle", "shared", "remainder"}`` for cycled ones."""
     _check_supported(cfg)
-    layers = [tree_items(init_attn_block(gen, cfg, dtype, device=device))
-              for _ in range(cfg.n_layers)]
-    stacked = [(path, torch.stack([layer[i][1] for layer in layers]))
-               for i, (path, _) in enumerate(layers[0])]
-    return {"stack": tree_from_items(stacked)}
+
+    def init(kind):
+        return _INIT[kind](gen, cfg, dtype, device=device)
+    if _layout(cfg) == "uniform":
+        return {"stack": tree_stack([init("attn")
+                                     for _ in range(cfg.n_layers)])}
+    pat, n_cycles, rem = _cycles(cfg)
+    params = {"cycle": {f"b{j}": tree_stack([init(kind)
+                                              for _ in range(n_cycles)])
+                        for j, (kind, _) in enumerate(pat)
+                        if kind != "shared_attn"}}
+    if any(kind == "shared_attn" for kind, _ in pat):
+        params["shared"] = init("shared_attn")
+    if rem:
+        params["remainder"] = {f"b{j}": init(pat[j][0]) for j in range(rem)
+                               if pat[j][0] != "shared_attn"}
+    return params
 
 
 def init_states(cfg, batch, buf_len, dtype, *, device):
-    """Fresh stacked states matching ``run_blocks``: the reference's tree
-    ``{"k", "v": (L, B, buf, nkv, hd), "pos": (L, buf)}``."""
+    """Fresh stacked states matching ``run_blocks``, in the reference's
+    trees: uniform ``{"k", "v": (L, B, buf, nkv, hd), "pos": (L, buf)}``;
+    cycled ``{"cycle": {"b<j>": (n_cycles, ...) per position, one KV cache
+    per shared-attention occurrence}, "remainder": {"b<j>": ...}}``."""
     _check_supported(cfg)
-    one = _block_state("attn", cfg, batch, buf_len, dtype, device=device)
-    return {name: leaf.unsqueeze(0).repeat((cfg.n_layers,)
-                                           + (1,) * leaf.dim())
-            for name, leaf in one.items()}
+
+    def one(kind):
+        return _block_state(kind, cfg, batch, buf_len, dtype, device=device)
+    if _layout(cfg) == "uniform":
+        return tree_stack([one("attn")] * cfg.n_layers)
+    pat, n_cycles, rem = _cycles(cfg)
+    return {"cycle": {f"b{j}": tree_stack([one(kind)] * n_cycles)
+                      for j, (kind, _) in enumerate(pat)},
+            "remainder": {f"b{j}": one(pat[j][0]) for j in range(rem)}}
 
 
 def _serve_windows(cfg, serve_window):
@@ -179,12 +233,29 @@ def run_blocks(blocks, x, cfg, states=None, index=0, serve_window=0):
     """Execute the block stack. Returns (x, states, aux); ``states`` (if
     given) are updated in place, layer by layer."""
     _check_supported(cfg)
-    items = tree_items(blocks["stack"])
-    for layer, window in enumerate(_serve_windows(cfg, serve_window)):
-        p = tree_from_items([(path, leaf[layer]) for path, leaf in items])
-        st = None if states is None else {
-            name: leaf[layer] for name, leaf in states.items()}
-        x, _ = _apply_block("attn", p, x, cfg, window, st, index)
+    windows = _serve_windows(cfg, serve_window)
+    if _layout(cfg) == "uniform":
+        for layer, window in enumerate(windows):
+            st = None if states is None else tree_at(states, layer)
+            x, _ = _apply_block("attn", tree_at(blocks["stack"], layer), x,
+                                cfg, window, st, index)
+    else:
+        pat, n_cycles, rem = _cycles(cfg)
+        shared = blocks.get("shared")
+        layers = [(f"b{j}", kind, c) for c in range(n_cycles)
+                  for j, (kind, _) in enumerate(pat)]
+        layers += [(f"b{j}", pat[j][0], None) for j in range(rem)]
+        for (name, kind, c), window in zip(layers, windows):
+            if c is None:                       # the remainder
+                p = shared if kind == "shared_attn" else \
+                    blocks["remainder"][name]
+                st = None if states is None else states["remainder"][name]
+            else:
+                p = shared if kind == "shared_attn" else \
+                    tree_at(blocks["cycle"][name], c)
+                st = None if states is None else \
+                    tree_at(states["cycle"][name], c)
+            x, _ = _apply_block(kind, p, x, cfg, window, st, index)
     return x, states, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -11,7 +11,8 @@ Two layers:
 
 * ``SlotEngine`` — the continuous-batching core. A fixed ``(max_slots,)``
   slot table whose per-slot index / generated-token counter / key / budget
-  / active lanes live beside the stacked per-slot KV caches. Admission =
+  / active lanes live beside the stacked per-slot model states (KV
+  caches, Mamba ssm / conv states; any nested tree). Admission =
   blank request state + chunked prefill of every full chunk + a copy into
   the slot table; the prompt tail (1..chunk tokens) is fed through the
   decode step itself, so the first kept token comes out of the same step
@@ -34,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.engine import tree_at, tree_items, tree_stack
 from repro_torch.models.registry import ModelAPI
 from repro_torch.serving.sampling import (
     GREEDY, SamplingParams, fold_in, sample_token,
@@ -255,6 +257,8 @@ class SlotEngine:
         self.example = {"tokens": np.zeros((1, 1), np.int32)}
         self.device = params["embed"].device
 
+        # the lanes' closures hold no reference to self: an engine (and the
+        # parameters it holds) is freed as soon as its last user drops it
         w, sp = window, sampling
 
         def fresh(params, batch):
@@ -267,8 +271,7 @@ class SlotEngine:
             act = slots["active"]
             picked = {}
             for s in torch.nonzero(act).flatten().tolist():
-                mstate = {name: leaf[s]
-                          for name, leaf in slots["model"].items()}
+                mstate = tree_at(slots["model"], s)
                 lg, _ = model.decode_step(
                     params, mstate, torch.as_tensor(toks[s:s + 1])[None],
                     int(slots["index"][s]), window=w)
@@ -276,7 +279,7 @@ class SlotEngine:
                 picked[s] = sample_token(lg[0].to(torch.float32),
                                          decode_key(int(slots["key"][s]), i),
                                          sp)
-            nxt = np.zeros((self.max_slots,), np.int64)
+            nxt = np.zeros((max_slots,), np.int64)
             if picked:
                 vals = torch.stack(list(picked.values())).cpu().numpy()
                 nxt[list(picked)] = vals
@@ -288,8 +291,10 @@ class SlotEngine:
             return nxt, slots
 
         def insert(slots, mstate, slot, idx0, gen0, budget, key):
-            for name, leaf in slots["model"].items():
-                leaf[slot].copy_(mstate[name])
+            # the whole state: a reset leaves zero SSM / conv states too
+            new = dict(tree_items(mstate))
+            for path, leaf in tree_items(slots["model"]):
+                leaf[slot].copy_(new[path])
             slots["index"][slot] = idx0
             slots["gen"][slot] = gen0
             slots["budget"][slot] = budget
@@ -311,8 +316,7 @@ class SlotEngine:
         S = self.max_slots
         lane = lambda v: torch.full((S,), v, dtype=torch.int64)
         return {
-            "model": {name: leaf.unsqueeze(0).repeat((S,) + (1,) * leaf.dim())
-                      for name, leaf in self._blank.items()},
+            "model": tree_stack([self._blank] * S),
             "index": lane(0), "gen": lane(0), "budget": lane(1),
             "key": lane(0),
             "active": torch.zeros((S,), dtype=torch.bool),

@@ -1,6 +1,9 @@
-"""The port's dense transformer against the JAX package: the reference's
+"""The port's transformer against the JAX package: the reference's
 initial weights carried across as numpy, the same tokens, logits / loss /
-gradients compared in fp32 on the CPU."""
+gradients compared in fp32 on the CPU, for the dense families and the
+hybrid one (zamba2-7b at 6 layers, one full cycle, and at 9, with the
+remainder blocks of the full config). The full-size zamba2-7b tree is
+held against the reference's shapes on the ``meta`` device."""
 from __future__ import annotations
 
 import functools
@@ -24,20 +27,27 @@ from repro_torch.models import attention as attn
 from repro_torch.models import build_model, params_from_numpy
 from repro_torch.models import transformer as lm
 
-ARCHS = ("yi-6b", "gemma2-2b")
+# "name@L": the reduced config cut to L layers
+ARCHS = ("yi-6b", "gemma2-2b", "zamba2-7b", "zamba2-7b@9")
 ATOL = 1e-4
+
+
+def _configs(arch):
+    """(reference cfg, port cfg) of a reduced arch."""
+    name, _, layers = arch.partition("@")
+    kw = {"n_layers": int(layers)} if layers else {}
+    return jreduced(jget_arch(name), **kw), reduced(get_arch(name), **kw)
 
 
 @functools.lru_cache(maxsize=None)
 def _reference_params(arch, seed=0):
     """The reference's initial weights (jit: eager init is slow)."""
-    jcfg = jreduced(jget_arch(arch))
+    jcfg = _configs(arch)[0]
     return jax.jit(jbuild_model(jcfg).init)(jax.random.PRNGKey(seed))
 
 
 def _setup(arch, B=2, S=24, seed=0):
-    jcfg = jreduced(jget_arch(arch))
-    cfg = reduced(get_arch(arch))
+    jcfg, cfg = _configs(arch)
     jparams = _reference_params(arch, seed)
     np_params = jax.tree.map(np.asarray, jparams)
     params = params_from_numpy(cfg, np_params, device="cpu")
@@ -134,4 +144,50 @@ def test_params_from_numpy_checks_the_tree():
 
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model(reduced(get_arch("zamba2-7b")))
+        build_model(reduced(get_arch("xlstm-350m")))
+
+
+# zamba2-7b's tree, counted from the reference's init (jax.eval_shape)
+ZAMBA2_PARAMS = 5_737_416_000
+ZAMBA2_PARAM_COUNT = 5_767_569_920      # what ModelConfig.param_count() says
+
+
+def test_full_zamba2_tree_matches_reference_shapes():
+    """The port's full-size zamba2-7b parameter tree, built on the meta
+    device (nothing allocated), has the reference's paths, shapes and
+    dtypes, and 5,737,416,000 parameters: 68 Mamba2 blocks and one shared
+    attention + MLP block."""
+    jcfg, cfg = jget_arch("zamba2-7b"), get_arch("zamba2-7b")
+    want = jax.eval_shape(lambda k: jlm.init_lm(jcfg, k),
+                          jax.random.PRNGKey(0))
+    want = {tuple(k.key for k in path): leaf for path, leaf in
+            jax.tree_util.tree_flatten_with_path(want)[0]}
+    got = dict(tree_items(lm.init_lm(cfg, None, device="meta")))
+    assert sorted(got) == sorted(want)
+    for path, leaf in got.items():
+        assert tuple(leaf.shape) == want[path].shape, path
+        assert str(leaf.dtype).removeprefix("torch.") == \
+            want[path].dtype.name, path
+    assert sum(leaf.numel() for leaf in got.values()) == ZAMBA2_PARAMS
+    assert got[("blocks", "cycle", "b0", "in_proj")].shape == (
+        13, 3584, 2 * 7168 + 2 * 64 + 112)
+    assert sorted({p[2] for p in got if p[1:2] == ("remainder",)}) == [
+        "b0", "b1", "b2"]
+    assert got[("blocks", "remainder", "b2", "in_proj")].shape == (
+        3584, 2 * 7168 + 2 * 64 + 112)
+
+
+def test_reference_param_count_overcounts_mamba_blocks():
+    """A fault of the reference (ROADMAP.md Queue 3): ``param_count()``
+    counts ``2 d_in N`` for a Mamba block's in_proj where the tree holds
+    ``2 d N``, and leaves out conv_b, norm, A_log, D and dt_bias: 443,440
+    too many per zamba2-7b Mamba block, 30,153,920 over 68 blocks."""
+    jcfg = jget_arch("zamba2-7b")
+    tree = jax.eval_shape(lambda k: jlm.init_lm(jcfg, k),
+                          jax.random.PRNGKey(0))
+    n = sum(int(np.prod(leaf.shape)) for leaf in jax.tree.leaves(tree))
+    assert n == ZAMBA2_PARAMS
+    assert jcfg.param_count() == ZAMBA2_PARAM_COUNT
+    n_mamba = jcfg.blocks().count("mamba")
+    assert n_mamba == 68
+    assert (ZAMBA2_PARAM_COUNT - ZAMBA2_PARAMS) == 443_440 * n_mamba

@@ -1,6 +1,7 @@
 """The port's serving path against the JAX package, on the CPU: reduced
-yi-6b and gemma2-2b in fp32 with the reference's initial weights carried
-across. Prefill / chunked prefill / decode logits and KV caches under
+yi-6b, gemma2-2b and zamba2-7b (6 layers, and 9 with the remainder
+blocks) in fp32 with the reference's initial weights carried across.
+Prefill / chunked prefill / decode logits and model states under
 teacher forcing, greedy ``generate`` tokens, the SlotEngine against the
 port's own ``generate`` (continuous and ring), the committed serving
 trace's step counts, sampling units and the decode_key contract, the
@@ -25,6 +26,7 @@ from repro.serving.sampling import (
     SamplingParams as JSamplingParams, mask_logits as jmask_logits,
 )
 from repro_torch.configs import get_arch, reduced
+from repro_torch.core.engine import tree_items
 from repro_torch.kernels.swa_attention import ops as swa_ops
 from repro_torch.models import (
     build_model, params_from_numpy, states_from_numpy,
@@ -40,7 +42,8 @@ from repro_torch.serving.sampling import (
 )
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-ARCHS = ("yi-6b", "gemma2-2b")
+# "name@L": the reduced config cut to L layers
+ARCHS = ("yi-6b", "gemma2-2b", "zamba2-7b", "zamba2-7b@9")
 ATOL = 1e-4
 # the streaming modes: (buf_len, window, chunk, prompt length)
 MODES = {"full": (32, 0, 8, 20), "ring": (19, 16, 4, 24)}
@@ -49,9 +52,11 @@ MODES = {"full": (32, 0, 8, 20), "ring": (19, 16, 4, 24)}
 @functools.lru_cache(maxsize=None)
 def _mp(arch):
     """(reference model, reference params, cfg, model, params) per arch."""
-    jmodel = jbuild_model(jreduced(jget_arch(arch)))
+    name, _, layers = arch.partition("@")
+    kw = {"n_layers": int(layers)} if layers else {}
+    jmodel = jbuild_model(jreduced(jget_arch(name), **kw))
     jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
-    cfg = reduced(get_arch(arch))
+    cfg = reduced(get_arch(name), **kw)
     params = params_from_numpy(cfg, jax.tree.map(np.asarray, jparams),
                                device="cpu")
     return jmodel, jparams, cfg, build_model(cfg), params
@@ -72,10 +77,14 @@ def _np(t):
 
 
 def _same_states(states, jstates):
-    assert sorted(states) == sorted(jstates)
-    for name in states:
-        np.testing.assert_allclose(_np(states[name]), np.asarray(jstates[name]),
-                                   rtol=0, atol=ATOL, err_msg=name)
+    """Leaf by leaf, over nested state trees."""
+    got = dict(tree_items(states))
+    want = {tuple(k.key for k in path): leaf for path, leaf in
+            jax.tree_util.tree_flatten_with_path(jstates)[0]}
+    assert sorted(got) == sorted(want)
+    for path, leaf in got.items():
+        np.testing.assert_allclose(_np(leaf), np.asarray(want[path]),
+                                   rtol=0, atol=ATOL, err_msg=str(path))
 
 
 # ---------------------------------------------------------------------------
@@ -149,6 +158,29 @@ def test_states_from_numpy_carries_reference_caches():
         states_from_numpy(cfg, dict(jax.tree.map(np.asarray, js),
                                     pos=np.zeros((2, 7), np.int32)),
                           device="cpu")
+
+
+def test_states_from_numpy_carries_nested_hybrid_states():
+    """zamba2-7b's cycle / remainder tree (KV caches per shared-attention
+    occurrence, Mamba ssm and conv states) carried across after a prefill
+    continues as the reference does."""
+    jmodel, jparams, cfg, model, params = _mp("zamba2-7b@9")
+    tokens = np.arange(14, dtype=np.int32).reshape(2, 7)
+    _, js = jmodel.prefill(jparams, {"tokens": jnp.asarray(tokens)},
+                           buf_len=16)
+    np_states = jax.tree.map(np.asarray, js)
+    st = states_from_numpy(cfg, np_states, device="cpu")
+    _same_states(st, js)
+    assert st["cycle"]["b5"]["pos"].dtype == torch.int32
+    assert st["remainder"]["b0"]["ssm"].dtype == torch.float32
+    jl, _ = jmodel.decode_step(jparams, js, jnp.asarray([[3], [4]]), 7)
+    lg, _ = model.decode_step(params, st, np.asarray([[3], [4]]), 7)
+    np.testing.assert_allclose(lg.numpy(), np.asarray(jl), rtol=0,
+                               atol=ATOL)
+    bad = jax.tree.map(lambda a: a, np_states)
+    del bad["remainder"]["b2"]
+    with pytest.raises(ValueError, match="missing"):
+        states_from_numpy(cfg, bad, device="cpu")
 
 
 def test_cache_update_chunk_wraps_around_ring_seam():
@@ -532,3 +564,54 @@ def test_serve_launcher_smoke_on_cpu(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--smoke"])
+
+
+def test_serve_launcher_serves_zamba2_on_cpu():
+    from repro_torch.launch.serve import main
+    report = main(["--arch", "zamba2-7b", "--smoke", "--requests", "4",
+                   "--max-slots", "2", "--prompt-len", "12", "--new-tokens",
+                   "3", "--chunk", "4"], device="cpu")
+    assert sorted(report.results) == list(range(4))
+    assert all(len(r.tokens) == 3 for r in report.results.values())
+
+
+def test_slot_engine_is_freed_without_the_cycle_collector():
+    """No reference cycle runs through the engine's lanes: dropping the
+    last reference frees it (and with it a model's worth of parameters)
+    at once, not at the cycle collector's next pass."""
+    import gc
+    import weakref
+    _, _, cfg, model, params = _mp("yi-6b")
+    engine = SlotEngine(model, params, max_slots=2, buf_len=16, chunk=4)
+    serve(engine, _requests(cfg, [5, 3], [2, 2]))
+    ref = weakref.ref(engine)
+    gc.disable()
+    try:
+        del engine
+        assert ref() is None
+    finally:
+        gc.enable()
+
+
+def test_slot_reset_zeroes_mamba_states():
+    """Inserting a fresh request state into a used slot writes every leaf
+    of the nested tree: the slot's SSM and conv states come back zero, its
+    KV caches blank (pos -1), and the other slot is untouched."""
+    _, _, cfg, model, params = _mp("zamba2-7b")
+    engine = SlotEngine(model, params, max_slots=2, buf_len=16, chunk=4)
+    slots = engine.blank_slots()
+    state, start = engine.request_state({"tokens": np.zeros((1, 1))})
+    state, idx, tail = engine.prefill_chunks(state, np.arange(9), start)
+    for slot in (0, 1):
+        slots = engine.insert(slots, state, slot, idx, 0, 4, 0)
+    used = {path: leaf.clone() for path, leaf in tree_items(slots["model"])}
+    assert bool(used[("cycle", "b0", "ssm")][0].any())
+    assert bool(used[("cycle", "b0", "conv")][0].any())
+    fresh, _ = engine.request_state({"tokens": np.zeros((1, 1))})
+    slots = engine.insert(slots, fresh, 0, 0, 0, 4, 0)
+    for path, leaf in tree_items(slots["model"]):
+        if path[-1] == "pos":
+            assert bool((leaf[0] == -1).all()), path
+        else:
+            assert not bool(leaf[0].any()), path
+        np.testing.assert_array_equal(leaf[1].numpy(), used[path][1].numpy())

@@ -177,3 +177,22 @@ def test_guards_raise_before_dispatch_and_build(monkeypatch, make, err,
         swa_attention(*(_z("meta", 1, 2, 8, 64),) * 3)
     assert LAUNCHES["swa_attention"] == 0
     assert "swa_attention" not in _build._libs
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_head_dim_112_passes_the_checks_and_matches_reference(dtype):
+    """zamba2-7b's shared attention (head_dim 112, 32 heads over 32 kv
+    heads): the wrapper takes it (a meta tensor gets past every check to
+    the device test, before any build), and on the CPU it equals the
+    reference's oracle."""
+    B, H, Hkv, Sq, Skv, hd = 1, 4, 4, 160, 160, 112
+    assert 112 in swa_mod.HEAD_DIMS
+    LAUNCHES["swa_attention"] = 0
+    with pytest.raises(ValueError, match="unsupported device"):
+        swa_attention(*(_z("meta", B, H, Sq, hd),) * 3)
+    assert "swa_attention" not in _build._libs
+    (jq, jk, jv), (q, k, v) = _both(_inputs(B, H, Hkv, Sq, Skv, hd, 4), dtype)
+    want = jswa_ref(jq, jk, jv)
+    got = swa_attention(q, k, v)
+    assert LAUNCHES["swa_attention"] == 0
+    _close(got, want, DTYPES[dtype][3])
