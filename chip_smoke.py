@@ -6,8 +6,9 @@
 Phases (any failure raises, and the script exits non-zero):
 
 1. Card: requires CUDA, prints ``nvidia-smi``'s name and power limit,
-   builds the three CUDA sources (``src/repro_torch/kernels/{pullpush,
-   swa_attention,mamba_scan}/csrc``), one ``nvcc`` each, all at once.
+   builds the four CUDA sources (``src/repro_torch/kernels/{pullpush,
+   swa_attention,mamba_scan,slstm_step}/csrc``, as ``kernels/_build.py``
+   lists them), one ``nvcc`` each, all at once.
 2. Kernels: every kernel of the DPPF round against its plain PyTorch
    version at (4, 300), (8, 4097), (5, 2^26 + 3), (32, 65537) and at the
    main path's shape R = 4, n = 1,216,385,024 (yi-6b at LAYERS = 4); then
@@ -58,6 +59,28 @@ Phases (any failure raises, and the script exits non-zero):
    traced (8 new tokens) with CUDA events around each SSD scan and its
    kernel; (b) one prompt in chunks of 512 (carried ssm and conv states);
    (c) the serving launcher: 5 requests of 256 / 512 / 1024 / 256 / 512
+   tokens, 4 slots, chunk 64, 16 new tokens.
+9. sLSTM kernel: ``slstm_steps`` against its plain version on the four
+   cases of ``tests/test_kernels.py``, a carried state, T = 1, the reduced
+   config's P = 128 and the serving shape (B = 4, T = 4096, H = 4,
+   P = 512, with the forget-gate bias of 3 the model's ``b_gates`` adds);
+   then, for information, the serving shape on unit-normal gates without
+   that bias, where the 4096-step recurrence is chaotic and the plain
+   version in fp32 drifts from itself in fp64; times kernel (median of 20
+   after 3 warm-ups) and plain version (median of 3). No single PyTorch
+   call computes this recurrence.
+10. Serving xlstm-350m at full width and full depth (24 layers: 18 mLSTM
+   and 6 sLSTM blocks, bf16, 555,246,736 random parameters from a seeded
+   generator): (0) one sLSTM block's kernel route against its plain route
+   (fp32, S = 1024, a carried state) and one mLSTM block's chunked form
+   (256) against its per-step one (fp32, S = 512); (a) ``generate`` with
+   ``xlstm_chunk = 256`` on 4 prompts of 4096 tokens, greedy, 32 new
+   tokens (counters zeroed just before and read just after: 6
+   ``slstm_steps`` launches in the prefill and 6 in each decode step),
+   then the same call traced (8 new tokens); (b) one prompt in chunks of
+   512 (and, for information, one-shot against chunked in fp32 at 1024
+   and 4096 tokens); (c) the serving launcher on the published config
+   (``xlstm_chunk = 0``): 5 requests of 256 / 512 / 1024 / 256 / 512
    tokens, 4 slots, chunk 64, 16 new tokens.
 
 It prints a ``kernels`` line, the ``{"kernels": [...]}`` record and, last,
@@ -135,6 +158,25 @@ SSD_SOURCE = "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu"
 SSD_REPLACES = "src/repro/kernels/mamba_scan/mamba_scan.py:46"
 # zamba2-7b's parameter tree, counted from the reference's init
 ZAMBA2_PARAMS = 5_737_416_000
+# slstm_steps cases: (B, T, H, P, carried state); the first four are
+# tests/test_kernels.py::SLSTM_CASES, then a carried state, T = 1, the
+# reduced config's P = 128
+SLSTM_CASES = (
+    (2, 50, 2, 16, False),
+    (1, 128, 4, 32, False),
+    (2, 37, 2, 8, False),
+    (1, 16, 1, 8, False),
+    (2, 40, 3, 32, True),
+    (3, 1, 4, 512, True),
+    (2, 300, 4, 128, False),
+)
+# xlstm-350m's prefill: B = 4 prompts of 4096 tokens, 4 heads of 512
+SLSTM_SLICE = (4, 4096, 4, 512)
+FORGET_BIAS = 3.0       # b_gates' forget part (models/xlstm.py)
+SLSTM_SOURCE = "src/repro_torch/kernels/slstm_step/csrc/slstm_step.cu"
+SLSTM_REPLACES = "src/repro/kernels/slstm_step/slstm_step.py:79"
+# xlstm-350m's parameter tree, counted from the reference's init
+XLSTM_PARAMS = 555_246_736
 REPLACES = {
     "fused_round": "src/repro/kernels/pullpush/pullpush.py:194",
     "partial_gram": "src/repro/kernels/pullpush/pullpush.py:298",
@@ -1002,6 +1044,342 @@ def phase_zamba2(swa, mk):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the sLSTM kernel
+# ---------------------------------------------------------------------------
+
+def _slstm_inputs(B, T, H, P, gen, carried=False, forget_bias=0.0):
+    """g_in (unit normal, the forget block shifted by ``forget_bias``), R
+    (the model's init scale P^-1/2) and a fresh or carried state."""
+    g = torch.randn((B, T, H, 4 * P), generator=gen, device="cuda")
+    g[..., 2 * P:3 * P] += forget_bias
+    R = torch.randn((H, P, 4 * P), generator=gen, device="cuda") * P ** -0.5
+    shape = (B, H, P)
+    if carried:
+        st = (torch.randn(shape, generator=gen, device="cuda"),
+              torch.rand(shape, generator=gen, device="cuda") + 0.5,
+              torch.randn(shape, generator=gen, device="cuda") * 0.3,
+              torch.randn(shape, generator=gen, device="cuda"))
+    else:
+        z = torch.zeros(shape, device="cuda")
+        st = (z, z + 1e-6, z.clone(), z - 1e30)
+    return g, R, st
+
+
+def _slstm_errs(got, want):
+    """[(max abs err, scale)] of h and the four final-state tensors."""
+    (h, st), (wh, wst) = got, want
+    return [_rel_err(a.double(), b.double())
+            for a, b in zip((h,) + tuple(st), (wh,) + tuple(wst))]
+
+
+def _slstm_bound(B, T, H, P):
+    """Least time in ms: 2 B T H P 4P FLOP for h @ R over the fp32 peak,
+    or g_in, R and the state read once and h and the final state written
+    once over the memory rate, whichever is larger."""
+    flops = 2 * B * T * H * P * 4 * P
+    nbytes = 4 * (B * T * H * 4 * P + H * P * 4 * P + B * T * H * P
+                  + 8 * B * H * P)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), t_bytes, t_ops, flops
+
+
+def phase_slstm(sk, sref):
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    errs = []
+    with torch.no_grad():
+        for B, T, H, P, carried in SLSTM_CASES:
+            g, R, st = _slstm_inputs(B, T, H, P, gen, carried)
+            got = sk.slstm_steps(g, R, st)
+            torch.cuda.synchronize()
+            e = _slstm_errs(got, sref.slstm_steps_ref(g, R, st))
+            errs += e
+            worst = max(err / scale for err, scale in e)
+            print(f"  checked {(B, T, H, P)} carried={carried}: max rel "
+                  f"err {worst:.3e}")
+            if not worst <= TOL:
+                raise AssertionError(f"slstm_steps {(B, T, H, P)}: max rel "
+                                     f"err {worst:.3e} > {TOL}")
+        # the serving shape on the model's gate distribution
+        B, T, H, P = SLSTM_SLICE
+        g, R, st = _slstm_inputs(B, T, H, P, gen, forget_bias=FORGET_BIAS)
+        got = sk.slstm_steps(g, R, st)
+        torch.cuda.synchronize()
+        want = sref.slstm_steps_ref(g, R, st)
+        e = _slstm_errs(got, want)
+        errs += e
+        worst = max(err / scale for err, scale in e)
+        print(f"  checked the serving shape {SLSTM_SLICE}, forget bias "
+              f"{FORGET_BIAS}: max rel err {worst:.3e} ([abs, scale] of h, "
+              f"c, n, h_T, m: {json.dumps(e)})")
+        if not worst <= TOL:
+            raise AssertionError(f"slstm_steps serving shape: max rel err "
+                                 f"{worst:.3e} > {TOL}")
+        ms = _time_ms(lambda: sk.slstm_steps(g, R, st))
+        plain_ms = _time_ms(lambda: sref.slstm_steps_ref(g, R, st), reps=3,
+                            warm=1)
+        del got, want
+        # information: unit-normal gates with no forget bias make the
+        # recurrence chaotic over 4096 steps; how far the kernel and the
+        # plain version (fp32) drift from each other and from the plain
+        # version in fp64
+        g2, R2, st2 = _slstm_inputs(B, T, H, P, gen)
+        k32 = sk.slstm_steps(g2, R2, st2)
+        p32 = sref.slstm_steps_ref(g2, R2, st2)
+        p64 = sref.slstm_steps_ref(g2.double(), R2.double(),
+                                   tuple(t.double() for t in st2))
+        torch.cuda.synchronize()
+        rel = lambda a, b: max(err / scale for err, scale in
+                               _slstm_errs(a, b))
+        chaos = {"kernel_vs_plain32": rel(k32, p32),
+                 "kernel_vs_plain64": rel(k32, p64),
+                 "plain32_vs_plain64": rel(p32, p64)}
+        print("  (information) serving shape, unit-normal gates, no forget "
+              "bias: max rel err " + json.dumps(chaos))
+        del g2, R2, st2, k32, p32, p64
+    bound, bound_by, t_bytes, t_ops, flops = _slstm_bound(B, T, H, P)
+    row = {"name": "slstm_steps", "route": "cuda", "source": SLSTM_SOURCE,
+           "replaces": SLSTM_REPLACES, "launches": 0,
+           "max_abs_err": max(e for e, _ in errs),
+           "max_rel_err": max(e / s for e, s in errs), "tol_rel": TOL,
+           "shape": [B, T, H, P], "ms": ms, "ms_per_step": ms / T,
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+           "bound_ms_bytes": t_bytes, "bound_ms_fp32_ops": t_ops,
+           "flops": flops, "library_ms": None,
+           "library_note": "no single PyTorch call computes the sLSTM "
+                           "recurrence",
+           "chaotic_case_rel_err": chaos}
+    print("  slstm_steps " + json.dumps(row))
+    del g, R, st
+    torch.cuda.empty_cache()
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 10: serving xlstm-350m
+# ---------------------------------------------------------------------------
+
+def _xlstm_route_checks(sk, cfg):
+    """(0) At full width in fp32: one sLSTM block's kernel route (no
+    gradient recorded) against its plain route (a gradient recorded), S =
+    1024 after a 256-token prefix that leaves a carried state; one mLSTM
+    block's chunked form (256) against its per-step one, S = 512. Outputs
+    and new states within 1e-4 of their scale."""
+    from repro_torch.models import xlstm
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+
+    def check(name, got, want):
+        err, scale = _rel_err(got, want.detach())
+        out[name] = [err, scale]
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"xlstm route check {name}: {err:.3e} > "
+                                 f"1e-4 x {scale:.3e}")
+    p = xlstm.init_slstm(gen, cfg, torch.float32, device="cuda")
+    x = torch.randn((1, 1280, cfg.d_model), generator=gen, device="cuda")
+    state = xlstm.init_slstm_state(cfg, 1, device="cuda")
+    before = sk.LAUNCHES["slstm_steps"]
+    with torch.no_grad():
+        xlstm.slstm_forward(p, x[:, :256], cfg, state)
+        plain_state = tuple(t.clone() for t in state)
+        got, _ = xlstm.slstm_forward(p, x[:, 256:], cfg, state)
+    if sk.LAUNCHES["slstm_steps"] != before + 2:
+        raise AssertionError("the sLSTM kernel route was not taken")
+    with torch.enable_grad():
+        want, _ = xlstm.slstm_forward(
+            p, x[:, 256:].clone().requires_grad_(True), cfg, plain_state)
+    if sk.LAUNCHES["slstm_steps"] != before + 2:
+        raise AssertionError("the sLSTM plain route launched the kernel")
+    check("slstm out", got, want)
+    for name, a, b in zip("cnhm", state, plain_state):
+        check(f"slstm {name}", a, b)
+
+    p = xlstm.init_mlstm(gen, cfg, torch.float32, device="cuda")
+    x = torch.randn((1, 512, cfg.d_model), generator=gen, device="cuda")
+    with torch.no_grad():
+        want, st_w = xlstm.mlstm_forward(
+            p, x, dataclasses.replace(cfg, xlstm_chunk=0))
+        got, st_g = xlstm.mlstm_forward(
+            p, x, dataclasses.replace(cfg, xlstm_chunk=256))
+    check("mlstm out", got, want)
+    for name, a, b in zip(("C", "n", "m"), st_g, st_w):
+        check(f"mlstm {name}", a, b)
+    print("  (0) full width, fp32: sLSTM kernel route vs plain (S=1024, "
+          "carried state), mLSTM chunked (256) vs per-step (S=512): "
+          "[max abs err, scale] " + json.dumps(out))
+
+
+def _count_launches(model, names, counter):
+    """The model with the kernel launches of each call of the named lanes
+    recorded (``counter()`` reads the launch count)."""
+    counts = {n: [] for n in names}
+
+    def wrap(name, fn):
+        def run(*a, **kw):
+            before = counter()
+            out = fn(*a, **kw)
+            counts[name].append(counter() - before)
+            return out
+        return run
+    return dataclasses.replace(model, **{n: wrap(n, getattr(model, n))
+                                         for n in names}), counts
+
+
+def phase_xlstm(sk):
+    from repro_torch.configs import get_arch
+    from repro_torch.core.engine import tree_items
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import build_model
+    from repro_torch.serving import generate
+
+    published = get_arch("xlstm-350m")
+    _xlstm_route_checks(sk, dataclasses.replace(published, dtype="float32"))
+    torch.cuda.empty_cache()
+
+    # the one-shot prefill runs the chunked mLSTM (the reference's "opt"
+    # setting): the per-step form makes about 15 launches per token and
+    # layer
+    cfg = dataclasses.replace(published, xlstm_chunk=256)
+    B, S, NEW = 4, 4096, 32
+    BUF = S + NEW
+    n_slstm = cfg.blocks().count("slstm")
+    n_mlstm = cfg.blocks().count("mlstm")
+    print(f"  config {cfg.name}: d_model {cfg.d_model}, layers "
+          f"{cfg.n_layers} ({n_mlstm} mlstm, {n_slstm} slstm), heads "
+          f"{cfg.ssm_heads}, d_in {cfg.ssm_expand * cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, tied {cfg.tie_embeddings}, dtype {cfg.dtype}, "
+          f"xlstm_chunk {cfg.xlstm_chunk}; B={B} S={S} new={NEW}")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    n = sum(leaf.numel() for _, leaf in tree_items(params))
+    print(f"  parameters {n} (param_count() says {cfg.param_count()}: it "
+          "undercounts xLSTM blocks, ROADMAP Queue 3)")
+    if n != XLSTM_PARAMS:
+        raise AssertionError(f"xlstm-350m has {n} parameters, not "
+                             f"{XLSTM_PARAMS}")
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S))).cuda()
+
+    # (a) the main path: generate, counters zeroed just before
+    timed, events = _events_of(model, ("prefill", "decode_step"))
+    counted, per_call = _count_launches(
+        timed, ("prefill", "decode_step"),
+        lambda: sk.LAUNCHES["slstm_steps"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    sk.reset_launches()
+    t0 = time.perf_counter()
+    toks, logits = generate(counted, params, {"tokens": prompts},
+                            max_new_tokens=NEW, buf_len=BUF)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sk.LAUNCHES["slstm_steps"]
+    peak = torch.cuda.max_memory_allocated()
+    prefill_ms = events["prefill"][0][0].elapsed_time(events["prefill"][0][1])
+    dec = [a.elapsed_time(b) for a, b in events["decode_step"]]
+    a = {"prefill_ms": prefill_ms, "ttft_ms": prefill_ms,
+         "decode_ms_per_token": statistics.mean(dec),
+         "decode_ms_median": statistics.median(dec),
+         "wall_s": wall, "tok_s": B * NEW / wall,
+         "prefill_tok_s": B * S / (prefill_ms / 1e3),
+         "peak_bytes": peak, "allocated_before_bytes": before,
+         "slstm_launches": launches,
+         "slstm_launches_prefill": per_call["prefill"],
+         "slstm_launches_per_decode_step": sorted(set(
+             per_call["decode_step"]))}
+    print("  (a) generate " + json.dumps(a))
+    print(f"  first tokens {toks[:, :8].tolist()}")
+    if per_call["prefill"] != [n_slstm] or set(
+            per_call["decode_step"]) != {n_slstm}:
+        raise AssertionError(f"slstm_steps launches {per_call}: not "
+                             f"{n_slstm} per prefill and per decode step")
+    if launches != n_slstm * NEW:
+        raise AssertionError(f"slstm_steps launched {launches} times, not "
+                             f"{n_slstm * NEW}")
+    if toks.shape != (B, NEW) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("generate gave a bad shape or non-finite logits")
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError("token ids out of the vocabulary")
+    # where the time goes: the same call traced, with 8 new tokens
+    prof = _profile_generate(generate, timed, params, prompts, BUF, 8)
+    prof["prefill_ms"] = events["prefill"][-1][0].elapsed_time(
+        events["prefill"][-1][1])
+    print("  (a) profile " + json.dumps(prof))
+
+    # (b) one prompt in chunks of 512: the recurrent states carried
+    sk.reset_launches()
+    states, start = model.make_state(params, {"tokens": prompts[:1]}, BUF)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for j in range(0, S, 512):
+        lg, states = model.prefill_chunk(params, states,
+                                         prompts[:1, j:j + 512], start + j)
+    e1.record()
+    torch.cuda.synchronize()
+    n_chunks = -(-S // 512)
+    diff = float((lg[0] - logits[0]).abs().max())
+    print(f"  (b) chunked prefill (512): {e0.elapsed_time(e1):.1f} ms, "
+          f"slstm launches {sk.LAUNCHES['slstm_steps']}, max |last-token "
+          f"logits - (a)'s| {diff:.4f} (information; logits scale "
+          f"{float(logits[0].abs().max()):.2f})")
+    if sk.LAUNCHES["slstm_steps"] != n_slstm * n_chunks:
+        raise AssertionError("the chunks did not run the kernel")
+    if not bool(torch.isfinite(lg).all()):
+        raise AssertionError("non-finite chunked-prefill logits")
+    m_max = {kind: max(float(states["cycle"][f"b{j}"][-1].abs().max())
+                       for j, k in enumerate(cfg.layer_pattern) if k == kind)
+             for kind in ("mlstm", "slstm")}
+    del params, states, timed, counted, model, lg, logits, toks
+    torch.cuda.empty_cache()
+    # (information) the same one-shot / chunked comparison in fp32, at two
+    # prompt lengths: how far rounding alone carries the two apart through
+    # 24 random-weight layers while the stabilisers m grow with the length
+    model = build_model(dataclasses.replace(cfg, dtype="float32"))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    gap = {"max_abs_m_after_b": m_max}
+    for L in (1024, S):
+        one, _ = model.prefill(params, {"tokens": prompts[:1, :L]}, BUF)
+        states, _ = model.make_state(params, {"tokens": prompts[:1]}, BUF)
+        for j in range(0, L, 512):
+            lg, states = model.prefill_chunk(params, states,
+                                             prompts[:1, j:j + 512], j)
+        gap[f"fp32_len{L}"] = [float((lg - one).abs().max()),
+                               float(one.abs().max())]
+        del states
+    print("  (b) information: [max |one-shot - chunked| logits, scale] "
+          + json.dumps(gap))
+    del params, model, one, lg
+    torch.cuda.empty_cache()
+
+    # (c) the launcher on the published config (xlstm_chunk = 0, the
+    # per-step mLSTM) at full size: prompts of 256 / 512 / 1024 / 256 /
+    # 512 tokens in chunks of 64, each ending in a 64-token tail fed one
+    # token per decode step; 5 requests, so that one is admitted
+    # mid-stream, and no more: a 64-token chunk of the per-step mLSTM
+    # makes about 15 launches per token and layer
+    sk.reset_launches()
+    report = serve_main(["--arch", "xlstm-350m", "--requests", "5",
+                         "--max-slots", "4", "--prompt-len", "512",
+                         "--new-tokens", "16", "--chunk", "64"])
+    c = {"steps": report.steps, "generated": report.generated,
+         "occupancy": report.occupancy, "wall_s": report.wall_s,
+         "tok_s": report.tok_s, "ttft_mean_ms": report.ttft_mean_s * 1e3,
+         "slstm_launches": sk.LAUNCHES["slstm_steps"]}
+    print("  (c) launcher " + json.dumps(c))
+    if sorted(report.results) != list(range(5)) or any(
+            len(r.tokens) != 16 for r in report.results.values()):
+        raise AssertionError("the launcher left requests unfinished")
+    if sk.LAUNCHES["slstm_steps"] == 0:
+        raise AssertionError("the launcher launched no slstm_steps")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1014,9 +1392,11 @@ def main():
     from repro_torch.kernels.pullpush import ref
     from repro_torch.kernels.swa_attention import swa_attention_plain
     from repro_torch.kernels.mamba_scan import ref as ssd_ref
+    from repro_torch.kernels.slstm_step import ref as slstm_ref
     swa = importlib.import_module(
         "repro_torch.kernels.swa_attention.swa_attention")
     mk = importlib.import_module("repro_torch.kernels.mamba_scan.mamba_scan")
+    sk = importlib.import_module("repro_torch.kernels.slstm_step.slstm_step")
 
     print("phase 1: card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1027,7 +1407,7 @@ def main():
           f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     # one nvcc per source, all started together
-    _build.build(pk.SOURCE, swa.SOURCE, mk.SOURCE)
+    _build.build(*_build.all_sources())
     print(f"  kernels built in {time.perf_counter() - t0:.2f} s")
     for name, info in _build.build_info.items():
         print(f"  {name}: {info['path']}")
@@ -1080,6 +1460,18 @@ def main():
     rows["ssd_chunks"]["launches_by_path"] = {
         "zamba2-7b serving": zamba["ssd_chunks"]}
     rows["ssd_chunks"]["launches"] = zamba["ssd_chunks"]
+
+    print("phase 9: slstm_steps against its plain version")
+    t0 = time.perf_counter()
+    rows["slstm_steps"] = phase_slstm(sk, slstm_ref)
+    secs["slstm"] = time.perf_counter() - t0
+
+    print("phase 10: serving xlstm-350m (full width, full depth)")
+    t0 = time.perf_counter()
+    xl = phase_xlstm(sk)
+    secs["xlstm"] = time.perf_counter() - t0
+    rows["slstm_steps"]["launches_by_path"] = {"xlstm-350m serving": xl}
+    rows["slstm_steps"]["launches"] = xl
     secs["total"] = time.perf_counter() - t_start
     print("phase seconds " + json.dumps(secs))
 

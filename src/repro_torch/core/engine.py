@@ -48,29 +48,51 @@ _EPS32 = float(np.finfo(np.float32).eps)
 
 
 # ---------------------------------------------------------------------------
-# nested-dict parameter trees (the reference's pytrees)
+# nested-dict / tuple trees (the reference's pytrees)
 # ---------------------------------------------------------------------------
 
 def tree_items(tree, prefix=()):
-    """``[(key_path, leaf), ...]`` of a nested dict, in the order
-    ``jax.tree_util`` flattens a dict: keys sorted at every level."""
+    """``[(key_path, leaf), ...]`` of a tree of dicts and tuples, in the
+    order ``jax.tree_util`` flattens it: dict keys sorted at every level,
+    tuple elements in order. A tuple element's path entry is its int
+    index (an xLSTM state is a tuple of tensors)."""
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
             out.extend(tree_items(tree[k], prefix + (k,)))
         return out
+    if isinstance(tree, tuple):
+        out = []
+        for i, sub in enumerate(tree):
+            out.extend(tree_items(sub, prefix + (i,)))
+        return out
     return [(prefix, tree)]
 
 
+def _tuples(node):
+    """Dicts keyed 0..n-1 by ints (as ``tree_from_items`` builds a tuple's
+    elements) back to tuples, at every level."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _tuples(v) for k, v in node.items()}
+    if node and all(isinstance(k, int) for k in node):
+        if sorted(node) != list(range(len(node))):
+            raise ValueError(f"tuple indices {sorted(node)} are not "
+                             f"0..{len(node) - 1}")
+        return tuple(node[i] for i in range(len(node)))
+    return node
+
+
 def tree_from_items(items):
-    """Inverse of ``tree_items``."""
+    """Inverse of ``tree_items``: str path entries make dicts, int ones
+    tuples."""
     out = {}
     for path, leaf in items:
         d = out
         for k in path[:-1]:
             d = d.setdefault(k, {})
         d[path[-1]] = leaf
-    return out
+    return _tuples(out)
 
 
 def tree_stack(trees):

@@ -5,7 +5,9 @@ a ``bind`` function that sets the C entry points' ``argtypes``) and calls
 ``build(SOURCE)`` at its first CUDA launch, never at import. ``build``
 compiles every source it is given that is not built yet in parallel (one
 ``nvcc`` per source, all started together), loads each shared library with
-``ctypes`` and caches it for the process.
+``ctypes`` and caches it for the process. ``KERNEL_MODULES`` lists the
+modules of all four sources and ``all_sources()`` their ``Source``s, so
+that ``chip_smoke.py`` builds every kernel at once.
 
 Libraries go into ``<repo>/build/repro_torch/`` (listed in .gitignore),
 named by a hash of the source and the flags, so an edited source builds
@@ -32,6 +34,15 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# the modules of the port's CUDA sources, one ``SOURCE`` each:
+# csrc/pullpush.cu, swa_attention.cu, mamba_scan.cu and slstm_step.cu
+KERNEL_MODULES = (
+    "repro_torch.kernels.pullpush.pullpush",
+    "repro_torch.kernels.swa_attention.swa_attention",
+    "repro_torch.kernels.mamba_scan.mamba_scan",
+    "repro_torch.kernels.slstm_step.slstm_step",
+)
+
 build_info: dict = {}          # name -> {seconds, log, path}
 _libs: dict = {}               # name -> ctypes.CDLL
 _lock = threading.Lock()
@@ -57,6 +68,12 @@ def _target(src: Source) -> Path:
     tag = hashlib.sha256(src.path.read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.name}-{tag}.so"
+
+
+def all_sources():
+    """The ``Source`` of every module in ``KERNEL_MODULES``."""
+    import importlib
+    return [importlib.import_module(m).SOURCE for m in KERNEL_MODULES]
 
 
 def build(*sources: Source):

@@ -35,6 +35,12 @@ def embed_init(gen, shape, dtype, *, device):
     return (_randn(gen, shape, device) * 0.02).to(dtype)
 
 
+def records_grad(*ts):
+    """Whether autograd records a graph through any of ``ts``: the model's
+    kernels have no backward, so their callers take a plain route then."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 # ---------------------------------------------------------------------------
 # Norms, softcap, RoPE
 # ---------------------------------------------------------------------------

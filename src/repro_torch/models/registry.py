@@ -9,9 +9,10 @@
     make_state(params, batch, buf_len, window=0) -> (blank states, start)
     prefill_chunk(params, states, tokens, index, window=0) -> (logits, states)
 
-for decoder-only configs whose blocks are all ``attn``/``local_attn`` and
-for the hybrid one (``mamba`` + ``shared_attn``, zamba2-7b); the other
-families are not ported yet. ``batch["tokens"]`` may be a tensor or
+for decoder-only configs whose blocks are all ``attn``/``local_attn``, for
+the hybrid one (``mamba`` + ``shared_attn``, zamba2-7b) and for the
+recurrent one (``mlstm`` + ``slstm``, xlstm-350m); the other families are
+not ported yet. ``batch["tokens"]`` may be a tensor or
 a numpy array; the serving lanes move it to the parameters' device. The
 serving lanes run without gradients and update ``states`` in place.
 
@@ -104,8 +105,9 @@ def params_from_numpy(cfg: ModelConfig, tree, *, device, dtype=None):
     ``jax.tree.map(np.asarray, params)`` gives it) -> the port's params on
     ``device``: leaves the model keeps in its working type in ``dtype``
     (default: ``cfg.dtype``), fp32 leaves (Mamba's ``A_log``, ``D``,
-    ``dt_bias``) in fp32. Raises ``ValueError`` on a missing or extra leaf
-    or a shape mismatch."""
+    ``dt_bias``; the xLSTM gates' ``w_i``, ``b_i``, ``w_f``, ``b_f``,
+    ``r_gates``, ``b_gates``) in fp32. Raises ``ValueError`` on a missing
+    or extra leaf or a shape mismatch."""
     if dtype is not None:
         cfg = dataclasses.replace(cfg,
                                   dtype=str(dtype).removeprefix("torch."))
@@ -135,12 +137,19 @@ def states_from_numpy(cfg: ModelConfig, tree, *, device, dtype=None):
     """The reference's decode states (``jax.tree.map(np.asarray,
     states)`` of ``make_state`` / ``prefill``) -> the port's stacked states
     on ``device``: KV caches and conv states in ``dtype`` (default
-    ``cfg.dtype``), ``pos`` int32, SSM states fp32. Batch and buffer length
-    are read from the first KV cache of the tree."""
-    path, k = next((path, np.shape(leaf)) for path, leaf in tree_items(tree)
-                   if path[-1] == "k")
+    ``cfg.dtype``), ``pos`` int32, SSM and xLSTM states fp32. Batch and
+    buffer length are read from the first KV cache of the tree; a tree
+    with no KV cache (xlstm) gives its batch from its first leaf and needs
+    no buffer length."""
+    items = tree_items(tree)
+    if not items:
+        raise ValueError(f"state tree of {cfg.name} has no leaves")
+    path, shape = next(((path, np.shape(leaf)) for path, leaf in items
+                        if path[-1] == "k"),
+                       (items[0][0], np.shape(items[0][1])))
     lead = 0 if path[0] == "remainder" else 1    # the stacked layer dim
-    want = lm.init_states(cfg, k[lead], k[lead + 1],
+    buf_len = shape[lead + 1] if path[-1] == "k" else 0
+    want = lm.init_states(cfg, shape[lead], buf_len,
                           dtype or getattr(torch, cfg.dtype), device="meta")
     return _tree_from_numpy(want, tree, f"state tree of {cfg.name}", device)
 

@@ -23,7 +23,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan import ops as ssd_ops
 from repro_torch.kernels.mamba_scan.ref import ssd_chunks_seq_plain
-from repro_torch.models.layers import dense_init, rms_norm, _randn
+from repro_torch.models.layers import (
+    _randn, dense_init, records_grad, rms_norm,
+)
 
 
 def dims(cfg):
@@ -93,10 +95,6 @@ def _ssd_chunked(xh, B_, C_, a_log, chunk, h0=None):
                                 chunk, h0)
 
 
-def _records_grad(*ts):
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
-
-
 def mamba_forward(p, x, cfg, state=None):
     """x: (B, S, D). state: None (train / prefill from scratch) or
     {"ssm": (B,H,P,N), "conv": (B,K-1,Cd)}, updated in place.
@@ -126,7 +124,7 @@ def mamba_forward(p, x, cfg, state=None):
         ssm_state = h_new
     else:
         h0 = None if state is None else state["ssm"]
-        scan = (_ssd_chunked if _records_grad(xh_dt, B_, C_, a_log)
+        scan = (_ssd_chunked if records_grad(xh_dt, B_, C_, a_log)
                 else ssd_ops.ssd_scan)
         y, ssm_state = scan(xh_dt, B_, C_, a_log, cfg.ssm_chunk, h0=h0)
 

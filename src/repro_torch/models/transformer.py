@@ -3,7 +3,8 @@
 Counterpart of ``repro/models/transformer.py`` for the dense families
 (``attn``/``local_attn`` patterns: yi-6b, gemma2-2b, internlm2-20b,
 qwen2-72b) and the hybrid one (zamba2-7b: ``mamba`` blocks with one
-``shared_attn`` block). Parameters keep the reference's trees:
+``shared_attn`` block) and the recurrent one (xlstm-350m: ``mlstm`` and
+``slstm`` blocks). Parameters keep the reference's trees:
 
 * uniform layout: the layers are stacked on a leading dim under
   ``blocks/stack``;
@@ -17,15 +18,16 @@ sliding windows follow the pattern (``local_attn`` -> ``sliding_window``,
 
 Serving: ``lm_prefill`` / ``lm_make_state`` / ``lm_prefill_chunk`` /
 ``lm_decode_step`` run the stack over the stacked states (``init_states``:
-position-tagged KV caches, one per attention occurrence, and Mamba
-(ssm, conv) states), which the port updates in place. At ``index == 0``
-the cache is blank, so attention over it is exactly causal
-self-attention over the chunk: there ``_self_attention`` calls the
-hand-written ``swa_attention`` kernel (``kernels/swa_attention``). Decode
-steps and later chunks attend over the cache with ``attend``, as the
-reference does in jnp; training keeps ``attend`` too (the kernel has no
-backward). Mamba blocks route their chunked scan as ``models/ssm.py``
-says. MoE and xLSTM blocks are not ported yet.
+position-tagged KV caches, one per attention occurrence, Mamba
+(ssm, conv) states, mLSTM (C, n, m) and sLSTM (c, n, h, m) tuples), which
+the port updates in place. At ``index == 0`` the cache is blank, so
+attention over it is exactly causal self-attention over the chunk: there
+``_self_attention`` calls the hand-written ``swa_attention`` kernel
+(``kernels/swa_attention``). Decode steps and later chunks attend over
+the cache with ``attend``, as the reference does in jnp; training keeps
+``attend`` too (the kernel has no backward). Mamba blocks route their chunked scan as ``models/ssm.py``
+says, sLSTM blocks their recurrence as ``models/xlstm.py`` says. MoE
+blocks are not ported yet.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from repro_torch.core.engine import tree_at, tree_stack
 from repro_torch.kernels.swa_attention import ops as swa_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import (
     embed_init, init_mlp, mlp, rms_norm, softcap,
 )
@@ -113,6 +116,12 @@ def _apply_block_inner(kind, p, x, cfg, window, state, index):
     if kind == "mamba":
         out, state = ssm_lib.mamba_forward(p, x, cfg, state)
         return x + out, state
+    if kind == "mlstm":
+        out, state = xlstm_lib.mlstm_forward(p, x, cfg, state)
+        return x + out, state
+    if kind == "slstm":
+        out, state = xlstm_lib.slstm_forward(p, x, cfg, state)
+        return x + out, state
     raise _not_ported(f"{kind!r} blocks")
 
 
@@ -132,6 +141,8 @@ _INIT = {
     "attn": init_attn_block,
     "shared_attn": init_attn_block,
     "mamba": ssm_lib.init_mamba,
+    "mlstm": xlstm_lib.init_mlstm,
+    "slstm": xlstm_lib.init_slstm,
 }
 
 
@@ -142,6 +153,10 @@ def _block_state(kind, cfg, batch, buf_len, dtype, *, device):
                                dtype, device=device)
     if kind == "mamba":
         return ssm_lib.init_mamba_state(cfg, batch, dtype, device=device)
+    if kind == "mlstm":
+        return xlstm_lib.init_mlstm_state(cfg, batch, device=device)
+    if kind == "slstm":
+        return xlstm_lib.init_slstm_state(cfg, batch, device=device)
     raise _not_ported(f"{kind!r} block states")
 
 
@@ -170,7 +185,8 @@ def _windows(cfg):
 
 def _check_supported(cfg):
     kinds = {k for k, _ in _merged_pattern(cfg)}
-    if kinds != {"attn"} and not kinds <= {"mamba", "shared_attn"}:
+    if kinds != {"attn"} and not kinds <= {"mamba", "shared_attn"} \
+            and not kinds <= {"mlstm", "slstm"}:
         raise _not_ported(f"block pattern {cfg.layer_pattern}")
 
 
@@ -207,7 +223,8 @@ def init_states(cfg, batch, buf_len, dtype, *, device):
     """Fresh stacked states matching ``run_blocks``, in the reference's
     trees: uniform ``{"k", "v": (L, B, buf, nkv, hd), "pos": (L, buf)}``;
     cycled ``{"cycle": {"b<j>": (n_cycles, ...) per position, one KV cache
-    per shared-attention occurrence}, "remainder": {"b<j>": ...}}``."""
+    per shared-attention occurrence}, "remainder": {"b<j>": ...}}``, an
+    xLSTM block's state a tuple of stacked leaves."""
     _check_supported(cfg)
 
     def one(kind):

@@ -8,6 +8,7 @@ differs from its tree engine at 1e-4 (ROADMAP.md Queue 3).
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,7 +20,9 @@ from repro.core import methods as jmethods
 from repro.core.engine import ConsensusEngine as JEngine
 from repro_torch.configs import DPPFConfig
 from repro_torch.core import consensus, methods
-from repro_torch.core.engine import ConsensusEngine
+from repro_torch.core.engine import (
+    ConsensusEngine, tree_at, tree_from_items, tree_items, tree_stack,
+)
 from repro_torch.models import flat_from_numpy
 
 MODES = ("kernel", "fast", "precise")
@@ -185,3 +188,71 @@ def test_kernel_mode_is_in_place_and_default_off_the_card():
 def test_tree_path_is_not_ported():
     with pytest.raises(NotImplementedError, match="not yet ported"):
         consensus.apply_round({}, DPPFConfig(), 0.1, {})
+
+
+# ---------------------------------------------------------------------------
+# tree helpers over dicts and tuples (the reference's state pytrees)
+# ---------------------------------------------------------------------------
+
+def _state_tree(seed):
+    """A state tree shaped like xlstm's: dicts keyed out of order, tuples
+    of leaves (an mLSTM (C, n, m) and an sLSTM (c, n, h, m) state)."""
+    rng = np.random.default_rng(seed)
+    r = lambda *s: rng.normal(size=s).astype(np.float32)
+    return {"cycle": {"b3": (r(2, 3), r(2, 3) + 1, r(2, 3), r(2, 3) - 1),
+                      "b0": (r(2, 3, 3), r(2, 3), r(2))},
+            "a": {"k": r(4), "pos": np.arange(3, dtype=np.int32)}}
+
+
+def _torch_tree(tree):
+    return tree_from_items([(p, torch.from_numpy(leaf.copy()))
+                            for p, leaf in tree_items(tree)])
+
+
+def test_tree_items_follow_jax_order_and_round_trip_tuples():
+    tree = _state_tree(0)
+    items = tree_items(tree)
+    jleaves = jax.tree_util.tree_flatten_with_path(tree)[0]
+    assert [p for p, _ in items] == [
+        tuple(getattr(k, "key", getattr(k, "idx", None)) for k in path)
+        for path, _ in jleaves]
+    for (_, a), (_, b) in zip(items, jleaves):
+        assert a is b
+    assert items[2][0] == ("cycle", "b0", 0)
+    back = tree_from_items(items)
+    assert isinstance(back["cycle"]["b3"], tuple)
+    assert len(back["cycle"]["b3"]) == 4
+    assert jax.tree_util.tree_structure(back) == \
+        jax.tree_util.tree_structure(tree)
+    # a bare tuple tree, and a tuple nested in a tuple
+    nested = (np.zeros(1), (np.ones(2), np.ones(3)))
+    assert [p for p, _ in tree_items(nested)] == [(0,), (1, 0), (1, 1)]
+    assert jax.tree_util.tree_structure(tree_from_items(
+        tree_items(nested))) == jax.tree_util.tree_structure(nested)
+    with pytest.raises(ValueError, match="tuple indices"):
+        tree_from_items([((0,), 1), ((2,), 2)])
+
+
+def test_tree_stack_and_tree_at_views_write_through():
+    """``tree_at`` of a stacked tree gives views: an in-place write to a
+    tuple leaf of the view (as a decode step writes an xLSTM state)
+    reaches the stack, and the other rows stay."""
+    trees = [_torch_tree(_state_tree(s)) for s in range(3)]
+    stacked = tree_stack(trees)
+    assert isinstance(stacked["cycle"]["b0"], tuple)
+    assert stacked["cycle"]["b0"][0].shape == (3, 2, 3, 3)
+    for i, t in enumerate(trees):
+        view = tree_at(stacked, i)
+        assert jax.tree_util.tree_structure(view) == \
+            jax.tree_util.tree_structure(t)
+        for (pa, a), (pb, b) in zip(tree_items(view), tree_items(t)):
+            assert pa == pb and torch.equal(a, b)
+    view = tree_at(stacked, 1)
+    view["cycle"]["b3"][3].fill_(-1e30)
+    view["cycle"]["b0"][0].add_(1.0)
+    assert bool((stacked["cycle"]["b3"][3][1] == -1e30).all())
+    assert torch.equal(stacked["cycle"]["b0"][0][1],
+                       trees[1]["cycle"]["b0"][0] + 1.0)
+    for i in (0, 2):
+        assert torch.equal(stacked["cycle"]["b3"][3][i],
+                           trees[i]["cycle"]["b3"][3])

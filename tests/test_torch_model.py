@@ -1,9 +1,12 @@
 """The port's transformer against the JAX package: the reference's
 initial weights carried across as numpy, the same tokens, logits / loss /
-gradients compared in fp32 on the CPU, for the dense families and the
+gradients compared in fp32 on the CPU, for the dense families, the
 hybrid one (zamba2-7b at 6 layers, one full cycle, and at 9, with the
-remainder blocks of the full config). The full-size zamba2-7b tree is
-held against the reference's shapes on the ``meta`` device."""
+remainder blocks of the full config) and the recurrent one (xlstm-350m at
+4 layers, one cycle, and at 8, two cycles, on the per-step mLSTM of its
+published config; and with ``xlstm_chunk = 16``, the chunked mLSTM). The
+full-size zamba2-7b and xlstm-350m trees are held against the
+reference's shapes on the ``meta`` device."""
 from __future__ import annotations
 
 import functools
@@ -27,15 +30,25 @@ from repro_torch.models import attention as attn
 from repro_torch.models import build_model, params_from_numpy
 from repro_torch.models import transformer as lm
 
-# "name@L": the reduced config cut to L layers
-ARCHS = ("yi-6b", "gemma2-2b", "zamba2-7b", "zamba2-7b@9")
+# "name@L": the reduced config cut to L layers; "/chunkN": xlstm_chunk N
+ARCHS = ("yi-6b", "gemma2-2b", "zamba2-7b", "zamba2-7b@9", "xlstm-350m",
+         "xlstm-350m@8", "xlstm-350m/chunk16")
 ATOL = 1e-4
+
+
+def _overrides(arch):
+    """'name[@L][/chunkN]' -> (name, reduced() overrides)."""
+    arch, _, chunk = arch.partition("/chunk")
+    name, _, layers = arch.partition("@")
+    kw = {"n_layers": int(layers)} if layers else {}
+    if chunk:
+        kw["xlstm_chunk"] = int(chunk)
+    return name, kw
 
 
 def _configs(arch):
     """(reference cfg, port cfg) of a reduced arch."""
-    name, _, layers = arch.partition("@")
-    kw = {"n_layers": int(layers)} if layers else {}
+    name, kw = _overrides(arch)
     return jreduced(jget_arch(name), **kw), reduced(get_arch(name), **kw)
 
 
@@ -144,7 +157,24 @@ def test_params_from_numpy_checks_the_tree():
 
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model(reduced(get_arch("xlstm-350m")))
+        build_model(reduced(get_arch("dbrx-132b")))
+
+
+def _full_tree_matches_reference(name):
+    """(the port's meta tree as {path: leaf}, its parameter count) after
+    holding its paths, shapes and dtypes against the reference's."""
+    jcfg, cfg = jget_arch(name), get_arch(name)
+    want = jax.eval_shape(lambda k: jlm.init_lm(jcfg, k),
+                          jax.random.PRNGKey(0))
+    want = {tuple(k.key for k in path): leaf for path, leaf in
+            jax.tree_util.tree_flatten_with_path(want)[0]}
+    got = dict(tree_items(lm.init_lm(cfg, None, device="meta")))
+    assert sorted(got) == sorted(want)
+    for path, leaf in got.items():
+        assert tuple(leaf.shape) == want[path].shape, path
+        assert str(leaf.dtype).removeprefix("torch.") == \
+            want[path].dtype.name, path
+    return got, sum(leaf.numel() for leaf in got.values())
 
 
 # zamba2-7b's tree, counted from the reference's init (jax.eval_shape)
@@ -157,18 +187,8 @@ def test_full_zamba2_tree_matches_reference_shapes():
     device (nothing allocated), has the reference's paths, shapes and
     dtypes, and 5,737,416,000 parameters: 68 Mamba2 blocks and one shared
     attention + MLP block."""
-    jcfg, cfg = jget_arch("zamba2-7b"), get_arch("zamba2-7b")
-    want = jax.eval_shape(lambda k: jlm.init_lm(jcfg, k),
-                          jax.random.PRNGKey(0))
-    want = {tuple(k.key for k in path): leaf for path, leaf in
-            jax.tree_util.tree_flatten_with_path(want)[0]}
-    got = dict(tree_items(lm.init_lm(cfg, None, device="meta")))
-    assert sorted(got) == sorted(want)
-    for path, leaf in got.items():
-        assert tuple(leaf.shape) == want[path].shape, path
-        assert str(leaf.dtype).removeprefix("torch.") == \
-            want[path].dtype.name, path
-    assert sum(leaf.numel() for leaf in got.values()) == ZAMBA2_PARAMS
+    got, n = _full_tree_matches_reference("zamba2-7b")
+    assert n == ZAMBA2_PARAMS
     assert got[("blocks", "cycle", "b0", "in_proj")].shape == (
         13, 3584, 2 * 7168 + 2 * 64 + 112)
     assert sorted({p[2] for p in got if p[1:2] == ("remainder",)}) == [
@@ -191,3 +211,58 @@ def test_reference_param_count_overcounts_mamba_blocks():
     n_mamba = jcfg.blocks().count("mamba")
     assert n_mamba == 68
     assert (ZAMBA2_PARAM_COUNT - ZAMBA2_PARAMS) == 443_440 * n_mamba
+
+
+# xlstm-350m's tree, counted from the reference's init (jax.eval_shape)
+XLSTM_PARAMS = 555_246_736
+XLSTM_PARAM_COUNT = 303_219_712         # what ModelConfig.param_count() says
+
+
+def test_full_xlstm_tree_matches_reference_shapes():
+    """The port's full-size xlstm-350m tree on the meta device: the
+    reference's paths, shapes and dtypes, 555,246,736 parameters
+    (529,736,704 bf16 and 25,510,032 fp32) in 6 cycles of (mlstm, mlstm,
+    mlstm, slstm), d_in 2048 over 4 heads of 512."""
+    got, n = _full_tree_matches_reference("xlstm-350m")
+    assert n == XLSTM_PARAMS
+    by_dtype = {}
+    for leaf in got.values():
+        by_dtype[leaf.dtype] = by_dtype.get(leaf.dtype, 0) + leaf.numel()
+    assert by_dtype == {torch.bfloat16: 529_736_704,
+                        torch.float32: 25_510_032}
+    assert sorted({p[2] for p in got if p[1:2] == ("cycle",)}) == [
+        "b0", "b1", "b2", "b3"]
+    assert not any(p[1:2] == ("remainder",) for p in got)
+    assert got[("blocks", "cycle", "b3", "r_gates")].shape == (6, 4, 512,
+                                                               2048)
+    assert got[("blocks", "cycle", "b3", "r_gates")].dtype == torch.float32
+    assert got[("blocks", "cycle", "b0", "wq")].shape == (6, 2048, 2048)
+    assert got[("embed",)].shape == (50304, 1024)
+    assert ("lm_head",) not in got                 # tied embeddings
+
+
+def test_reference_param_count_undercounts_xlstm_blocks():
+    """A fault of the reference (ROADMAP.md Queue 3): ``param_count()``
+    counts ``4 d d_in + d_in d + 2 d`` per xLSTM block: twice the up
+    projection's ``2 d d_in``, the down projection and two norms of d,
+    where a block has one norm of d and one of d_in. It leaves out an
+    mLSTM block's wq, wk, wv (3 d_in^2), w_i, w_f (2 d_in H) and b_i, b_f
+    (2 H), and an sLSTM block's w_gates (4 d_in^2), r_gates (4 H P^2) and
+    b_gates (4 d_in): 8,406,024 too few per mLSTM block and 16,786,432
+    per sLSTM block, 252,027,024 over 18 and 6 of them."""
+    jcfg = jget_arch("xlstm-350m")
+    tree = jax.eval_shape(lambda k: jlm.init_lm(jcfg, k),
+                          jax.random.PRNGKey(0))
+    n = sum(int(np.prod(leaf.shape)) for leaf in jax.tree.leaves(tree))
+    assert n == XLSTM_PARAMS
+    assert jcfg.param_count() == XLSTM_PARAM_COUNT
+    d, d_in, H, P = 1024, 2048, 4, 512
+    mlstm_missing = (3 * d_in * d_in + 2 * d_in * H + 2 * H + d_in
+                     - 2 * d * d_in - d)
+    slstm_missing = (4 * d_in * d_in + 4 * H * P * P + 4 * d_in + d_in
+                     - 2 * d * d_in - d)
+    assert (mlstm_missing, slstm_missing) == (8_406_024, 16_786_432)
+    blocks = jcfg.blocks()
+    assert (blocks.count("mlstm"), blocks.count("slstm")) == (18, 6)
+    assert XLSTM_PARAMS - XLSTM_PARAM_COUNT == (
+        18 * mlstm_missing + 6 * slstm_missing) == 252_027_024
