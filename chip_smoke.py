@@ -20,7 +20,7 @@ Phases (any failure raises, and the script exits non-zero):
    16 steps, seq 64, batch 8 per worker, SGD (momentum 0.9, wd 1e-3).
    Launch counters are zeroed just before and read just after.
 4. The launcher: ``repro_torch.launch.train.main`` (``--smoke``) on the
-   card.
+   card, on the flat engine and with ``--engine tree``.
 5. Attention kernel: ``swa_attention`` against its plain version in fp32
    and bf16 on the six cases of ``tests/test_kernels.py``, a ragged
    non-causal case, an ``Sq > Skv`` case, an hd = 112 case and the
@@ -62,13 +62,18 @@ Phases (any failure raises, and the script exits non-zero):
    tokens, 4 slots, chunk 64, 16 new tokens.
 9. sLSTM kernel: ``slstm_steps`` against its plain version on the four
    cases of ``tests/test_kernels.py``, a carried state, T = 1, the reduced
-   config's P = 128 and the serving shape (B = 4, T = 4096, H = 4,
-   P = 512, with the forget-gate bias of 3 the model's ``b_gates`` adds);
-   then, for information, the serving shape on unit-normal gates without
-   that bias, where the 4096-step recurrence is chaotic and the plain
-   version in fp32 drifts from itself in fp64; times kernel (median of 20
-   after 3 warm-ups) and plain version (median of 3). No single PyTorch
-   call computes this recurrence.
+   config's P = 128; then the serving shape (B = 4, T = 4096, H = 4,
+   P = 512) on the model's own gates: g_in = xi @ w_gates + b_gates of a
+   real xlstm-350m sLSTM block (its seeded init, bf16) on a random
+   prompt, reshaped head-major as the model does, so the forget bias of 3
+   lands on every gate of head 2 and on no gate of heads 0, 1, 3. Error
+   per head beside that head's plain fp32-vs-fp64 drift: a head is held
+   to 1e-4 of its scale, or, where its own fp32 arithmetic drifts further
+   over 4096 chaotic steps, to twice that drift. Then the serving shape
+   with a forget bias of 3 on every head (not the model's layout), held
+   to 1e-4. Times kernel (median of 20 after 3 warm-ups) and plain
+   version (median of 3) on the model's gates. No single PyTorch call
+   computes this recurrence.
 10. Serving xlstm-350m at full width and full depth (24 layers: 18 mLSTM
    and 6 sLSTM blocks, bf16, 555,246,736 random parameters from a seeded
    generator): (0) one sLSTM block's kernel route against its plain route
@@ -82,6 +87,24 @@ Phases (any failure raises, and the script exits non-zero):
    and 4096 tokens); (c) the serving launcher on the published config
    (``xlstm_chunk = 0``): 5 requests of 256 / 512 / 1024 / 256 / 512
    tokens, 4 slots, chunk 64, 16 new tokens.
+
+11. The tree path's pair: ``sq_dist`` and ``apply_update`` against their
+   plain versions on the cases of ``tests/test_kernels.py`` (n = 128 to
+   40001) in fp32, bf16 and bf16 x with fp32 a, a row at an odd element
+   offset, and the slice's leaves (``embed`` / ``lm_head``, n =
+   262,144,000; a stacked MLP leaf, n = 180,355,072) in bf16 x / fp32 a
+   and fp32 / fp32; two ``sq_dist`` calls must give the same bits. Times
+   kernel, plain version and one PyTorch call (``torch.dist(x, a) ** 2``,
+   ``torch.lerp``; fp32 / fp32) at n = 262,144,000 (CUDA events, median of
+   20 after 3 warm-ups).
+12. The tree path: yi-6b at full width, 4 layers, bf16 stacked leaves with
+   fp32 momentum, ``engine="tree"``, as phase 3 otherwise (M = 4,
+   simple_avg, tau 4, 16 steps). Counters zeroed just before the four
+   rounds and read just after: 48 ``sq_dist`` and 48 ``apply_update``
+   launches a round (M x 12 leaves). Then one ``easgd`` round (pull, then
+   push): 144 and 48. Then, on the full-width state, one Eq. 5 round on
+   the kernels against the same round on ``ref.py``'s plain functions,
+   leaf by leaf.
 
 It prints a ``kernels`` line, the ``{"kernels": [...]}`` record and, last,
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -172,7 +195,7 @@ SLSTM_CASES = (
 )
 # xlstm-350m's prefill: B = 4 prompts of 4096 tokens, 4 heads of 512
 SLSTM_SLICE = (4, 4096, 4, 512)
-FORGET_BIAS = 3.0       # b_gates' forget part (models/xlstm.py)
+FORGET_BIAS = 3.0       # the forget part of b_gates (models/xlstm.py)
 SLSTM_SOURCE = "src/repro_torch/kernels/slstm_step/csrc/slstm_step.cu"
 SLSTM_REPLACES = "src/repro/kernels/slstm_step/slstm_step.py:79"
 # xlstm-350m's parameter tree, counted from the reference's init
@@ -183,6 +206,19 @@ REPLACES = {
     "gram_coef": "src/repro/kernels/pullpush/pullpush.py:162",
     "mix_shard": "src/repro/kernels/pullpush/pullpush.py:319",
 }
+# the tree path's pair (phase 11): the cases of tests/test_kernels.py
+PAIR_REPLACES = {
+    "sq_dist": "src/repro/kernels/pullpush/pullpush.py:90",
+    "apply_update": "src/repro/kernels/pullpush/pullpush.py:110",
+}
+PAIR_N = {"sq_dist": (128, 1000, 32768, 40001),
+          "apply_update": (256, 5000, 33000)}
+# the slice's leaves: embed / lm_head, and one stacked MLP leaf (4 layers)
+PAIR_SLICE_N = (262_144_000, 180_355_072)
+PAIR_DTYPES = ((torch.float32, torch.float32),
+               (torch.bfloat16, torch.bfloat16),
+               (torch.bfloat16, torch.float32))
+SQ_DIST_RTOL = 1e-5     # the same numbers summed in fp32 in another order
 
 
 def _time_ms(fn, reps=20, warm=3):
@@ -437,16 +473,19 @@ def phase_slice(pk):
 
 def phase_launcher(pk):
     from repro_torch.launch.train import main as train_main
-    pk.reset_launches()
-    loss = train_main(["--arch", "yi-6b", "--smoke", "--workers", "4",
-                       "--tau", "4", "--steps", "16", "--seq", "16",
-                       "--batch", "2"])
-    if not math.isfinite(loss):
-        raise AssertionError(f"launcher eval loss {loss}")
-    if pk.LAUNCHES["fused_round"] <= 0:
-        raise AssertionError("the launcher's rounds launched no kernel")
-    print(f"  launcher eval loss {loss:.4f}, launches "
-          f"{json.dumps(dict(pk.LAUNCHES))}")
+    for engine, kernels in (("flat", ("fused_round",)),
+                            ("tree", ("sq_dist", "apply_update"))):
+        pk.reset_launches()
+        loss = train_main(["--arch", "yi-6b", "--smoke", "--workers", "4",
+                           "--tau", "4", "--steps", "16", "--seq", "16",
+                           "--batch", "2", "--engine", engine])
+        if not math.isfinite(loss):
+            raise AssertionError(f"launcher ({engine}) eval loss {loss}")
+        if any(pk.LAUNCHES[k] <= 0 for k in kernels):
+            raise AssertionError(f"the launcher's {engine} rounds launched "
+                                 f"no {kernels}")
+        print(f"  launcher --engine {engine}: eval loss {loss:.4f}, "
+              f"launches {json.dumps(dict(pk.LAUNCHES))}")
 
 
 # ---------------------------------------------------------------------------
@@ -1049,8 +1088,9 @@ def phase_zamba2(swa, mk):
 # ---------------------------------------------------------------------------
 
 def _slstm_inputs(B, T, H, P, gen, carried=False, forget_bias=0.0):
-    """g_in (unit normal, the forget block shifted by ``forget_bias``), R
-    (the model's init scale P^-1/2) and a fresh or carried state."""
+    """g_in (unit normal, every head's forget block shifted by
+    ``forget_bias``), R (the model's init scale P^-1/2) and a fresh or
+    carried state."""
     g = torch.randn((B, T, H, 4 * P), generator=gen, device="cuda")
     g[..., 2 * P:3 * P] += forget_bias
     R = torch.randn((H, P, 4 * P), generator=gen, device="cuda") * P ** -0.5
@@ -1064,6 +1104,36 @@ def _slstm_inputs(B, T, H, P, gen, carried=False, forget_bias=0.0):
         z = torch.zeros(shape, device="cuda")
         st = (z, z + 1e-6, z.clone(), z - 1e30)
     return g, R, st
+
+
+def _slstm_model_inputs(B, T, gen):
+    """The serving shape on the model's own gates: a seeded xlstm-350m
+    sLSTM block (bf16, its init), a random prompt's block input x, and
+    g_in = xi @ w_gates + b_gates reshaped head-major as
+    ``models/xlstm.py::slstm_forward`` does; R is the block's r_gates."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import xlstm
+    from repro_torch.models.layers import rms_norm
+    cfg = get_arch("xlstm-350m")
+    d_in, H, P = xlstm.dims(cfg)
+    p = xlstm.init_slstm(gen, cfg, torch.bfloat16, device="cuda")
+    x = torch.randn((B, T, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    xi = (rms_norm(x, p["ln"], cfg.norm_eps) @ p["w_up"])[..., :d_in]
+    g = (xi.to(torch.float32) @ p["w_gates"].to(torch.float32)
+         + p["b_gates"]).view(B, T, H, 4 * P)
+    st = xlstm.init_slstm_state(cfg, B, device="cuda")
+    return g, p["r_gates"], st
+
+
+def _slstm_head_rel(got, want, head):
+    """Largest error relative to its scale over h and the four final-state
+    tensors, restricted to one head."""
+    (h, st), (wh, wst) = got, want
+    pairs = [(h[:, :, head], wh[:, :, head])] + [
+        (a[:, head], b[:, head]) for a, b in zip(st, wst)]
+    return max(err / scale for err, scale in (
+        _rel_err(a.double(), b.double()) for a, b in pairs))
 
 
 def _slstm_errs(got, want):
@@ -1101,43 +1171,47 @@ def phase_slstm(sk, sref):
             if not worst <= TOL:
                 raise AssertionError(f"slstm_steps {(B, T, H, P)}: max rel "
                                      f"err {worst:.3e} > {TOL}")
-        # the serving shape on the model's gate distribution
+        # the serving shape on the model's own gates, head by head
         B, T, H, P = SLSTM_SLICE
-        g, R, st = _slstm_inputs(B, T, H, P, gen, forget_bias=FORGET_BIAS)
-        got = sk.slstm_steps(g, R, st)
+        g, R, st = _slstm_model_inputs(B, T, gen)
+        k32 = sk.slstm_steps(g, R, st)
         torch.cuda.synchronize()
-        want = sref.slstm_steps_ref(g, R, st)
-        e = _slstm_errs(got, want)
-        errs += e
-        worst = max(err / scale for err, scale in e)
-        print(f"  checked the serving shape {SLSTM_SLICE}, forget bias "
-              f"{FORGET_BIAS}: max rel err {worst:.3e} ([abs, scale] of h, "
-              f"c, n, h_T, m: {json.dumps(e)})")
-        if not worst <= TOL:
-            raise AssertionError(f"slstm_steps serving shape: max rel err "
-                                 f"{worst:.3e} > {TOL}")
+        p32 = sref.slstm_steps_ref(g, R, st)
+        p64 = sref.slstm_steps_ref(g.double(), R.double(),
+                                   tuple(t.double() for t in st))
+        heads = []
+        for hd in range(H):
+            f_bias = float(g[..., hd, 2 * P:3 * P].mean())
+            row = {"head": hd, "mean_forget_preact": f_bias,
+                   "kernel_vs_plain32": _slstm_head_rel(k32, p32, hd),
+                   "plain32_vs_plain64": _slstm_head_rel(p32, p64, hd)}
+            row["bar"] = max(TOL, 2 * row["plain32_vs_plain64"])
+            heads.append(row)
+            print("  serving shape, the model's gates, head " + json.dumps(
+                row))
+            if not row["kernel_vs_plain32"] <= row["bar"]:
+                raise AssertionError(
+                    f"slstm_steps head {hd}: rel err "
+                    f"{row['kernel_vs_plain32']:.3e} > {row['bar']:.3e}")
         ms = _time_ms(lambda: sk.slstm_steps(g, R, st))
         plain_ms = _time_ms(lambda: sref.slstm_steps_ref(g, R, st), reps=3,
                             warm=1)
-        del got, want
-        # information: unit-normal gates with no forget bias make the
-        # recurrence chaotic over 4096 steps; how far the kernel and the
-        # plain version (fp32) drift from each other and from the plain
-        # version in fp64
-        g2, R2, st2 = _slstm_inputs(B, T, H, P, gen)
-        k32 = sk.slstm_steps(g2, R2, st2)
-        p32 = sref.slstm_steps_ref(g2, R2, st2)
-        p64 = sref.slstm_steps_ref(g2.double(), R2.double(),
-                                   tuple(t.double() for t in st2))
+        del g, R, st, k32, p32, p64
+        # a forget bias of 3 on every head: not the model's layout
+        g, R, st = _slstm_inputs(B, T, H, P, gen, forget_bias=FORGET_BIAS)
+        got = sk.slstm_steps(g, R, st)
         torch.cuda.synchronize()
-        rel = lambda a, b: max(err / scale for err, scale in
-                               _slstm_errs(a, b))
-        chaos = {"kernel_vs_plain32": rel(k32, p32),
-                 "kernel_vs_plain64": rel(k32, p64),
-                 "plain32_vs_plain64": rel(p32, p64)}
-        print("  (information) serving shape, unit-normal gates, no forget "
-              "bias: max rel err " + json.dumps(chaos))
-        del g2, R2, st2, k32, p32, p64
+        e = _slstm_errs(got, sref.slstm_steps_ref(g, R, st))
+        errs += e
+        worst = max(err / scale for err, scale in e)
+        print(f"  checked the serving shape {SLSTM_SLICE}, forget bias "
+              f"{FORGET_BIAS} on every head (not the model's layout): max "
+              f"rel err {worst:.3e} ([abs, scale] of h, c, n, h_T, m: "
+              f"{json.dumps(e)})")
+        if not worst <= TOL:
+            raise AssertionError(f"slstm_steps serving shape: max rel err "
+                                 f"{worst:.3e} > {TOL}")
+        del got, g, R, st
     bound, bound_by, t_bytes, t_ops, flops = _slstm_bound(B, T, H, P)
     row = {"name": "slstm_steps", "route": "cuda", "source": SLSTM_SOURCE,
            "replaces": SLSTM_REPLACES, "launches": 0,
@@ -1149,9 +1223,8 @@ def phase_slstm(sk, sref):
            "flops": flops, "library_ms": None,
            "library_note": "no single PyTorch call computes the sLSTM "
                            "recurrence",
-           "chaotic_case_rel_err": chaos}
+           "model_gates_by_head": heads}
     print("  slstm_steps " + json.dumps(row))
-    del g, R, st
     torch.cuda.empty_cache()
     return row
 
@@ -1380,6 +1453,299 @@ def phase_xlstm(sk):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the tree path's pair, sq_dist and apply_update
+# ---------------------------------------------------------------------------
+
+def _bf16_ulp(t):
+    """One bf16 ulp (8 significant bits) at each entry's magnitude."""
+    _, e = torch.frexp(t.float())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+def _pair_inputs(n, xd, ad, gen):
+    x = torch.randn((n,), generator=gen, device="cuda").to(xd)
+    a = torch.randn((n,), generator=gen, device="cuda").to(ad)
+    return x, a
+
+
+def _check_pair(pk, ref, name, x, a, coef, errs, what):
+    """One kernel against its plain version; sq_dist within
+    SQ_DIST_RTOL, twice with the same bits; apply_update within 1e-6
+    (fp32) or one bf16 ulp of each entry (bf16)."""
+    if name == "sq_dist":
+        got, again = pk.sq_dist(x, a), pk.sq_dist(x, a)
+        torch.cuda.synchronize()
+        want = ref.sq_dist_plain(x, a)
+        if not torch.equal(got, again):
+            raise AssertionError(f"sq_dist {what}: two calls differ")
+        err = abs(float(got) - float(want))
+        rel = err / max(abs(float(want)), 1e-30)
+        ok = rel <= SQ_DIST_RTOL
+    else:
+        got = pk.apply_update(x, a, coef)
+        torch.cuda.synchronize()
+        want = ref.apply_plain(x, a, coef)
+        d = (got.float() - want.float()).abs()
+        err = float(d.max())
+        rel = err / max(float(want.float().abs().max()), 1e-30)
+        bar = _bf16_ulp(want) if x.dtype == torch.bfloat16 else 1e-6
+        ok = bool((d <= bar).all())
+        del d
+    errs[name] = (max(errs[name][0], err), max(errs[name][1], rel))
+    if not ok:
+        raise AssertionError(f"{name} {what}: err {err:.3e} (rel "
+                             f"{rel:.3e}) over its bar")
+    return err
+
+
+def phase_pair(pk, ref):
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    errs = {k: (0.0, 0.0) for k in PAIR_REPLACES}
+    coef = torch.tensor([0.1 - 0.5 / 3.0], device="cuda")
+    for name, ns in PAIR_N.items():
+        for xd, ad in PAIR_DTYPES:
+            for n in ns:
+                x, a = _pair_inputs(n, xd, ad, gen)
+                _check_pair(pk, ref, name, x, a, coef, errs,
+                            f"n={n} {xd}/{ad}")
+        # a stacked leaf's row at an odd element offset (element-wise path)
+        leaf = torch.randn((4, 40001), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+        c = torch.randn((40001,), generator=gen, device="cuda")
+        _check_pair(pk, ref, name, leaf[1], c, coef, errs, "odd offset")
+        print(f"  {name}: checked the test cases and an odd offset")
+    rows = {}
+    for name in PAIR_REPLACES:
+        timing = {}
+        for n in PAIR_SLICE_N:
+            for xd, ad in ((torch.bfloat16, torch.float32),
+                           (torch.float32, torch.float32)):
+                x, a = _pair_inputs(n, xd, ad, gen)
+                err = _check_pair(pk, ref, name, x, a, coef, errs,
+                                  f"n={n} {xd}/{ad}")
+                out = torch.empty_like(x)
+                if name == "sq_dist":
+                    kern = lambda: pk.sq_dist(x, a)
+                    plain = lambda: ref.sq_dist_plain(x, a)
+                    lib = lambda: torch.dist(x, a) ** 2
+                    nbytes = n * (x.element_size() + a.element_size())
+                else:
+                    kern = lambda: pk.apply_update(x, a, coef, out=out)
+                    plain = lambda: ref.apply_plain(x, a, coef, out=out)
+                    lib = lambda: torch.lerp(x, a, coef, out=out)
+                    nbytes = n * (2 * x.element_size() + a.element_size())
+                key = f"{n} {str(xd)[6:]}/{str(ad)[6:]}"
+                timing[key] = {
+                    "ms": _time_ms(kern), "plain_ms": _time_ms(plain),
+                    "library_ms": _time_ms(lib) if xd == ad else None,
+                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                    "bytes": nbytes, "max_abs_err": err}
+                print(f"  {name} {key}: " + json.dumps(timing[key]))
+                del x, a, out
+                torch.cuda.empty_cache()
+        n = PAIR_SLICE_N[0]
+        head = timing[f"{n} bfloat16/float32"]
+        same = timing[f"{n} float32/float32"]
+        rows[name] = {
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": PAIR_REPLACES[name], "launches": 0,
+            "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
+            "tol_rel": SQ_DIST_RTOL if name == "sq_dist" else
+            "1e-6 abs fp32, one bf16 ulp bf16",
+            # the headline: the tree path's bf16 leaf against the fp32
+            # center at the largest leaf; one PyTorch call computes the
+            # function only on inputs of one dtype, so library_ms is the
+            # fp32 / fp32 case's, beside that case's own kernel time
+            "shape": [n], "dtypes": "bfloat16/float32", "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": "bytes", "library_ms": same["library_ms"],
+            "library_call": ("torch.dist(x, a) ** 2" if name == "sq_dist"
+                             else "torch.lerp(x, a, coef, out=out)"),
+            "ms_fp32": same["ms"], "bound_ms_fp32": same["bound_ms"],
+            "timings": timing}
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the tree path, yi-6b at full width
+# ---------------------------------------------------------------------------
+
+def _timed_rounds(trainer_mod, step, box, batches, label):
+    """Run ``step`` over ``batches`` from the state in the one-element list
+    ``box`` (taken out of it, so that no caller keeps a round's input
+    alive), with CUDA events around each ``apply_round``; print and return
+    the last state and each round's numbers."""
+    state = box.pop()
+    apply_round = trainer_mod.consensus.apply_round
+    events = []
+
+    def timed_apply_round(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = apply_round(*a, **kw)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    trainer_mod.consensus.apply_round = timed_apply_round
+    rounds = []
+    try:
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b())
+            torch.cuda.synchronize()
+            round_ms = (time.perf_counter() - t0) * 1e3
+            cons_ms = events[-1][0].elapsed_time(events[-1][1])
+            row = {"round": state.round - 1, "loss": float(m["train_loss"]),
+                   "consensus_dist": float(m["consensus_dist"]),
+                   "round_ms": round_ms, "consensus_ms": cons_ms,
+                   "local_ms": round_ms - cons_ms,
+                   "peak_bytes": torch.cuda.max_memory_allocated()}
+            rounds.append(row)
+            print(f"  {label} round " + json.dumps(row))
+    finally:
+        trainer_mod.consensus.apply_round = apply_round
+    return state, rounds
+
+
+def _plain_round(core_pp, ref, stacked):
+    """One Eq. 5 round on ``ref.py``'s plain functions in place of the
+    kernels."""
+    kernels = core_pp.sq_dist, core_pp.apply_update
+    core_pp.sq_dist, core_pp.apply_update = ref.sq_dist_plain, ref.apply_plain
+    try:
+        return core_pp.pullpush(stacked, 0.1, 0.5)[0], \
+            core_pp.worker_dists(stacked)
+    finally:
+        core_pp.sq_dist, core_pp.apply_update = kernels
+
+
+def phase_tree(pk, ref):
+    from repro_torch.configs import DPPFConfig, get_arch
+    from repro_torch.core import consensus
+    from repro_torch.core import pullpush as core_pp
+    from repro_torch.core.engine import tree_items
+    from repro_torch.data import TokenTask, make_round_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import (
+        RoundClock, init_train_state, make_round_step,
+    )
+    import repro_torch.train.trainer as trainer_mod
+
+    cfg = dataclasses.replace(get_arch("yi-6b"), n_layers=LAYERS)
+    M, tau, steps, seq, batch = 4, 4, 16, 64, 8
+    model = build_model(cfg)
+    dcfg = DPPFConfig(alpha=0.1, lam=0.5, tau=tau, consensus="simple_avg",
+                      engine="tree")
+    opt = make_optimizer("sgd", momentum=0.9, weight_decay=1e-3)
+    clock = RoundClock.from_config(dcfg, base_lr=LR, total_steps=steps)
+    task = TokenTask(vocab_size=cfg.vocab_size, seq_len=seq)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    print(f"  config {cfg.name}: layers {cfg.n_layers}, dtype {cfg.dtype}, "
+          f"engine tree; M={M} tau={tau} steps={steps} seq={seq} "
+          f"batch={batch} lr={LR}")
+
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model.init, opt, dcfg, M, gen, device="cuda")
+    leaves = tree_items(state.params)
+    n = sum(leaf[0].numel() for _, leaf in leaves)
+    if state.engine is not None or n != cfg.param_count():
+        raise AssertionError(f"tree state: engine {state.engine}, {n} "
+                             f"parameters, param_count() "
+                             f"{cfg.param_count()}")
+    L = len(leaves)
+    print(f"  stacked tree: {L} leaves, {n} parameters a worker, dtypes "
+          f"{sorted({str(leaf.dtype) for _, leaf in leaves})}")
+    step = make_round_step(model.loss, opt, dcfg, clock=clock)
+    batches = [lambda spec=spec: make_round_batch(
+        task, 0, M, spec.tau, spec.start, batch, cfg, device="cuda")
+        for spec in clock.rounds]
+    box = [state]
+    del state, leaves           # each round's input goes with its round
+    pk.reset_launches()                     # main path: counts from here
+    state, rounds = _timed_rounds(trainer_mod, step, box, batches,
+                                  "simple_avg")
+    eq5 = {k: pk.LAUNCHES[k] for k in PAIR_REPLACES}
+    print(f"  launches over {len(rounds)} Eq. 5 rounds {json.dumps(eq5)}")
+    want = {k: M * L * len(rounds) for k in PAIR_REPLACES}
+    if eq5 != want:
+        raise AssertionError(f"Eq. 5 rounds launched {eq5}, want {want}")
+    if not all(math.isfinite(r["loss"]) for r in rounds):
+        raise AssertionError("non-finite training loss")
+    if not all(r["consensus_dist"] > 0 for r in rounds[1:]):
+        raise AssertionError("consensus_dist is 0 after round 0")
+
+    # one easgd round: the center state, a pull, then a push
+    edcfg = dataclasses.replace(dcfg, consensus="easgd")
+    eclock = RoundClock.from_config(edcfg, base_lr=LR,
+                                    total_steps=steps + tau)
+    estep = make_round_step(model.loss, opt, edcfg, clock=eclock)
+    spec = eclock.rounds[state.round]
+    box = [dataclasses.replace(
+        state, cstate=consensus.init_state("easgd", state.params))]
+    del state
+    pk.reset_launches()
+    state, erounds = _timed_rounds(
+        trainer_mod, estep, box, [lambda: make_round_batch(
+            task, 0, M, spec.tau, spec.start, batch, cfg, device="cuda")],
+        "easgd")
+    ez = {k: pk.LAUNCHES[k] for k in PAIR_REPLACES}
+    print(f"  launches in the easgd round {json.dumps(ez)}")
+    if ez != {"sq_dist": 3 * M * L, "apply_update": M * L}:
+        raise AssertionError(f"easgd round launched {ez}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  peak memory allocated {peak} bytes ({peak / 1e9:.2f} GB)")
+    if peak > 70e9:
+        raise AssertionError(f"peak memory {peak / 1e9:.1f} GB > 70 GB")
+    later = rounds[1:] or rounds
+    print("  mean of Eq. 5 rounds 1.. " + json.dumps({
+        k: statistics.mean(r[k] for r in later)
+        for k in ("round_ms", "consensus_ms", "local_ms")}))
+
+    # one Eq. 5 round on the kernels against the plain functions
+    stacked = state.params
+    del state, step, estep
+    torch.cuda.empty_cache()
+    pk.reset_launches()
+    new_k, _ = core_pp.pullpush(stacked, 0.1, 0.5)
+    r_k = core_pp.worker_dists(stacked)
+    kernel_launches = dict(pk.LAUNCHES)
+    new_p, r_p = _plain_round(core_pp, ref, stacked)
+    if dict(pk.LAUNCHES) != kernel_launches:
+        raise AssertionError("the plain round launched a kernel")
+    r_rel = float(((r_k - r_p).abs() / r_p).max())
+    center = core_pp.tree_mean0(stacked)
+    sq_rel = 0.0
+    for (_, a), (_, c) in zip(tree_items(stacked), tree_items(center)):
+        for row in a.view(M, -1):
+            want = float(ref.sq_dist_plain(row, c.view(-1)))
+            got = float(pk.sq_dist(row, c.view(-1)))
+            sq_rel = max(sq_rel, abs(got - want) / want)
+    del center
+    worst, flips = 0.0, 0
+    for (path, k), (_, p) in zip(tree_items(new_k), tree_items(new_p)):
+        for m in range(M):
+            d = (k[m].float() - p[m].float()).abs()
+            u = _bf16_ulp(p[m])
+            worst = max(worst, float((d / u).max()))
+            flips += int((d > 0).sum())
+            del d, u
+    print(f"  kernel round vs plain round: r max rel err {r_rel:.3e} "
+          f"(per (worker, leaf) sums of squares {sq_rel:.3e}), leaves max "
+          f"err {worst:.3f} bf16 ulp, {flips} entries differ")
+    if not (r_rel <= 1e-5 and sq_rel <= SQ_DIST_RTOL and worst <= 1.0):
+        raise AssertionError("the kernel round differs from the plain one")
+    del new_k, new_p, stacked
+    torch.cuda.empty_cache()
+    return {"eq5": eq5, "easgd": ez, "rounds": rounds, "easgd_round":
+            erounds, "peak_bytes": peak, "plain_round_r_rel": r_rel,
+            "plain_round_sq_rel": sq_rel, "plain_round_ulp": worst}
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1472,6 +1838,21 @@ def main():
     secs["xlstm"] = time.perf_counter() - t0
     rows["slstm_steps"]["launches_by_path"] = {"xlstm-350m serving": xl}
     rows["slstm_steps"]["launches"] = xl
+
+    print("phase 11: sq_dist and apply_update against their plain versions")
+    t0 = time.perf_counter()
+    rows.update(phase_pair(pk, ref))
+    secs["pair"] = time.perf_counter() - t0
+
+    print("phase 12: the tree path (yi-6b, full width)")
+    t0 = time.perf_counter()
+    tree = phase_tree(pk, ref)
+    secs["tree"] = time.perf_counter() - t0
+    for name in PAIR_REPLACES:
+        rows[name]["launches_by_path"] = {
+            "yi-6b tree training, 4 Eq. 5 rounds": tree["eq5"][name],
+            "yi-6b tree training, 1 easgd round": tree["easgd"][name]}
+        rows[name]["launches"] = tree["eq5"][name] + tree["easgd"][name]
     secs["total"] = time.perf_counter() - t_start
     print("phase seconds " + json.dumps(secs))
 

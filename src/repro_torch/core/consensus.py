@@ -1,13 +1,13 @@
-"""Soft-consensus family (paper §3 Alg. 1, §7.1): the flat-engine lowering.
+"""Soft-consensus family (paper §3 Alg. 1, §7.1) and their DPPF couplings.
 
-Counterpart of ``repro/core/consensus.py``, flat path only. Every method
-is a ``MethodSpec`` (``core/methods.py``); ``lower_stages`` turns a spec
-into generic engine stages over the persistent ``(R, n)`` view and
-``apply_round`` runs them. Every branch emits the same metrics dict:
+Counterpart of ``repro/core/consensus.py``. Every method is a
+``MethodSpec`` (``core/methods.py``). ``apply_round`` is the single entry
+point: with ``engine=None`` it runs the stacked-tree path
+(``_apply_round_tree``, over ``core/pullpush.py``: the reference's parity
+oracle and its default engine); with a ``ConsensusEngine``
+``lower_stages`` turns the spec into generic stages over the persistent
+``(R, n)`` view. Every branch of both paths emits the same metrics dict:
 ``consensus_dist``, ``pre_dist``, ``pull_force``, ``push_force``.
-
-The stacked-pytree reference path (``engine=None``) is not ported yet and
-raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -16,21 +16,39 @@ import dataclasses
 import torch
 
 from repro_torch.core import methods as _methods
+from repro_torch.core import pullpush as pp
+from repro_torch.core.engine import tree_items, tree_map
 from repro_torch.core.methods import get_method
+
+# canonical methods with a tree path (lpf_sgd is flat-engine only)
+METHODS = _methods.tree_method_names()
 
 
 def init_state(method, params, *, engine=None):
-    """Per-method consensus state on the flat path: LPF-SGD's filtered
-    gradient is a worker-shaped EMA buffer; row-shaped state (the
-    easgd/parle center) lives in the flat view's aux rows."""
-    if engine is None:
-        raise NotImplementedError("not yet ported: tree consensus state")
+    """Per-method consensus state. On the tree path the easgd/parle
+    center is a tree (the initial worker mean); on the flat path LPF-SGD's
+    filtered gradient is a worker-shaped EMA buffer and row-shaped state
+    (the center) lives in the flat view's aux rows."""
     spec = get_method(method)
+    if engine is None:
+        if spec.center_beta:
+            return {"center": pp.tree_mean0(params)}
+        return {}
     if spec.filter_mu:
         L = engine.layout
         return {"g_ema": torch.zeros((L.M, L.n), dtype=torch.float32,
                                      device=engine.device)}
     return {}
+
+
+def consensus_target(method, stacked, state, *, losses=None,
+                     grad_norms=None):
+    """Returns ``(x_C tree [no worker dim], new_state, leader_idx)``."""
+    spec = get_method(method)
+    if spec.tree_target is None:
+        raise ValueError(method)
+    return spec.tree_target(spec, stacked, state, losses=losses,
+                            grad_norms=grad_norms)
 
 
 def _metrics(consensus_dist, pre_dist, pull_force, push_force, *, device):
@@ -54,20 +72,78 @@ def _pull_coef(spec, dcfg, lam_t, pull_scale):
 def apply_round(params, dcfg, lam_t, state, *, losses=None, grad_norms=None,
                 push_from="average", engine=None, first_gram=None, mask=None,
                 push_vec=None, pull_scale=1.0):
-    """One communication round on the engine's flat ``(R, n)`` view.
-    Returns ``(params, state, metrics)``. On the kernel path the view is
-    updated in place. ``mask`` is the elastic participation vector
-    ``(M,)``; ``push_vec`` the ``(M, n)`` push field of
-    ``push_source="filtered_grad"`` specs (LPF-SGD)."""
-    if engine is None:
-        raise NotImplementedError("not yet ported: tree consensus path "
-                                  "(apply_round without an engine)")
+    """One communication round. Returns ``(params, state, metrics)``.
+
+    ``params`` is a worker-stacked tree (``engine=None``: new tensors come
+    back, as in the reference) or the engine's flat ``(R, n)`` view (on
+    the kernel path updated in place). ``mask`` (flat path only) is the
+    elastic participation vector ``(M,)``; ``push_vec`` (flat path only)
+    the ``(M, n)`` push field of ``push_source="filtered_grad"`` specs
+    (LPF-SGD); ``first_gram`` (the overlap modes) is not ported yet."""
+    if engine is not None:
+        if first_gram is not None:
+            raise NotImplementedError("not yet ported: first_gram "
+                                      "(overlap)")
+        return _apply_round_flat(engine, params, dcfg, lam_t, state,
+                                 losses=losses, grad_norms=grad_norms,
+                                 push_from=push_from, mask=mask,
+                                 push_vec=push_vec, pull_scale=pull_scale)
     if first_gram is not None:
-        raise NotImplementedError("not yet ported: first_gram (overlap)")
-    return _apply_round_flat(engine, params, dcfg, lam_t, state,
-                             losses=losses, grad_norms=grad_norms,
-                             push_from=push_from, mask=mask,
-                             push_vec=push_vec, pull_scale=pull_scale)
+        raise ValueError("first_gram requires the flat engine")
+    if mask is not None:
+        raise ValueError("elastic mask requires the flat engine")
+    if push_vec is not None:
+        raise ValueError("push_vec requires the flat engine")
+    return _apply_round_tree(params, dcfg, lam_t, state, losses=losses,
+                             grad_norms=grad_norms, push_from=push_from,
+                             pull_scale=pull_scale)
+
+
+# ---------------------------------------------------------------------------
+# Tree path: stacked trees (the flat engine's parity oracle)
+# ---------------------------------------------------------------------------
+
+def _apply_round_tree(stacked, dcfg, lam_t, state, *, losses, grad_norms,
+                      push_from, pull_scale=1.0):
+    spec = get_method(dcfg.consensus)
+    pull = _pull_coef(spec, dcfg, lam_t, pull_scale)
+    push = dcfg.push and spec.pushes
+    dev = tree_items(stacked)[0][1].device
+
+    if not spec.communicates:               # ddp: metrics only
+        r = pp.worker_dists(stacked).mean()
+        return stacked, state, _metrics(r, r, 0.0, 0.0, device=dev)
+
+    if spec.fuse_eq5 and push and not dcfg.exact_second_term \
+            and push_from == "average":
+        new, m = pp.pullpush(stacked, pull, lam_t, dcfg.eps)
+        return new, state, _metrics(m["consensus_dist"], m["pre_dist"],
+                                    m["pull_force"], m["push_force"],
+                                    device=dev)
+
+    target, state, leader_idx = consensus_target(
+        dcfg.consensus, stacked, state, losses=losses, grad_norms=grad_norms)
+    pre = torch.mean(pp.worker_dists(stacked))
+    new = pp.pull_only(stacked, target, pull)
+    del target                  # dropped before the push allocates
+
+    if push:
+        if dcfg.exact_second_term:
+            new = pp.exact_push(new, lam_t * _workers(new), dcfg.eps)
+        elif push_from == "leader" and leader_idx is not None:
+            leader = tree_map(lambda a: a[leader_idx].to(torch.float32), new)
+            new = pp.push_only(new, lam_t, center=leader, eps=dcfg.eps,
+                               out=new)
+        else:
+            new = pp.push_only(new, lam_t, eps=dcfg.eps, out=new)
+    post = torch.mean(pp.worker_dists(new))
+    return new, state, _metrics(post, pre, pull * pre,
+                                lam_t if push else 0.0, device=dev)
+
+
+def _workers(stacked):
+    """M, the leading worker dimension of a stacked tree."""
+    return tree_items(stacked)[0][1].shape[0]
 
 
 def as_participation_mask(mask, n_workers, *, device="cpu"):

@@ -102,6 +102,13 @@ def tree_stack(trees):
                             for i, (path, _) in enumerate(items[0])])
 
 
+def tree_map(fn, *trees):
+    """``jax.tree.map`` over trees of the same structure."""
+    items = [tree_items(t) for t in trees]
+    return tree_from_items([(path, fn(*(it[i][1] for it in items)))
+                            for i, (path, _) in enumerate(items[0])])
+
+
 def tree_at(tree, i):
     """The views ``leaf[i]`` of a stacked tree: writes through them reach
     the stack."""

@@ -1,15 +1,13 @@
 """MethodSpec registry: every flat-minima consensus method as DATA.
 
 Counterpart of ``repro/core/methods.py``: the same rows with the same
-fields, and the same target-weight rules written on torch tensors. The
-stacked-pytree (tree) reference path is not ported yet, so a spec carries
-no ``tree_target``; ``tree_method_names`` still lists the methods that
-have one in the reference.
+fields, and the same target-weight rules written on torch tensors.
 
-A ``MethodSpec`` declares what the generic flat lowering in
-``core/consensus.py`` needs: the target-weight rule ``weight_fn(ctx) ->
-(R,)``, the aux-row contract (``aux_rows``/``aux_pull``/``center_beta``),
-the coefficient flags (``hard_pull``, ``fuse_eq5``, ``pushes``, ``leader``,
+A ``MethodSpec`` declares what ``core/consensus.py`` needs: the
+target-weight rule ``weight_fn(ctx) -> (R,)`` of the flat lowering, the
+tree path's target rule ``tree_target`` (the consensus target x_C of a
+worker-stacked tree), the aux-row contract
+(``aux_rows``/``aux_pull``/``center_beta``), the coefficient flags (``hard_pull``, ``fuse_eq5``, ``pushes``, ``leader``,
 ``pull_ramp``, ``push_source``), the loss / gradient inputs, the
 inner/outer round plan (``inner_rounds``/``inner_pull``) and the
 filtered-gradient state (``filter_mu``).
@@ -20,6 +18,9 @@ import dataclasses
 from typing import Any, Callable, Optional, Tuple
 
 import torch
+
+from repro_torch.core import pullpush as pp
+from repro_torch.core.engine import tree_map
 
 EASGD_BETA = 0.9    # elastic-center step (paper §7.1 baseline setting)
 PARLE_BETA = 0.5    # Parle couples replicas harder than EASGD's 0.9 mean
@@ -72,6 +73,43 @@ def _w_gradnorm(ctx: WeightCtx):
     return out
 
 
+# -- tree-path targets: (x_C [no worker dim], new_state, leader_idx) -------
+
+def _t_mean(spec, stacked, state, *, losses, grad_norms):
+    return pp.tree_mean0(stacked), state, None
+
+
+def _t_center(spec, stacked, state, *, losses, grad_norms):
+    xa = pp.tree_mean0(stacked)
+    z_new = tree_map(lambda zc, a: zc + spec.center_beta * (a - zc),
+                    state["center"], xa)
+    return z_new, {"center": z_new}, None
+
+
+def _t_leader(spec, stacked, state, *, losses, grad_norms):
+    if losses is None:
+        raise ValueError(f"{spec.name} needs per-worker losses")
+    idx = int(torch.argmin(torch.as_tensor(losses)))
+    leader = tree_map(lambda a: a[idx].to(torch.float32), stacked)
+    return leader, state, idx
+
+
+def _t_gradnorm(spec, stacked, state, *, losses, grad_norms):
+    if grad_norms is None:
+        raise ValueError(f"{spec.name} needs per-worker grad norms")
+    w = 1.0 / torch.clamp(torch.as_tensor(grad_norms, dtype=torch.float32),
+                          min=1e-12)
+    w = w / torch.sum(w)
+    target = tree_map(lambda a: torch.tensordot(
+        w.to(a.device), a.to(torch.float32), dims=([0], [0])), stacked)
+    return target, state, None
+
+
+def _t_flat_only(spec, stacked, state, *, losses, grad_norms):
+    raise ValueError(f"{spec.name} requires the flat engine "
+                     f"(set engine='flat')")
+
+
 @dataclasses.dataclass(frozen=True)
 class MethodSpec:
     """One consensus method, declaratively (hashable)."""
@@ -79,6 +117,7 @@ class MethodSpec:
     doc: str                           # one-liner (CLI help)
     flags: str = ""                    # notable knobs
     weight_fn: Optional[Callable] = None   # None = no consensus stage (ddp)
+    tree_target: Optional[Callable] = None
     needs_losses: bool = False
     needs_grad_norms: bool = False
     hard_pull: bool = False            # alpha := 1 (LocalSGD)
@@ -163,7 +202,8 @@ def method_names(*, aliases: bool = True) -> Tuple[str, ...]:
 
 
 def tree_method_names() -> Tuple[str, ...]:
-    """Canonical methods that have a stacked-pytree path in the reference."""
+    """Canonical methods with a stacked-tree (tree) path — the flat
+    engine's parity-oracle set."""
     return tuple(n for n, s in _REGISTRY.items() if not s.requires_flat)
 
 
@@ -172,14 +212,14 @@ register(MethodSpec(
     doc="DPPF soft consensus: pull to the worker mean + unit push away "
         "(paper Eq. 5, fused into one stage)",
     flags="fuses pull+push",
-    weight_fn=_w_uniform, fuse_eq5=True,
+    weight_fn=_w_uniform, tree_target=_t_mean, fuse_eq5=True,
 ), aliases=("dppf",))
 
 register(MethodSpec(
     name="hard",
     doc="LocalSGD: hard parameter averaging (alpha = 1; Stich'19)",
     flags="alpha forced to 1",
-    weight_fn=_w_uniform, hard_pull=True,
+    weight_fn=_w_uniform, tree_target=_t_mean, hard_pull=True,
 ))
 
 register(MethodSpec(
@@ -187,7 +227,7 @@ register(MethodSpec(
     doc="elastic averaging around a center z (Zhang et al.'15); z rides "
         "in the flat view's aux row",
     flags="center aux row (beta=%.2g)" % EASGD_BETA,
-    weight_fn=_w_uniform,
+    weight_fn=_w_uniform, tree_target=_t_center,
     aux_rows=1, aux_pull=1.0, center_beta=EASGD_BETA,
 ))
 
@@ -196,7 +236,7 @@ register(MethodSpec(
     doc="leader SGD: pull to the lowest-loss worker (Teng et al.'19); "
         "push_from='leader' is the paper's Remark 1 fix",
     flags="needs losses; leader push",
-    weight_fn=_w_leader,
+    weight_fn=_w_leader, tree_target=_t_leader,
     needs_losses=True, leader=True,
 ))
 
@@ -205,7 +245,7 @@ register(MethodSpec(
     doc="gradient-norm-weighted averaging, w_m ∝ 1/||grad_m|| "
         "(Dimlioglu'24)",
     flags="needs grad norms",
-    weight_fn=_w_gradnorm, needs_grad_norms=True,
+    weight_fn=_w_gradnorm, tree_target=_t_gradnorm, needs_grad_norms=True,
 ), aliases=("grawa",))
 
 register(MethodSpec(
@@ -220,7 +260,7 @@ register(MethodSpec(
     doc="Parle elastic-averaging ensemble (Chaudhari et al.'17): center "
         "aux row + replica-coupling schedule (pull ramps with lam_t)",
     flags="center aux row; pull ramps with lam schedule; no push",
-    weight_fn=_w_uniform,
+    weight_fn=_w_uniform, tree_target=_t_center,
     aux_rows=1, aux_pull=1.0, center_beta=PARLE_BETA,
     pull_ramp=True, pushes=False,
 ))
@@ -230,7 +270,7 @@ register(MethodSpec(
     doc="LPF-SGD (Bisla et al.'22): mean pull + push along the "
         "EMA-filtered gradient carried in TrainState",
     flags="flat engine only; g_ema state (mu=%.2g)" % LPF_MU,
-    weight_fn=_w_uniform,
+    weight_fn=_w_uniform, tree_target=_t_flat_only,
     push_source="filtered_grad", filter_mu=LPF_MU, requires_flat=True,
 ))
 
@@ -240,6 +280,6 @@ register(MethodSpec(
         "weak-pull sub-rounds on the RoundClock's inner/outer plan",
     flags="inner/outer round plan (%d sub-rounds); no push"
          % ENTROPY_INNER_ROUNDS,
-    weight_fn=_w_uniform, pushes=False,
+    weight_fn=_w_uniform, tree_target=_t_mean, pushes=False,
     inner_rounds=ENTROPY_INNER_ROUNDS, inner_pull=ENTROPY_INNER_PULL,
 ))

@@ -1,11 +1,13 @@
 from repro_torch.kernels.pullpush.pullpush import (
-    LAUNCHES, build, fused_round, gram_coef, mix_shard, partial_gram,
-    reset_launches,
+    LAUNCHES, apply_update, build, fused_round, gram_coef, mix_shard,
+    partial_gram, reset_launches, sq_dist,
 )
 from repro_torch.kernels.pullpush.ref import (
-    fused_round_plain, gram_coef_plain, mix_shard_plain, partial_gram_plain,
+    apply_plain, fused_round_plain, gram_coef_plain, mix_shard_plain,
+    partial_gram_plain, sq_dist_plain,
 )
 
-__all__ = ["LAUNCHES", "build", "fused_round", "fused_round_plain",
-           "gram_coef", "gram_coef_plain", "mix_shard", "mix_shard_plain",
-           "partial_gram", "partial_gram_plain", "reset_launches"]
+__all__ = ["LAUNCHES", "apply_plain", "apply_update", "build", "fused_round",
+           "fused_round_plain", "gram_coef", "gram_coef_plain", "mix_shard",
+           "mix_shard_plain", "partial_gram", "partial_gram_plain",
+           "reset_launches", "sq_dist", "sq_dist_plain"]

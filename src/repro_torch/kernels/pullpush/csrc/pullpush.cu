@@ -1,6 +1,8 @@
 // DPPF consensus stage on Hopper (sm_90a): the port of
 // src/repro/kernels/pullpush/pullpush.py::fused_round (_fused_round_kernel),
-// partial_gram (_partial_gram_kernel) and mix_shard (_mix_kernel).
+// partial_gram (_partial_gram_kernel) and mix_shard (_mix_kernel), and of
+// the per-vector pair the tree path runs, sq_dist (_sq_dist_kernel) and
+// apply_update (_apply_kernel); the last two are described at their code.
 //
 // On a TPU the one pallas_call runs its grid in order, so phase 1 reads the
 // Gram that phase 0 summed in VMEM. Blocks on Hopper do not wait on each
@@ -27,6 +29,7 @@
 // Every entry point returns cudaGetLastError() after its launch; the
 // Python wrapper raises when it is not cudaSuccess.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -258,6 +261,211 @@ bool valid_shape(int R, long long n, int vec) {
   return vec == 1;
 }
 
+// ---------------------------------------------------------------------------
+// sq_dist and apply_update: one (n,) vector x against one (n,) vector a,
+// each float32 or bfloat16 on its own (the tree path passes a bf16 worker
+// leaf against the fp32 center), any n, any element offset.
+//
+// Bound: memory. sq_dist reads n (sizeof x + sizeof a) bytes once;
+// apply_update reads x and a and writes x's type once. Both move each
+// byte once: 8 elements a thread step, as 16-byte loads when both base
+// pointers are 16-byte aligned (the wrapper decides, kVec8) and one
+// element at a time otherwise; the ragged tail past the last whole group
+// of 8 is a short scalar loop, so nothing is padded.
+//
+// sq_dist reduces without atomics, in a fixed order: every block writes
+// its partial sum to a scratch slot (sq_dist_partial), one block adds the
+// slots (sq_dist_final). The grid depends only on n and the card, so
+// repeated calls give the same bits. A thread keeps 8 accumulators (one
+// per lane of its group), which cuts the sequential chain 8-fold.
+//
+// apply_update computes x + (a - x) coef in fp32 with __fsub_rn /
+// __fmul_rn / __fadd_rn, so no FMA is contracted and the result equals
+// the plain version's three rounded operations bit for bit; coef is read
+// from device memory (the tree path's coefficients are a device vector).
+// out may be x: each thread reads its elements before it writes them.
+// ---------------------------------------------------------------------------
+
+constexpr int kGroup = 8;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 lo = reinterpret_cast<const float4*>(p)[0];
+  const float4 hi = reinterpret_cast<const float4*>(p)[1];
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float2 f = __bfloat1622float2(h[q]);
+    v[2 * q] = f.x;
+    v[2 * q + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store8(float* p, const float* v) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    h[q] = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+// fixed-order sum over the block: warp shuffles, then the warps' sums in
+// warp order by thread 0; returns the total in thread 0
+template <int THREADS>
+__device__ __forceinline__ float block_sum(float v) {
+  __shared__ float sw[THREADS / 32];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) sw[warp] = v;
+  __syncthreads();
+  float s = 0.f;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < THREADS / 32; ++w) s += sw[w];
+  return s;
+}
+
+template <typename TX, typename TA, bool kVec8>
+__global__ void __launch_bounds__(kThreads)
+sq_dist_partial_kernel(const TX* __restrict__ x, const TA* __restrict__ a,
+                       long long n, float* __restrict__ partials) {
+  float acc[kGroup];
+#pragma unroll
+  for (int q = 0; q < kGroup; ++q) acc[q] = 0.f;
+  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kThreads;
+  long long head = 0;
+  if (kVec8) {
+    const long long groups = n / kGroup;
+    for (long long g = tid; g < groups; g += stride) {
+      float xv[kGroup], av[kGroup];
+      load8(x + g * kGroup, xv);
+      load8(a + g * kGroup, av);
+#pragma unroll
+      for (int q = 0; q < kGroup; ++q) {
+        const float d = xv[q] - av[q];
+        acc[q] = fmaf(d, d, acc[q]);
+      }
+    }
+    head = groups * kGroup;
+  }
+  for (long long i = head + tid; i < n; i += stride) {
+    const float d = to_f(x[i]) - to_f(a[i]);
+    acc[0] = fmaf(d, d, acc[0]);
+  }
+  const float s = ((acc[0] + acc[1]) + (acc[2] + acc[3]))
+                + ((acc[4] + acc[5]) + (acc[6] + acc[7]));
+  const float total = block_sum<kThreads>(s);
+  if (threadIdx.x == 0) partials[blockIdx.x] = total;
+}
+
+constexpr int kFinalThreads = 1024;
+
+__global__ void __launch_bounds__(kFinalThreads)
+sq_dist_final_kernel(const float* __restrict__ partials, int nblk,
+                     float* __restrict__ out) {
+  float s = 0.f;
+  for (int b = threadIdx.x; b < nblk; b += kFinalThreads) s += partials[b];
+  const float total = block_sum<kFinalThreads>(s);
+  if (threadIdx.x == 0) out[0] = total;
+}
+
+template <typename TX, typename TA, bool kVec8>
+__global__ void __launch_bounds__(kThreads)
+apply_kernel(const TX* x, const TA* __restrict__ a,
+             const float* __restrict__ coef, TX* out, long long n) {
+  const float c = coef[0];
+  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kThreads;
+  long long head = 0;
+  if (kVec8) {
+    const long long groups = n / kGroup;
+    for (long long g = tid; g < groups; g += stride) {
+      float xv[kGroup], av[kGroup], o[kGroup];
+      load8(x + g * kGroup, xv);
+      load8(a + g * kGroup, av);
+#pragma unroll
+      for (int q = 0; q < kGroup; ++q)
+        o[q] = __fadd_rn(xv[q], __fmul_rn(__fsub_rn(av[q], xv[q]), c));
+      store8(out + g * kGroup, o);
+    }
+    head = groups * kGroup;
+  }
+  for (long long i = head + tid; i < n; i += stride) {
+    const float xf = to_f(x[i]);
+    out[i] = from_f<TX>(
+        __fadd_rn(xf, __fmul_rn(__fsub_rn(to_f(a[i]), xf), c)));
+  }
+}
+
+// dtype codes of the C interface: 0 = float32, 1 = bfloat16
+template <template <typename, typename, bool> class Launch, typename... Args>
+int dispatch_pair(int x_bf16, int a_bf16, int vec8, Args... args) {
+  if (x_bf16 == 0 && a_bf16 == 0)
+    return vec8 ? Launch<float, float, true>::run(args...)
+                : Launch<float, float, false>::run(args...);
+  if (x_bf16 == 1 && a_bf16 == 0)
+    return vec8 ? Launch<__nv_bfloat16, float, true>::run(args...)
+                : Launch<__nv_bfloat16, float, false>::run(args...);
+  if (x_bf16 == 0 && a_bf16 == 1)
+    return vec8 ? Launch<float, __nv_bfloat16, true>::run(args...)
+                : Launch<float, __nv_bfloat16, false>::run(args...);
+  if (x_bf16 == 1 && a_bf16 == 1)
+    return vec8 ? Launch<__nv_bfloat16, __nv_bfloat16, true>::run(args...)
+                : Launch<__nv_bfloat16, __nv_bfloat16, false>::run(args...);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename TX, typename TA, bool kVec8>
+struct SqDistLaunch {
+  static int run(const void* x, const void* a, long long n, float* partials,
+                 int nblk, float* out, cudaStream_t s) {
+    sq_dist_partial_kernel<TX, TA, kVec8><<<nblk, kThreads, 0, s>>>(
+        static_cast<const TX*>(x), static_cast<const TA*>(a), n, partials);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    sq_dist_final_kernel<<<1, kFinalThreads, 0, s>>>(partials, nblk, out);
+    return (int)cudaGetLastError();
+  }
+};
+
+template <typename TX, typename TA, bool kVec8>
+struct ApplyLaunch {
+  static int run(const void* x, const void* a, const float* coef, void* out,
+                 long long n, int nblk, cudaStream_t s) {
+    apply_kernel<TX, TA, kVec8><<<nblk, kThreads, 0, s>>>(
+        static_cast<const TX*>(x), static_cast<const TA*>(a), coef,
+        static_cast<TX*>(out), n);
+    return (int)cudaGetLastError();
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -314,6 +522,26 @@ int pp_mix(const float* x, int R, long long n, const float* T,
   else
     mix_kernel<32, 1><<<nblk, kThreads, 0, s>>>(x, R, n, T, coef, out);
   return (int)cudaGetLastError();
+}
+
+// partials: (nblk,) fp32 scratch; out: one fp32. vec8 needs x and a
+// 16-byte aligned (the wrapper checks).
+int pp_sq_dist(const void* x, int x_bf16, const void* a, int a_bf16,
+               long long n, float* partials, int nblk, int vec8, float* out,
+               void* stream) {
+  if (n < 1 || nblk < 1) return (int)cudaErrorInvalidValue;
+  return dispatch_pair<SqDistLaunch>(x_bf16, a_bf16, vec8, x, a, n, partials,
+                                     nblk, out,
+                                     static_cast<cudaStream_t>(stream));
+}
+
+// out has x's type and may be x; coef: one fp32 in device memory
+int pp_apply(const void* x, int x_bf16, const void* a, int a_bf16,
+             const float* coef, void* out, long long n, int nblk, int vec8,
+             void* stream) {
+  if (n < 1 || nblk < 1) return (int)cudaErrorInvalidValue;
+  return dispatch_pair<ApplyLaunch>(x_bf16, a_bf16, vec8, x, a, coef, out, n,
+                                    nblk, static_cast<cudaStream_t>(stream));
 }
 
 const char* pp_error_string(int code) {

@@ -12,6 +12,17 @@ Replaces ``src/repro/kernels/pullpush/pullpush.py``:
 * ``mix_shard`` ← ``mix_shard`` (``_mix_kernel``): the uniform gap-form
   mix with given coefficients. Bound: memory, 2·R·n·4 bytes (read +
   write).
+* ``sq_dist`` ← ``sq_dist`` (``_sq_dist_kernel``): ``Σ (x − a)²`` of two
+  (n,) vectors, fp32 accumulation, in a fixed order (two launches: block
+  partials into a scratch buffer, then one block adds them). Bound:
+  memory, n·(sizeof x + sizeof a) bytes read.
+* ``apply_update`` ← ``apply_update`` (``_apply_kernel``): ``x + (a −
+  x)·coef`` in fp32, cast to x's type, coef read from device memory.
+  Bound: memory, n·(2·sizeof x + sizeof a) bytes.
+
+The first three carry the flat engine's stage; the last two carry the tree
+path (``core/pullpush.py``), one call per (worker, leaf), where x is a
+worker's leaf row in the model's dtype and a the fp32 center.
 
 Design against that bound: one pass over the view per kernel, 16-byte
 loads with neighbouring threads on neighbouring columns, the R x R sums in
@@ -24,8 +35,8 @@ For tensors on the CPU it runs the plain version from ``ref.py``; for a
 CUDA tensor it launches the kernel or raises — there is no fallback. The
 shared library is built from ``csrc/pullpush.cu`` with ``nvcc`` on first
 CUDA use (``build()``, through ``kernels/_build.py``), never at import.
-``LAUNCHES`` counts kernel launches per kernel; ``fused_round`` counts its
-calls.
+``LAUNCHES`` counts kernel launches per kernel; ``fused_round`` and
+``sq_dist`` count their calls (each is more than one launch).
 """
 from __future__ import annotations
 
@@ -36,15 +47,20 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.pullpush.ref import (
-    fused_round_plain, gram_coef_plain, mix_shard_plain, partial_gram_plain,
+    apply_plain, fused_round_plain, gram_coef_plain, mix_shard_plain,
+    partial_gram_plain, sq_dist_plain,
 )
 
 MAX_ROWS = 32          # the kernels keep one column of every row in registers
 THREADS = 256          # kThreads in csrc/pullpush.cu
 BLOCKS_PER_SM = 8      # grid of the two streaming kernels: 8 x 256 threads/SM
 
+GROUP = 8              # kGroup: elements a thread step of the vector kernels
+# dtype codes of the C interface of sq_dist / apply_update
+PAIR_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
 LAUNCHES = {"fused_round": 0, "partial_gram": 0, "gram_coef": 0,
-            "mix_shard": 0}
+            "mix_shard": 0, "sq_dist": 0, "apply_update": 0}
 
 
 def _bind(lib):
@@ -53,7 +69,10 @@ def _bind(lib):
     lib.pp_gram_coef.argtypes = [vp, i32, i32, vp, vp, vp, ctypes.c_float,
                                  vp, vp, vp, vp]
     lib.pp_mix.argtypes = [vp, i32, i64, vp, vp, vp, i32, i32, vp]
-    for fn in (lib.pp_partial_gram, lib.pp_gram_coef, lib.pp_mix):
+    lib.pp_sq_dist.argtypes = [vp, i32, vp, i32, i64, vp, i32, i32, vp, vp]
+    lib.pp_apply.argtypes = [vp, i32, vp, i32, vp, vp, i64, i32, i32, vp]
+    for fn in (lib.pp_partial_gram, lib.pp_gram_coef, lib.pp_mix,
+               lib.pp_sq_dist, lib.pp_apply):
         fn.restype = i32
     lib.pp_error_string.argtypes = [i32]
     lib.pp_error_string.restype = ctypes.c_char_p
@@ -136,14 +155,19 @@ def _vec(*tensors):
 _SM_COUNT = {}
 
 
-def _grid(flat, vec):
-    dev = flat.device.index if flat.device.index is not None \
+def _blocks(device, groups):
+    """Grid of a grid-stride kernel over ``groups`` thread steps: one
+    step a thread, at most BLOCKS_PER_SM blocks of THREADS a multiprocessor."""
+    dev = device.index if device.index is not None \
         else torch.cuda.current_device()
     if dev not in _SM_COUNT:
         _SM_COUNT[dev] = torch.cuda.get_device_properties(
             dev).multi_processor_count
-    groups = flat.shape[1] // vec
     return max(1, min(-(-groups // THREADS), BLOCKS_PER_SM * _SM_COUNT[dev]))
+
+
+def _grid(flat, vec):
+    return _blocks(flat.device, flat.shape[1] // vec)
 
 
 def workspace_blocks(flat):
@@ -272,3 +296,109 @@ def mix_shard(flat, T, coef, out=None):
         return mix_shard_plain(flat, T, coef, out=out)
     with torch.cuda.device(flat.device):
         return _launch_mix(flat, T, coef, out)
+
+
+# ---------------------------------------------------------------------------
+# the tree path's per-vector pair
+# ---------------------------------------------------------------------------
+
+def _check_vec(v, name):
+    if not isinstance(v, torch.Tensor) or v.dim() != 1:
+        raise ValueError(f"{name} must be a 1-D (n,) tensor")
+    if v.dtype not in PAIR_DTYPES:
+        raise TypeError(f"{name} must be float32 or bfloat16, got {v.dtype}")
+    if not v.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if v.numel() < 1:
+        raise ValueError(f"{name} is empty")
+    if v.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {v.device}")
+
+
+def _check_pair(x, a):
+    _check_vec(x, "x")
+    _check_vec(a, "a")
+    if a.shape != x.shape:
+        raise ValueError(f"x {tuple(x.shape)} and a {tuple(a.shape)} differ")
+    if a.device != x.device:
+        raise ValueError("x and a lie on different devices")
+
+
+def _vec8(x, a):
+    """8-element groups as 16-byte loads need both base pointers aligned;
+    any other offset takes the element-wise kernel."""
+    return x.data_ptr() % 16 == 0 and a.data_ptr() % 16 == 0
+
+
+def sq_dist(x, a):
+    """``Σ (x − a)²`` of two (n,) vectors (each float32 or bfloat16) with
+    fp32 accumulation: a () float32 tensor on x's device. On the card the
+    sum runs in a fixed order, so repeated calls agree bit for bit."""
+    _check_pair(x, a)
+    if x.device.type == "cpu":
+        return sq_dist_plain(x, a)
+    lib = build()
+    n = x.numel()
+    vec8 = _vec8(x, a)
+    nblk = _blocks(x.device, n // GROUP if vec8 else n)
+    partials = torch.empty((nblk,), dtype=torch.float32, device=x.device)
+    out = torch.empty((), dtype=torch.float32, device=x.device)
+    LAUNCHES["sq_dist"] += 1
+    with torch.cuda.device(x.device):
+        _raise_if(lib.pp_sq_dist(
+            _ptr(x), PAIR_DTYPES[x.dtype], _ptr(a), PAIR_DTYPES[a.dtype], n,
+            _ptr(partials), nblk, int(vec8), _ptr(out), _stream(x)),
+            "sq_dist")
+    return out
+
+
+def _coef(coef, x):
+    """A python float as a one-element fp32 tensor on x's device; a tensor
+    must already be one fp32 element there (the kernel reads it from
+    device memory)."""
+    if not isinstance(coef, torch.Tensor):
+        return torch.full((1,), float(coef), dtype=torch.float32,
+                          device=x.device)
+    if coef.numel() != 1 or coef.dtype != torch.float32 \
+            or coef.device != x.device:
+        raise ValueError("coef must be a python float or one float32 "
+                         "element on x's device")
+    return coef
+
+
+def _check_vec_out(out, x, a):
+    if out is None:
+        return torch.empty_like(x)
+    _check_vec(out, "out")
+    if out.shape != x.shape or out.dtype != x.dtype \
+            or out.device != x.device:
+        raise ValueError("out must have x's shape, dtype and device")
+    if out.data_ptr() != x.data_ptr() and any(
+            out.untyped_storage().data_ptr() == t.untyped_storage().data_ptr()
+            for t in (x, a)):
+        # a shifted alias would be written before other threads read it
+        raise ValueError("out must be x itself or lie in another buffer "
+                         "than x and a")
+    return out
+
+
+def apply_update(x, a, coef, *, out=None):
+    """``x + (a − x)·coef`` in fp32, cast to x's dtype. x, a: (n,) float32
+    or bfloat16; coef: a python float or one float32 element on x's
+    device. ``out`` may be ``x`` (in place)."""
+    _check_pair(x, a)
+    coef = _coef(coef, x)
+    out = _check_vec_out(out, x, a)
+    if x.device.type == "cpu":
+        return apply_plain(x, a, coef, out=out)
+    lib = build()
+    n = x.numel()
+    vec8 = _vec8(x, a) and out.data_ptr() % 16 == 0
+    nblk = _blocks(x.device, n // GROUP if vec8 else n)
+    LAUNCHES["apply_update"] += 1
+    with torch.cuda.device(x.device):
+        _raise_if(lib.pp_apply(
+            _ptr(x), PAIR_DTYPES[x.dtype], _ptr(a), PAIR_DTYPES[a.dtype],
+            _ptr(coef), _ptr(out), n, nblk, int(vec8), _stream(x)),
+            "apply_update")
+    return out

@@ -14,8 +14,15 @@ holds each kernel against. They mirror the phases of the reference
 * ``mix_shard_plain`` — the uniform gap form ``tx + (1 - c)(x - tx)``,
   exact at c = 1 and for huge |c|.
 
-Each works on column chunks of ``PLAIN_CHUNK`` columns so that its
-temporaries stay bounded at the main path's width (R x 1.2e9 fp32); a
+and the tree path's pair, twins of the reference's ``ref.py::sq_dist_ref``
+and ``apply_ref``:
+
+* ``sq_dist_plain`` — ``Σ (x − a)²`` in fp32;
+* ``apply_plain`` — ``x + (a − x)·coef`` in fp32, three rounded
+  operations as the kernel does them, cast to x's dtype.
+
+The Gram and mix functions work on column chunks of ``PLAIN_CHUNK``
+columns so that their temporaries stay bounded at the main path's width (R x 1.2e9 fp32); a
 chunk boundary only re-anchors the centering, which cancels in every
 zero-sum form.
 """
@@ -70,3 +77,19 @@ def fused_round_plain(flat, T, c0, c1, eps=1e-12, out=None):
     G = partial_gram_plain(flat)
     r, coef = gram_coef_plain(G, T, c0, c1, eps)
     return mix_shard_plain(flat, T, coef, out=out), r, G
+
+
+def sq_dist_plain(x, a):
+    """(n,) x, a (fp32 or bf16) -> () fp32 sum of squared differences."""
+    d = x.to(torch.float32) - a.to(torch.float32)
+    return torch.sum(d * d)
+
+
+def apply_plain(x, a, coef, out=None):
+    """``x + (a − x)·coef`` in fp32, cast to x's dtype. ``out`` may be
+    ``x``: the result is formed before it is written."""
+    xf = x.to(torch.float32)
+    r = xf + (a.to(torch.float32) - xf) * coef
+    if out is None:
+        return r.to(x.dtype)
+    return out.copy_(r)

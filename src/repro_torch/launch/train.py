@@ -1,17 +1,19 @@
-"""Training launcher: single-device DPPF rounds on any dense LM config.
+"""Training launcher: single-device DPPF rounds (or DDP) on any dense LM
+config.
 
-Counterpart of ``repro/launch/train.py`` for the flat engine with
-``--overlap none``. Runs on the card (``device="cuda"``) unless the caller
-passes ``device="cpu"``, as the tests do; it never falls back to the CPU.
+Counterpart of ``repro/launch/train.py`` with ``--overlap none``, on the
+flat engine (the default here, as in the reference's launcher) and the
+tree engine (``--engine tree``); ``--method ddp`` runs the per-step DDP
+baseline. Runs on the card (``device="cuda"``) unless the caller passes
+``device="cpu"``, as the tests do; it never falls back to the CPU.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \
       --workers 4 --tau 4 --alpha 0.1 --lam 0.5 --steps 16 --seq 16 --batch 2
 
 The round loop is the plain ``for spec in clock.rounds`` — the reference's
 supervisor with no membership and no chaos plan, bit for bit. The sharded
-and overlapped rounds, the supervisor, autotune, checkpoints, the tree
-engine and the DDP step are not ported yet: their flags exit with "not yet
-ported".
+and overlapped rounds, the supervisor, autotune and checkpoints are not
+ported yet: their flags exit with "not yet ported".
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ from repro_torch.kernels.pullpush import LAUNCHES
 from repro_torch.models import build_model
 from repro_torch.optim import make_optimizer
 from repro_torch.train import (
-    RoundClock, average_params, init_train_state, make_round_step,
+    RoundClock, TrainState, average_params, init_train_state, make_ddp_step,
+    make_round_step,
 )
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -59,8 +62,15 @@ def _parser():
                     choices=method_registry.method_names(),
                     help="consensus method (registry core.methods): "
                          + method_help)
+    flat_only = ", ".join(
+        n for n in method_registry.method_names(aliases=False)
+        if method_registry.get_method(n).requires_flat)
     ap.add_argument("--engine", default="flat", choices=["tree", "flat"],
-                    help="consensus execution engine (only flat is ported)")
+                    help="consensus execution engine (flat = persistent "
+                         "(R, n) view with the fused Gram/mixing round "
+                         "update; tree = the worker-stacked tree in the "
+                         "model's dtype). Registry methods marked flat-only "
+                         f"({flat_only}) refuse engine=tree")
     ap.add_argument("--lam-schedule", default="increasing")
     ap.add_argument("--tau-schedule", default="fixed",
                     choices=["fixed", "qsr"])
@@ -92,12 +102,10 @@ def main(argv=None, *, device="cuda"):
                        ("--overlap " + args.overlap, args.overlap != "none"),
                        ("--chaos", args.chaos),
                        ("--autotune", args.autotune),
-                       ("--tune-plan", args.tune_plan), ("--ckpt", args.ckpt),
-                       ("--engine tree", args.engine != "flat")):
+                       ("--tune-plan", args.tune_plan), ("--ckpt", args.ckpt)):
         if used:
             ap.error(f"{flag}: {NOT_PORTED}")
-    if not method_registry.get_method(args.consensus).communicates:
-        ap.error(f"--method {args.consensus} (the DDP step): {NOT_PORTED}")
+    mspec = method_registry.get_method(args.consensus)
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run the "
                            "launcher on the CPU")
@@ -129,26 +137,43 @@ def main(argv=None, *, device="cuda"):
                                    total_steps=args.steps, warmup=args.warmup)
 
     t0 = time.time()
-    launches0 = LAUNCHES["fused_round"]
-    state = init_train_state(model.init, opt, dcfg, args.workers, gen,
-                             device=device)
-    step = make_round_step(model.loss, opt, dcfg, clock=clock,
-                           sam_rho=args.sam_rho)
-    for spec in clock.rounds:
-        batch = make_round_batch(task, args.seed, args.workers, spec.tau,
-                                 spec.start, args.batch, cfg, device=device)
-        state, m = step(state, batch)
-        if spec.index % args.log_every == 0:
-            print(f"round {spec.index:4d} "
-                  f"(step {spec.start + spec.tau:5d} tau {spec.tau:3d}) "
-                  f"loss {float(m['train_loss']):.4f} "
-                  f"consensus_dist {float(m['consensus_dist']):.3f} "
-                  f"lam_t {float(m['lam_t']):.3f}")
-    print(f"comm rounds {clock.total_rounds} "
-          f"(fixed tau={args.tau} would take {clock.fixed_rounds}; "
-          f"all-reduces saved {clock.fixed_rounds - clock.total_rounds}) "
-          f"fused_round launches {LAUNCHES['fused_round'] - launches0}")
-    final = average_params(state)
+    launches0 = dict(LAUNCHES)
+    if not mspec.communicates:
+        p0 = model.init(gen, device)
+        state = TrainState(params=p0, opt=opt.init(p0), cstate={})
+        step = make_ddp_step(model.loss, opt, clock=clock,
+                             sam_rho=args.sam_rho)
+        for s in range(args.steps):
+            bs = [make_lm_batch(task, args.seed, m, s, args.batch, cfg,
+                                device=device) for m in range(args.workers)]
+            batch = {k: torch.stack([b[k] for b in bs]) for k in bs[0]}
+            state, m = step(state, batch)
+            if s % (args.log_every * args.tau) == 0:
+                print(f"step {s:5d} loss {float(m['train_loss']):.4f}")
+        final = state.params
+    else:
+        state = init_train_state(model.init, opt, dcfg, args.workers, gen,
+                                 device=device)
+        step = make_round_step(model.loss, opt, dcfg, clock=clock,
+                               sam_rho=args.sam_rho)
+        for spec in clock.rounds:
+            batch = make_round_batch(task, args.seed, args.workers, spec.tau,
+                                     spec.start, args.batch, cfg,
+                                     device=device)
+            state, m = step(state, batch)
+            if spec.index % args.log_every == 0:
+                print(f"round {spec.index:4d} "
+                      f"(step {spec.start + spec.tau:5d} tau {spec.tau:3d}) "
+                      f"loss {float(m['train_loss']):.4f} "
+                      f"consensus_dist {float(m['consensus_dist']):.3f} "
+                      f"lam_t {float(m['lam_t']):.3f}")
+        print(f"comm rounds {clock.total_rounds} "
+              f"(fixed tau={args.tau} would take {clock.fixed_rounds}; "
+              f"all-reduces saved {clock.fixed_rounds - clock.total_rounds})"
+              " kernel launches " + " ".join(
+                  f"{k}={v - launches0[k]}" for k, v in LAUNCHES.items()
+                  if v > launches0[k]))
+        final = average_params(state)
 
     # held-out eval
     eval_batch = make_lm_batch(task, args.seed + 999, 0, 10 ** 6,

@@ -12,7 +12,9 @@ cosine LR at the round's first step) — and owns the schedule reads:
 * ``lr_at(t)``: the cosine LR at global step ``t``;
 * ``pull_scale_at(round_idx)``: the inner/outer plan's pull scale.
 
-PyTorch runs eagerly, so all three return python floats.
+PyTorch runs eagerly, so all three return python floats. ``describe()``
+and ``plan_table()`` render the plan (the reference's dry-run report and
+committed round-clock baseline), string for string as the reference does.
 """
 from __future__ import annotations
 
@@ -177,6 +179,9 @@ class RoundClock:
     def total_rounds(self) -> int:
         return len(self.rounds)
 
+    def taus(self) -> Tuple[int, ...]:
+        return tuple(spec.tau for spec in self.rounds)
+
     @property
     def fixed_rounds(self) -> int:
         """Rounds a fixed-tau clock would pay for the same step budget."""
@@ -212,3 +217,111 @@ class RoundClock:
             return 1.0
         i = min(max(int(round_idx), 0), self.total_rounds - 1)
         return self.inner_pull if self.rounds[i].scope == "inner" else 1.0
+
+    # -- the plan as a report ------------------------------------------------
+
+    def _host_lam(self, round_idx: int) -> float:
+        """Float64 lam_t of the plan report (the reference's
+        ``_host_lam``)."""
+        T = max(self.total_rounds - 1, 1)
+        if self.total_rounds == 1:
+            return self.lam
+        frac = min(max(round_idx / T, 0.0), 1.0)
+        if self.lam_kind == "fixed":
+            return self.lam
+        if self.lam_kind == "decreasing":
+            return self.lam / 2.0 * (1.0 + math.cos(frac * math.pi))
+        if self.lam_kind == "increasing":
+            return self.lam / 2.0 * (1.0 - math.cos(frac * math.pi))
+        raise ValueError(self.lam_kind)
+
+    def describe(self) -> dict:
+        """Machine-readable summary + full round plan: one row per round
+        with its index, global start step, tau, the lam it applies and the
+        LR window ``[lr_start, lr_end]`` its local steps sweep (floats
+        rounded to 6 digits)."""
+        taus = self.taus()
+        depth = self.staleness_depth
+        inner = self.inner_rounds > 1
+        plan = []
+        for spec in self.rounds:
+            row = {
+                "round": spec.index,
+                "start": spec.start,
+                "tau": spec.tau,
+                "lam": round(self._host_lam(spec.index), 6),
+                "lr_start": round(_host_cosine_lr(
+                    self.base_lr, spec.start, self.total_steps,
+                    self.warmup), 6),
+                "lr_end": round(_host_cosine_lr(
+                    self.base_lr, spec.stop - 1, self.total_steps,
+                    self.warmup), 6),
+                "warmup": spec.start < self.warmup,
+                # rounds 0..depth-1 apply an exact consensus (0), later
+                # rounds the round-(r-depth) snapshot's (depth)
+                "staleness": depth if spec.index >= depth else 0,
+            }
+            if inner:
+                # plans without an inner loop keep the legacy row schema
+                row["scope"] = spec.scope
+            plan.append(row)
+        out = {
+            "total_steps": self.total_steps,
+            "tau_base": self.tau,
+            "tau_schedule": self.tau_schedule,
+            "qsr_beta": self.qsr_beta,
+            "warmup": self.warmup,
+            "warmup_rounds": sum(1 for r in plan if r["warmup"]),
+            "overlap": self.overlap,
+            "staleness": depth,
+            "rounds": self.total_rounds,
+            "fixed_rounds": self.fixed_rounds,
+            "allreduces_saved": self.fixed_rounds - self.total_rounds,
+            "tau_min": min(taus),
+            "tau_max": max(taus),
+            "plan": plan,
+        }
+        if inner:
+            out["inner_rounds"] = self.inner_rounds
+            out["inner_pull"] = self.inner_pull
+        return out
+
+    def plan_table(self, max_rows: int = 12) -> str:
+        """The round plan as a markdown table. Long plans elide the
+        middle, keeping the first and last ``max_rows // 2`` rounds."""
+        d = self.describe()
+        rows = d["plan"]
+        extra = ""
+        if d["warmup"]:
+            extra += (f", warmup {d['warmup']} steps = "
+                      f"{d['warmup_rounds']} rounds")
+        if d["overlap"] != "none":
+            extra += f", overlap {d['overlap']} (k={d['staleness']})"
+            if d["tau_schedule"] == "qsr":
+                extra += " (stale-LR QSR)"
+        if d.get("inner_rounds"):
+            extra += (f", inner/outer plan x{d['inner_rounds']} "
+                      f"(inner pull {d['inner_pull']})")
+        head = [f"round plan: {d['rounds']} rounds over "
+                f"{d['total_steps']} steps (tau_schedule="
+                f"{d['tau_schedule']}, tau {d['tau_min']}..{d['tau_max']}, "
+                f"all-reduces saved vs fixed: {d['allreduces_saved']}"
+                f"{extra})",
+                "| round | start | tau | lam | lr window | staleness |",
+                "|---|---|---|---|---|---|"]
+        if len(rows) > max_rows:
+            half = max(max_rows // 2, 1)
+            shown = list(rows[:half]) + [None] + list(rows[-half:])
+        else:
+            shown = rows
+        for r in shown:
+            if r is None:
+                head.append("| ... | | | | | |")
+                continue
+            tau_cell = f"{r['tau']} (warm)" if r["warmup"] else f"{r['tau']}"
+            if r.get("scope") == "inner":
+                tau_cell += " (inner)"
+            head.append(f"| {r['round']} | {r['start']} | {tau_cell} | "
+                        f"{r['lam']:.4f} | {r['lr_start']:.4f} -> "
+                        f"{r['lr_end']:.4f} | {r['staleness']} |")
+        return "\n".join(head)

@@ -186,8 +186,18 @@ def test_kernel_mode_is_in_place_and_default_off_the_card():
 
 
 def test_tree_path_is_not_ported():
+    """What stays unported beside the tree path is the overlap modes'
+    precomputed Gram (``first_gram``); the tree path itself runs, and
+    ``tests/test_torch_tree.py`` holds it against the reference."""
+    stacked = {k: torch.from_numpy(v) for k, v in _stacked().items()}
+    _, m = consensus.apply_round(stacked, DPPFConfig(), 0.1, {})[1:]
+    assert set(m) == {"consensus_dist", "pre_dist", "pull_force",
+                      "push_force"}
+    _, p = _engines(_stacked(), "fast")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        consensus.apply_round({}, DPPFConfig(), 0.1, {})
+        consensus.apply_round(p.flatten(stacked), DPPFConfig(engine="flat"),
+                              0.1, {}, engine=p,
+                              first_gram=torch.zeros((4, 4)))
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,8 @@ import pytest
 import torch
 
 from repro.kernels.pullpush import (
-    fused_round as jax_fused_round, fused_round_ref as jax_fused_round_ref,
+    apply_update as jax_apply_update, fused_round as jax_fused_round,
+    fused_round_ref as jax_fused_round_ref, sq_dist as jax_sq_dist,
 )
 from repro_torch.kernels import _build
 from repro_torch.kernels.pullpush import pullpush as pk
@@ -189,3 +190,126 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# ---------------------------------------------------------------------------
+# sq_dist / apply_update: the tree path's per-vector pair
+# ---------------------------------------------------------------------------
+
+# (x dtype, a dtype): fp32, bf16, and a bf16 worker leaf against the fp32
+# center as the tree path passes them
+PAIRS = [("float32", "float32"), ("bfloat16", "bfloat16"),
+         ("bfloat16", "float32")]
+
+
+def _pair(n, xd, ad, seed):
+    """Normal x and a, rounded to their dtypes once in jnp so that both
+    packages see the same values."""
+    rng = np.random.default_rng(seed)
+    x = jnp.asarray(rng.normal(size=n), getattr(jnp, xd))
+    a = jnp.asarray(rng.normal(size=n), getattr(jnp, ad))
+    to_t = lambda v, d: torch.from_numpy(
+        np.array(v.astype(jnp.float32))).to(getattr(torch, d))
+    return x, a, to_t(x, xd), to_t(a, ad)
+
+
+def bf16_ulp(scale):
+    """One bf16 ulp at ``scale``: 8 significant bits."""
+    return 2.0 ** (np.floor(np.log2(scale)) - 7)
+
+
+@pytest.mark.parametrize("n", [128, 1000, 32768, 40001])
+@pytest.mark.parametrize("xd, ad", PAIRS)
+def test_sq_dist_plain_matches_jax(n, xd, ad):
+    """The same numbers summed in fp32 in another order: rtol 1e-5."""
+    jx, ja, x, a = _pair(n, xd, ad, seed=n)
+    want = float(jax_sq_dist(jx, ja))
+    got = ref.sq_dist_plain(x, a)
+    assert got.dtype == torch.float32 and got.shape == ()
+    np.testing.assert_allclose(float(got), want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n", [256, 5000, 33000])
+@pytest.mark.parametrize("xd, ad", PAIRS)
+def test_apply_plain_matches_jax(n, xd, ad):
+    """fp32 within 1e-6; bf16 outputs within one bf16 ulp of the output's
+    scale."""
+    jx, ja, x, a = _pair(n, xd, ad, seed=n + 7)
+    coef = 0.1 - 0.5 / 3.0
+    want = np.asarray(jax_apply_update(jx, ja, coef).astype(jnp.float32))
+    got = ref.apply_plain(x, a, coef)
+    assert got.dtype == x.dtype
+    atol = 1e-6 if xd == "float32" else bf16_ulp(np.abs(want).max())
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=atol)
+
+
+def test_pair_wrappers_on_cpu_take_the_plain_version():
+    _, _, x, a = _pair(1000, "bfloat16", "float32", seed=3)
+    pk.reset_launches()
+    assert torch.equal(pk.sq_dist(x, a), ref.sq_dist_plain(x, a))
+    want = ref.apply_plain(x, a, 0.3)
+    assert torch.equal(pk.apply_update(x, a, 0.3), want)
+    # a one-element fp32 tensor coef, and out=x in place
+    inplace = x.clone()
+    res = pk.apply_update(inplace, a, torch.tensor([0.3]), out=inplace)
+    assert res.data_ptr() == inplace.data_ptr()
+    assert torch.equal(inplace, want)
+    assert all(v == 0 for v in pk.LAUNCHES.values())
+    assert "pullpush" not in _build._libs
+
+
+def test_sq_dist_on_a_row_view_at_an_odd_offset():
+    """A stacked leaf's row m starts at m * numel elements: row 1 of a
+    (4, 231) bf16 leaf starts at an odd element."""
+    rng = np.random.default_rng(5)
+    leaf = torch.from_numpy(rng.normal(size=(4, 231)).astype(np.float32)
+                            ).to(torch.bfloat16)
+    c = torch.from_numpy(rng.normal(size=231).astype(np.float32))
+    row = leaf[1]
+    assert row.storage_offset() % 2 == 1 and row.is_contiguous()
+    assert torch.equal(pk.sq_dist(row, c), ref.sq_dist_plain(row.clone(), c))
+    want = ref.apply_plain(row.clone(), c, -0.7)
+    assert torch.equal(pk.apply_update(row, c, -0.7), want)
+
+
+@pytest.mark.parametrize("call, err", [
+    (lambda: pk.sq_dist(torch.zeros((2, 8)), torch.zeros((2, 8))),
+     ValueError),                                            # not (n,)
+    (lambda: pk.sq_dist(torch.zeros(8, dtype=torch.float64),
+                        torch.zeros(8)), TypeError),
+    (lambda: pk.sq_dist(torch.zeros(16)[::2], torch.zeros(8)), ValueError),
+    (lambda: pk.sq_dist(torch.zeros(8), torch.zeros(9)), ValueError),
+    (lambda: pk.sq_dist(torch.zeros(0), torch.zeros(0)), ValueError),
+    (lambda: pk.apply_update(torch.zeros(8), torch.zeros(8),
+                             torch.zeros(2)), ValueError),   # coef size
+    (lambda: pk.apply_update(torch.zeros(8), torch.zeros(8),
+                             torch.zeros(1, dtype=torch.float64)),
+     ValueError),
+    (lambda: pk.apply_update(torch.zeros(8), torch.zeros(8), 0.5,
+                             out=torch.zeros(8, dtype=torch.bfloat16)),
+     ValueError),
+])
+def test_pair_guards(call, err):
+    with pytest.raises(err):
+        call()
+
+
+def test_pair_out_must_be_x_or_another_buffer():
+    buf = torch.ones(64)
+    with pytest.raises(ValueError, match="another buffer"):
+        pk.apply_update(buf[:32], torch.zeros(32), 0.5, out=buf[1:33])
+    a = torch.zeros(32)
+    with pytest.raises(ValueError, match="another buffer"):
+        pk.apply_update(torch.ones(32), a, 0.5, out=a)
+
+
+def test_pair_guards_run_before_dispatch_and_build(monkeypatch):
+    def no_build():
+        raise AssertionError("build() reached")
+    monkeypatch.setattr(pk, "build", no_build)
+    meta = torch.zeros(8, device="meta")
+    with pytest.raises(ValueError):
+        pk.sq_dist(meta, meta)
+    with pytest.raises(ValueError):
+        pk.apply_update(meta, meta, 0.5)

@@ -266,3 +266,60 @@ def test_reference_param_count_undercounts_xlstm_blocks():
     assert (blocks.count("mlstm"), blocks.count("slstm")) == (18, 6)
     assert XLSTM_PARAMS - XLSTM_PARAM_COUNT == (
         18 * mlstm_missing + 6 * slstm_missing) == 252_027_024
+
+
+@pytest.mark.parametrize("reduce", [False, True])
+def test_reference_slstm_bias_lands_on_one_head(reduce):
+    """A fault of the reference (ROADMAP.md Queue 3): ``b_gates`` is laid
+    out gate-major (z, i, f, o blocks of d_in = H P) but is added to the
+    gate preactivations before their head-major reshape to (H, 4P). So at
+    H = 4 the forget bias of 3 lands on all four gates of head 2 and on
+    no gate of heads 0, 1 and 3. The port mirrors it."""
+    from repro.models import xlstm as jxlstm
+    from repro_torch.models import xlstm
+    jcfg, cfg = jget_arch("xlstm-350m"), get_arch("xlstm-350m")
+    if reduce:
+        jcfg, cfg = jreduced(jcfg), reduced(cfg)
+    d_in, H, P = jxlstm.dims(jcfg)
+    assert H == 4 and xlstm.dims(cfg) == (d_in, H, P)
+    want = np.zeros((H, 4))
+    want[2] = 3.0
+    jb = jxlstm.init_slstm(jax.random.PRNGKey(0), jcfg,
+                           jnp.float32)["b_gates"]
+    b = xlstm.init_slstm(torch.Generator().manual_seed(0), cfg,
+                         torch.float32, device="cpu")["b_gates"]
+    for bias in (np.asarray(jb), b.numpy()):
+        np.testing.assert_array_equal(bias.reshape(H, 4, P).mean(-1), want)
+
+
+def test_reference_mlstm_forgets_nothing_and_takes_no_new_writes():
+    """A fault of the reference (ROADMAP.md Queue 3): the mLSTM forget
+    gate is exponential (its preactivation is log f) with a bias of +3,
+    so f ~ e^3 a step and the stabiliser m grows by ~3 a token; after a
+    few tokens the matrix memory takes no new writes. On reduced
+    xlstm-350m (the published per-step mLSTM), 64 random tokens: moving
+    the input at token 32 leaves the last token's output unchanged to
+    1e-6; moving token 0 moves it by more than 1. The port mirrors it."""
+    from repro.models import xlstm as jxlstm
+    from repro_torch.models import xlstm
+    jcfg, cfg = jreduced(jget_arch("xlstm-350m")), reduced(
+        get_arch("xlstm-350m"))
+    assert jcfg.xlstm_chunk == 0
+    jp = jxlstm.init_mlstm(jax.random.PRNGKey(0), jcfg, jnp.float32)
+    p = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(1, 64, jcfg.d_model)).astype(np.float32)
+    dx = rng.normal(size=jcfg.d_model).astype(np.float32)
+
+    def last(x):
+        jo = np.asarray(jxlstm.mlstm_forward(jp, jnp.asarray(x), jcfg)[0])
+        o = xlstm.mlstm_forward(p, torch.from_numpy(x), cfg)[0].numpy()
+        return jo[:, -1], o[:, -1]
+
+    base = last(x)
+    for t, moves in ((32, False), (0, True)):
+        x2 = x.copy()
+        x2[:, t] += dx
+        for got, want in zip(last(x2), base):
+            diff = float(np.abs(got - want).max())
+            assert (diff > 1.0) if moves else (diff < 1e-6), (t, diff)

@@ -139,8 +139,8 @@ def test_launcher_smoke_on_cpu():
 
 
 @pytest.mark.parametrize("flags", [["--overlap", "staleness1"],
-                                   ["--engine", "tree"], ["--sharded"],
-                                   ["--method", "ddp"]])
+                                   ["--mesh", "2,2,2"], ["--sharded"],
+                                   ["--autotune"]])
 def test_launcher_refuses_unported_paths(flags, capsys):
     from repro_torch.launch.train import main
     with pytest.raises(SystemExit):
@@ -176,6 +176,24 @@ def test_round_clock_matches_reference(kw, steps):
     for t in range(steps):
         assert pc.lr_at(t) == pytest.approx(float(jc.lr_at(t)), abs=1e-7)
         assert pc.round_of_step(t) == jc.round_of_step(t)
+
+
+@pytest.mark.parametrize("kw, steps, warmup", [
+    (dict(tau=4), 32, 0),                                     # fixed
+    (dict(tau=5, lam_schedule="decreasing"), 23, 3),          # remainder
+    (dict(tau=4, tau_schedule="qsr", qsr_beta=0.4), 64, 0),   # QSR
+    (dict(tau=4, consensus="entropy_sgd"), 18, 0),            # inner plan
+])
+def test_round_clock_report_matches_reference(kw, steps, warmup):
+    """``describe()`` and ``plan_table()`` (full and elided) string-equal
+    to the reference's."""
+    jc = JRoundClock.from_config(JDPPFConfig(**kw), base_lr=0.3,
+                                 total_steps=steps, warmup=warmup)
+    pc = RoundClock.from_config(DPPFConfig(**kw), base_lr=0.3,
+                                total_steps=steps, warmup=warmup)
+    assert repr(pc.describe()) == repr(jc.describe())
+    for rows in (12, 6):
+        assert pc.plan_table(max_rows=rows) == jc.plan_table(max_rows=rows)
 
 
 @pytest.mark.parametrize("method, optimizer, sam_rho", [
