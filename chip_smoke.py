@@ -22,22 +22,27 @@ Phases (any failure raises, and the script exits non-zero):
 4. The launcher: ``repro_torch.launch.train.main`` (``--smoke``) on the
    card, on the flat engine and with ``--engine tree``.
 5. Attention kernel: ``swa_attention`` against its plain version in fp32
-   and bf16 on the six cases of ``tests/test_kernels.py``, a ragged
-   non-causal case, an ``Sq > Skv`` case, an hd = 112 case and the
-   serving shapes (B = 4, H = 8 over 4 kv heads, S = 8160, hd = 256:
-   local window 4096 with cap 50, global with cap 50, and cap 0 / window 0
-   where one PyTorch call, ``scaled_dot_product_attention``, computes the
-   same function; zamba2-7b's B = 4, 32 heads over 32, S = 8160,
-   hd = 112, cap 0 / window 0); times
-   kernel, plain version and that call (CUDA events, median of 20 after 3
-   warm-ups).
+   (the CUDA-core kernel) and bf16 (the tensor-core kernel) on the six
+   cases of ``tests/test_kernels.py``, a ragged non-causal case, an
+   ``Sq > Skv`` case, an hd = 112 case, a small hd = 256 case (B = 2, 8
+   heads over 4, S = 333, window 96, cap 50) and the serving shapes
+   (B = 4, H = 8 over 4 kv heads, S = 8160, hd = 256: local window 4096
+   with cap 50, global with cap 50, and cap 0 / window 0 where one
+   PyTorch call, ``scaled_dot_product_attention``, computes the same
+   function; zamba2-7b's B = 4, 32 heads over 32, S = 8160, hd = 112,
+   cap 0 / window 0); times kernel, plain version and that call (CUDA
+   events, median of 20 after 3 warm-ups). For each bf16 serving shape it
+   prints TFLOP/s, the share of the bound, the ratio to that call and the
+   product route, and the registers and spills of every kernel instance
+   (ptxas).
 6. Serving gemma2-2b at full width and full depth (26 layers, bf16,
    random weights from a seeded generator): (0) the kernel route of the
    prefill against the ``attend`` path at full width, 2 layers, fp32;
    (a) ``generate`` on 4 prompts of 8160 tokens, greedy, 32 new tokens,
    buf_len 8192 — the main path, launch counters zeroed just before and
    read just after — then the same call traced with ``torch.profiler``
-   (8 new tokens: device busy time, idle share, the longest kernels);
+   (8 new tokens: device busy time, idle share, the longest kernels, the
+   share of the traced prefill taken by the ``swa*`` kernels);
    (b) one prompt through ``make_state`` +
    ``prefill_chunk`` in chunks of 512; (c) the continuous-batching
    launcher ``repro_torch.launch.serve.main`` at full size.
@@ -57,7 +62,8 @@ Phases (any failure raises, and the script exits non-zero):
    buf_len 8192 (counters zeroed just before and read just after: 68
    ``ssd_chunks`` and 13 ``swa_attention`` launches), then the same call
    traced (8 new tokens) with CUDA events around each SSD scan and its
-   kernel; (b) one prompt in chunks of 512 (carried ssm and conv states);
+   kernel, and the share of the traced prefill taken by the ``swa*``
+   kernels; (b) one prompt in chunks of 512 (carried ssm and conv states);
    (c) the serving launcher: 5 requests of 256 / 512 / 1024 / 256 / 512
    tokens, 4 slots, chunk 64, 16 new tokens.
 9. sLSTM kernel: ``slstm_steps`` against its plain version on the four
@@ -153,6 +159,7 @@ ATTN_CASES = (
     (1, 2, 1, 128, 200, 64, 0, 0.0, False),     # ragged, not causal
     (1, 2, 1, 300, 200, 64, 0, 0.0, True),      # Sq > Skv
     (1, 4, 4, 200, 200, 112, 96, 30.0, True),   # zamba2-7b's head_dim
+    (2, 8, 4, 333, 333, 256, 96, 50.0, True),   # gemma2-2b's, small
 )
 # the serving shapes: gemma2-2b's local and global layers at S = 8160,
 # and the cap 0 / window 0 case one PyTorch call computes
@@ -544,16 +551,45 @@ def _attn_case(swa, plain, case, dtype, gen, name):
            "plain_ms": _time_ms(lambda: _attn_plain_rows(plain, q, k, v,
                                                          **kw)),
            "bound_ms": bound, "bound_by": bound_by, "flops": flops,
-           "library_ms": None}
+           "library_ms": None, "route": swa.route(dtype)}
     if causal and not window and not cap and Sq == Skv:
         sdpa = torch.nn.functional.scaled_dot_product_attention
         row["library_ms"] = _time_ms(lambda: sdpa(q, k, v, is_causal=True,
                                                   enable_gqa=True))
     print("  attention " + json.dumps(row))
+    if name in ATTN_SLICE and dtype == torch.bfloat16:
+        ratio = (f", {row['ms'] / row['library_ms']:.3f} x "
+                 "scaled_dot_product_attention" if row["library_ms"] else "")
+        print(f"  {name} bf16 ({row['route']}): {row['ms']:.4f} ms, "
+              f"{flops / row['ms'] / 1e9:.1f} TFLOP/s, "
+              f"{bound / row['ms']:.1%} of the bound{ratio}")
     return row
 
 
+def _ptxas_report(log):
+    """{kernel instance: (registers, spill store bytes, spill load bytes)}
+    from ptxas's -v report of the swa_attention source."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"(swa_wgmma_kernel|swa_kernel)ILi(\d+)E", m[1])
+            name = f"{k[1]}<{k[2]}>" if k else m[1]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name] = [None, int(m[1]), int(m[2])]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in out:
+            out[name][0] = int(m[1])
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def phase_attention(swa, plain):
+    from repro_torch.kernels import _build
+    regs = _ptxas_report(_build.build_info["swa_attention"]["log"])
+    print("  ptxas (registers, spill store / load bytes) " + json.dumps(regs))
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -585,7 +621,9 @@ def phase_attention(swa, plain):
         "ms_local": local["ms"], "plain_ms_local": local["plain_ms"],
         "bound_ms_local": local["bound_ms"],
         "ms_hd112": z["ms"], "plain_ms_hd112": z["plain_ms"],
-        "bound_ms_hd112": z["bound_ms"], "library_ms_hd112": z["library_ms"]}
+        "bound_ms_hd112": z["bound_ms"], "library_ms_hd112": z["library_ms"],
+        "product_route": head["route"],
+        "ptxas_bf16": {k: v for k, v in regs.items() if "wgmma" in k}}
 
 
 # ---------------------------------------------------------------------------
@@ -665,7 +703,10 @@ def _profile_generate(generate, model, params, prompts, buf, new):
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    swa = [(ms, n) for name, (ms, n) in by_name.items() if "swa_" in name]
     out = {"new_tokens": new, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "swa_ms": sum(ms for ms, _ in swa),
+           "swa_kernels": sum(n for _, n in swa),
            "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
            "device_launches": sum(n for _, n in by_name.values()),
            "top": [[name[:70], ms, n] for name, (ms, n) in top]}
@@ -734,8 +775,11 @@ def phase_serving(swa):
     if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
         raise AssertionError("token ids out of the vocabulary")
     # where the time goes: the same call, traced, with 8 new tokens
-    print("  (a) profile " + json.dumps(_profile_generate(
-        generate, model, params, prompts, BUF, 8)))
+    prof = _profile_generate(generate, timed, params, prompts, BUF, 8)
+    prof["prefill_ms"] = events["prefill"][-1][0].elapsed_time(
+        events["prefill"][-1][1])
+    prof["swa_share_of_prefill"] = prof["swa_ms"] / prof["prefill_ms"]
+    print("  (a) profile " + json.dumps(prof))
 
     # (b) one prompt in chunks of 512: the first through the kernel
     swa.reset_launches()
@@ -1028,6 +1072,7 @@ def phase_zamba2(swa, mk):
     prof["ssd_kernel_ms"] = kernel_ms
     prof["ssd_glue_ms"] = scan_ms - kernel_ms
     prof["ssd_glue_share_of_prefill"] = (scan_ms - kernel_ms) / traced_prefill
+    prof["swa_share_of_prefill"] = prof["swa_ms"] / traced_prefill
     print("  (a) profile " + json.dumps(prof))
 
     # (b) one prompt in chunks of 512: ssm and conv states carried

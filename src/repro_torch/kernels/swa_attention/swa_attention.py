@@ -1,4 +1,4 @@
-"""Hopper kernel for sliding-window flash attention (forward), and its
+"""Hopper kernels for sliding-window flash attention (forward), and their
 wrapper.
 
 Replaces ``src/repro/kernels/swa_attention/swa_attention.py::swa_attention``
@@ -9,12 +9,17 @@ nothing is padded, and keys past ``Skv`` never enter the softmax (the
 Pallas wrapper's zero-padded keys do when they are not causally masked,
 ROADMAP.md Queue 3). Bound: operations (compute), see the source.
 
-The wrapper checks its inputs before it dispatches, on either device. For
-tensors on the CPU it runs the plain version from ``ref.py``; for CUDA
+The route goes by dtype: bfloat16 (the serving path) runs the tensor-core
+kernel (``wgmma``, Q / K / V by TMA), float32 the CUDA-core kernel. TMA
+reads a bf16 tensor through a descriptor that needs a 16-byte aligned base
+and strides of whole 16-byte units, so a bf16 input that is not on the CPU
+must have both, or the wrapper raises (the model's views from ``qkv_proj``
+do). The wrapper checks its inputs before it dispatches, on either device.
+For tensors on the CPU it runs the plain version from ``ref.py``; for CUDA
 tensors it launches the kernel or raises: there is no fallback. The shared
 library is built from ``csrc/swa_attention.cu`` at first CUDA use
 (``build()``, through ``kernels/_build.py``), never at import.
-``LAUNCHES["swa_attention"]`` counts kernel launches.
+``LAUNCHES["swa_attention"]`` counts kernel launches of either route.
 """
 from __future__ import annotations
 
@@ -28,6 +33,9 @@ from repro_torch.kernels.swa_attention.ref import swa_attention_plain
 
 HEAD_DIMS = (64, 112, 128, 256)   # the kernel's template instances
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# TMA's rules for a bf16 tensor map: the base and each stride a whole
+# number of 16-byte units
+_TMA_ALIGN = 16
 
 LAUNCHES = {"swa_attention": 0}
 
@@ -41,6 +49,8 @@ def _bind(lib):
     lib.swa_attention_fwd.restype = i32
     lib.swa_error_string.argtypes = [i32]
     lib.swa_error_string.restype = ctypes.c_char_p
+    lib.swa_bf16_route.argtypes = []
+    lib.swa_bf16_route.restype = ctypes.c_char_p
     lib.error_string = lib.swa_error_string
 
 
@@ -56,6 +66,31 @@ def build():
     """Compile ``csrc/swa_attention.cu`` (once per source hash) and load
     it. Returns the ``ctypes.CDLL``."""
     return _build.build(SOURCE)[0]
+
+
+def route(dtype):
+    """The product route of the kernel that takes ``dtype`` on a card, as
+    the built library reports it: ``"wgmma"`` for bfloat16, and the fp32
+    CUDA-core kernel for float32."""
+    if dtype == torch.bfloat16:
+        return build().swa_bf16_route().decode()
+    return "fp32 cuda cores"
+
+
+def _check_tma(ts):
+    """A bf16 tensor off the CPU goes to the TMA kernel: raise on a base or
+    a (B, H, S) stride TMA cannot describe."""
+    for name, t in zip("qkv", ts):
+        if t.data_ptr() % _TMA_ALIGN:
+            raise ValueError(f"{name}: a bf16 base address that is not "
+                             f"{_TMA_ALIGN}-byte aligned (the kernel reads "
+                             "it by TMA)")
+        for axis, st in enumerate(t.stride()[:3]):
+            if (2 * st) % _TMA_ALIGN:
+                raise ValueError(
+                    f"{name}: stride {st} of axis {axis} is not a multiple "
+                    f"of {_TMA_ALIGN // 2} elements (the kernel reads bf16 "
+                    "by TMA)")
 
 
 def _check(q, k, v, window, cap):
@@ -84,6 +119,8 @@ def _check(q, k, v, window, cap):
         raise ValueError("empty query or key sequence")
     if any(t.stride(-1) != 1 for t in ts):
         raise ValueError("the head_dim axis must be contiguous (stride 1)")
+    if q.dtype == torch.bfloat16 and q.device.type != "cpu":
+        _check_tma(ts)
     if int(window) < 0 or float(cap) < 0:
         raise ValueError(f"window {window} and cap {cap} must be >= 0")
     if q.device.type not in ("cpu", "cuda"):

@@ -196,3 +196,133 @@ def test_head_dim_112_passes_the_checks_and_matches_reference(dtype):
     got = swa_attention(q, k, v)
     assert LAUNCHES["swa_attention"] == 0
     _close(got, want, DTYPES[dtype][3])
+
+
+# --- the bf16 tensor-core route's numerics ---------------------------------
+
+LOG2E = 1.4426950408889634
+# (B, H, Hkv, Sq, Skv, hd, window, cap): gemma2-2b's head_dim with GQA 2, a
+# window and its softcap on a ragged length; zamba2-7b's head_dim at cap 0
+ROUTE_CASES = [
+    (2, 8, 4, 333, 333, 256, 96, 50.0),
+    (1, 4, 4, 200, 200, 112, 0, 0.0),
+] + ATTN_CASES
+
+
+def _emulate_wgmma_route(q, k, v, *, window, cap, bk=64):
+    """A plain emulation of the bf16 kernel's rounding choices: bf16 q, k,
+    v; fp32 products; the scale applied to the fp32 score; the softcap in
+    its exp form, cap (1 - 2 / (1 + 2^(2 log2e x / cap))); the online
+    softmax in the log2 domain over kv tiles of ``bk`` keys, a row's max
+    moved only when a tile passes it by more than 8 (P below 2^8), P
+    rounded to bf16 before P V and the sum l taken over fp32 P; causal."""
+    B, H, Sq, hd = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    qf = q.to(torch.bfloat16).float()
+    kf = k.to(torch.bfloat16).float().repeat_interleave(H // Hkv, dim=1)
+    vf = v.to(torch.bfloat16).float().repeat_interleave(H // Hkv, dim=1)
+    qpos = torch.arange(Sq)[:, None]
+    m = torch.full((B, H, Sq, 1), -1e30)
+    l = torch.zeros((B, H, Sq, 1))
+    acc = torch.zeros((B, H, Sq, hd))
+    for k0 in range(0, Skv, bk):
+        kpos = torch.arange(k0, min(k0 + bk, Skv))[None, :]
+        x = qf @ kf[:, :, k0:k0 + bk].transpose(-1, -2) * hd ** -0.5
+        if cap:
+            t = cap * LOG2E - 2 * cap * LOG2E / (
+                1 + torch.exp2(x * (2 * LOG2E / cap)))
+        else:
+            t = x * LOG2E
+        ok = kpos <= qpos
+        if window:
+            ok &= kpos > qpos - window
+        t = t.masked_fill(~ok, float("-inf"))
+        t_max = t.amax(dim=-1, keepdim=True)
+        m_new = torch.where(t_max > m + 8, t_max, m)
+        p = torch.exp2(t - m_new)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + p.to(torch.bfloat16).float() @ vf[:, :,
+                                                             k0:k0 + bk]
+        m = m_new
+    return (acc / l.clamp(min=1e-30)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES, ids=str)
+def test_wgmma_route_numerics_within_half_the_bf16_tolerance(case):
+    """The bf16 kernel's rounding choices against the JAX oracle: the
+    emulation's error stays within half the bf16 tolerance (2e-2 of the
+    output's scale), so the kernel keeps the other half for its order of
+    summation. The kernel itself meets the whole tolerance on the card
+    (``chip_smoke.py`` phase 5)."""
+    B, H, Hkv, Sq, Skv, hd, window, cap = case
+    (jq, jk, jv), (q, k, v) = _both(_inputs(B, H, Hkv, Sq, Skv, hd, 5),
+                                    "bfloat16")
+    want = np.asarray(jswa_ref(jq, jk, jv, window=window, cap=cap),
+                      np.float32)
+    got = _emulate_wgmma_route(q, k, v, window=window, cap=cap)
+    err = float(np.abs(got.float().numpy() - want).max())
+    scale = float(np.abs(want).max())
+    assert err <= 0.5 * DTYPES["bfloat16"][3] * scale, (err, scale)
+
+
+def _bf16_meta(shape, offset=0):
+    """A bf16 meta tensor of ``shape`` that starts ``offset`` elements into
+    its storage."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=torch.bfloat16,
+                       device="meta")[offset:].view(shape)
+
+
+@pytest.mark.parametrize("make, match", [
+    (lambda: (_bf16_meta((1, 2, 8, 64), offset=4),) * 3, "aligned"),
+    (lambda: (torch.zeros(1, 2, 8, 68, dtype=torch.bfloat16,
+                          device="meta")[..., :64],) * 3, "multiple of 8"),
+    (lambda: (_bf16_meta((1, 2, 8, 64)),
+              torch.zeros(1, 1, 8, 70, dtype=torch.bfloat16,
+                          device="meta")[..., 3:67],
+              _bf16_meta((1, 1, 8, 64))), "aligned"),
+], ids=["base", "stride", "k-base"])
+def test_tma_guards_raise_before_build(monkeypatch, make, match):
+    """A bf16 input off the CPU that TMA cannot describe (a base not 16-byte
+    aligned, a stride not a multiple of 8 elements) raises before any
+    build or launch: it never goes quietly to the fp32 kernel or the plain
+    version. On the CPU the plain version takes the same layouts."""
+    def no_build():
+        raise AssertionError("build() reached")
+    monkeypatch.setattr(swa_mod, "build", no_build)
+    LAUNCHES["swa_attention"] = 0
+    with pytest.raises(ValueError, match=match):
+        swa_attention(*make())
+    cpu = [torch.zeros(t.shape, dtype=torch.bfloat16) for t in make()]
+    assert swa_attention(*cpu).shape == cpu[0].shape
+    assert LAUNCHES["swa_attention"] == 0
+    assert "swa_attention" not in _build._libs
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "zamba2-7b"])
+def test_model_views_pass_the_tma_guards(monkeypatch, arch):
+    """The serving prefill's own q, k, v: ``qkv_proj`` and ``rope`` on a
+    (B, S, d_model) bf16 input at the config's full width, viewed
+    (B, H, S, hd) by ``ops.attention``, pass every check up to the device
+    test (meta stands in for a card), with no copy made."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.layers import rope
+    cfg = get_arch(arch)
+    B, S, d = 2, 96, cfg.d_model
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def w(n):
+        return torch.zeros((d, n), dtype=torch.bfloat16, device="meta")
+    p = {"wq": w(H * hd), "wk": w(Hkv * hd), "wv": w(Hkv * hd)}
+    h = torch.zeros((B, S, d), dtype=torch.bfloat16, device="meta")
+    q, k, v = attn.qkv_proj(p, h, H, Hkv, hd)
+    pos = torch.arange(S, dtype=torch.int32, device="meta")
+    q, k = rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta)
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    swa_mod._check_tma(views)
+    monkeypatch.setattr(swa_mod, "build", lambda: pytest.fail("built"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        attention(q, k, v, causal=True, window=cfg.sliding_window or 0,
+                  cap=cfg.attn_logit_softcap)
+    assert v.transpose(1, 2).stride() == (S * Hkv * hd, hd, Hkv * hd, 1)
