@@ -918,9 +918,6 @@ int swa_attention_fwd(const void* q, const void* k, const void* v, void* o,
   return int(cudaErrorInvalidValue);
 }
 
-// the product route of the bf16 kernel, as compiled
-const char* swa_bf16_route() { return "wgmma"; }
-
 const char* swa_error_string(int code) {
   if (code == kErrNoEncode)
     return "cuTensorMapEncodeTiled is not available from the driver";

@@ -49,8 +49,6 @@ def _bind(lib):
     lib.swa_attention_fwd.restype = i32
     lib.swa_error_string.argtypes = [i32]
     lib.swa_error_string.restype = ctypes.c_char_p
-    lib.swa_bf16_route.argtypes = []
-    lib.swa_bf16_route.restype = ctypes.c_char_p
     lib.error_string = lib.swa_error_string
 
 
@@ -66,15 +64,6 @@ def build():
     """Compile ``csrc/swa_attention.cu`` (once per source hash) and load
     it. Returns the ``ctypes.CDLL``."""
     return _build.build(SOURCE)[0]
-
-
-def route(dtype):
-    """The product route of the kernel that takes ``dtype`` on a card, as
-    the built library reports it: ``"wgmma"`` for bfloat16, and the fp32
-    CUDA-core kernel for float32."""
-    if dtype == torch.bfloat16:
-        return build().swa_bf16_route().decode()
-    return "fp32 cuda cores"
 
 
 def _check_tma(ts):

@@ -326,3 +326,61 @@ def test_model_views_pass_the_tma_guards(monkeypatch, arch):
         attention(q, k, v, causal=True, window=cfg.sliding_window or 0,
                   cap=cfg.attn_logit_softcap)
     assert v.transpose(1, 2).stride() == (S * Hkv * hd, hd, Hkv * hd, 1)
+
+
+# --- chip_smoke.py phase 5's own checks, on the CPU -------------------------
+
+def _smoke():
+    import chip_smoke
+    return chip_smoke
+
+
+def test_smoke_row_bar_catches_a_wrong_long_row():
+    """Phase 5 holds each query row to 2e-2 of its own largest |output|. A
+    causal row over n keys has outputs of order n^-1/2, so long rows off
+    by 10% stay under 2e-2 of the whole tensor's scale (set by the first
+    rows) and fail the row bar; a right answer reads 0."""
+    cs = _smoke()
+    tol = cs.ATTN_TOL[torch.bfloat16]
+    q, k, v = (torch.from_numpy(t) for t in np.random.default_rng(0)
+               .standard_normal((3, 1, 2, 2048, 64), dtype=np.float32))
+    want = swa_attention_plain(q, k, v, causal=True, window=0, cap=0.0)
+    got = want.clone()
+    got[:, :, 1024:] *= 1.1
+    tensor_rel = float((got - want).abs().max() / want.abs().max())
+    assert tensor_rel <= tol
+    assert cs._row_rel_err(got, want) > tol
+    assert cs._row_rel_err(want, want) == 0.0
+
+
+def test_smoke_sass_census_counts_wgmma(monkeypatch):
+    """The SASS census names each instance, its highest register and its
+    HGMMA count, from ``cuobjdump -sass``'s listing."""
+    import types
+    cs = _smoke()
+    listing = "\n".join([
+        "\t\tFunction : _Z16swa_wgmma_kernelILi112EEv14CUtensorMap_st",
+        "\t/*0010*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;",
+        "\t/*0020*/  HGMMA.64x48x16.F32.BF16 R88, R152, gdesc[UR8], R88 ;",
+        "\t/*0030*/  FADD R157, R2, UR5 ;",
+        "\t\tFunction : _Z10swa_kernelILi64EEvPKfS1_S1_Pf",
+        "\t/*0000*/  FFMA R12, R3, R4, R12 ;",
+    ])
+    monkeypatch.setattr(cs.shutil, "which", lambda name: name)
+    monkeypatch.setattr(cs.subprocess, "run", lambda *a, **kw:
+                        types.SimpleNamespace(stdout=listing))
+    assert cs._sass_census("lib.so") == {
+        "swa_wgmma_kernel<112>": (157, 2), "swa_kernel<64>": (12, 0)}
+
+
+def test_smoke_model_layout_passes_the_tma_guards():
+    """Phase 5's second bf16 layout has the values of its input and the
+    strides of the model's transposed (B, S, H, hd) view, which the TMA
+    guards take."""
+    cs = _smoke()
+    t = torch.randn(2, 4, 96, 112).bfloat16()
+    m = cs._model_layout(t)
+    assert torch.equal(m, t) and m.stride() == (96 * 4 * 112, 112,
+                                                4 * 112, 1)
+    swa_mod._check_tma([cs._model_layout(torch.zeros(
+        2, 4, 96, 112, dtype=torch.bfloat16, device="meta"))] * 3)
