@@ -70,20 +70,35 @@ Phases (any failure raises, and the script exits non-zero):
    kernels; (b) one prompt in chunks of 512 (carried ssm and conv states);
    (c) the serving launcher: 5 requests of 256 / 512 / 1024 / 256 / 512
    tokens, 4 slots, chunk 64, 16 new tokens.
-9. sLSTM kernel: ``slstm_steps`` against its plain version on the four
-   cases of ``tests/test_kernels.py``, a carried state, T = 1, the reduced
-   config's P = 128; then the serving shape (B = 4, T = 4096, H = 4,
-   P = 512) on the model's own gates: g_in = xi @ w_gates + b_gates of a
+9. sLSTM kernel: its launch geometry at every head dim (blocks per
+   cluster, batch group, rows of R in registers and in shared memory,
+   shared bytes) with ``cudaOccupancyMaxActiveClusters``' count, and
+   ptxas's registers and spills (the P = 512 instance must not spill).
+   ``slstm_steps`` against its plain version on the four cases of
+   ``tests/test_kernels.py``, a carried state, T = 1, the reduced config's
+   P = 128; then the serving shape (B = 4, T = 4096, H = 4, P = 512) on
+   the model's own gates, launched twice (the two results must be
+   bit-equal): g_in = xi @ w_gates + b_gates of a
    real xlstm-350m sLSTM block (its seeded init, bf16) on a random
    prompt, reshaped head-major as the model does, so the forget bias of 3
    lands on every gate of head 2 and on no gate of heads 0, 1, 3. Error
    per head beside that head's plain fp32-vs-fp64 drift: a head is held
    to 1e-4 of its scale, or, where its own fp32 arithmetic drifts further
-   over 4096 chaotic steps, to twice that drift. Then the serving shape
-   with a forget bias of 3 on every head (not the model's layout), held
-   to 1e-4. Times kernel (median of 20 after 3 warm-ups) and plain
-   version (median of 3) on the model's gates. No single PyTorch call
-   computes this recurrence.
+   over 4096 chaotic steps, to twice that drift. The same gates over
+   their first 512 steps (a strided view), before chaos amplifies
+   rounding: every head held to 1e-4. Then the serving shape with a
+   forget bias of 3 on every head (not the model's layout), held to 1e-4.
+   Then xlstm-350m's 512-token chunk (1, 512, 4, 512) and a B
+   above one batch group (9, 64, 4, 512), after the serving shape so that
+   its draws are those of the cases before it. Times kernel (median of 20
+   after 3 warm-ups) and plain version (median of 3) on the model's
+   gates; then the kernel at the
+   serving, chunk and decode (4, 1, 4, 512) shapes, in CUDA events around
+   each call and in device time (20 calls queued behind a sleep kernel,
+   so that at T = 1 the launch's host cost does not count), with
+   microseconds a step and the share of the bound; and the h exchange alone at the serving geometry, microseconds a
+   step, for each protocol of ``EXCHANGES`` (``slstm_exchange_probe``).
+   No single PyTorch call computes this recurrence.
 10. Serving xlstm-350m at full width and full depth (24 layers: 18 mLSTM
    and 6 sLSTM blocks, bf16, 555,246,736 random parameters from a seeded
    generator): (0) one sLSTM block's kernel route against its plain route
@@ -92,7 +107,8 @@ Phases (any failure raises, and the script exits non-zero):
    ``xlstm_chunk = 256`` on 4 prompts of 4096 tokens, greedy, 32 new
    tokens (counters zeroed just before and read just after: 6
    ``slstm_steps`` launches in the prefill and 6 in each decode step),
-   then the same call traced (8 new tokens); (b) one prompt in chunks of
+   then the same call traced (8 new tokens), with the share of the traced
+   prefill taken by its 6 ``slstm`` kernels; (b) one prompt in chunks of
    512 (and, for information, one-shot against chunked in fp32 at 1024
    and 4096 tokens); (c) the serving launcher on the published config
    (``xlstm_chunk = 0``): 5 requests of 256 / 512 / 1024 / 256 / 512
@@ -205,8 +221,19 @@ SLSTM_CASES = (
     (3, 1, 4, 512, True),
     (2, 300, 4, 128, False),
 )
-# xlstm-350m's prefill: B = 4 prompts of 4096 tokens, 4 heads of 512
+# checked after the serving shape, so that its draws stay those above:
+# xlstm-350m's 512-token chunk (B = 1) and a B above one batch group (9 =
+# 4 + 4 + 1)
+SLSTM_MORE_CASES = (
+    (1, 512, 4, 512, False),
+    (9, 64, 4, 512, True),
+)
+SLSTM_CHUNK = 512       # the chunked prefill's launch length
+# xlstm-350m's prefill: B = 4 prompts of 4096 tokens, 4 heads of 512; its
+# prefill in 512-token chunks (B = 1) and its decode step (T = 1)
 SLSTM_SLICE = (4, 4096, 4, 512)
+SLSTM_TIMED = {"serving": SLSTM_SLICE, "chunk": (1, 512, 4, 512),
+               "decode": (4, 1, 4, 512)}
 FORGET_BIAS = 3.0       # the forget part of b_gates (models/xlstm.py)
 SLSTM_SOURCE = "src/repro_torch/kernels/slstm_step/csrc/slstm_step.cu"
 SLSTM_REPLACES = "src/repro/kernels/slstm_step/slstm_step.py:79"
@@ -606,16 +633,16 @@ def _attn_case(swa, plain, case, dtype, gen, name):
     return row
 
 
-def _ptxas_report(log):
+def _ptxas_report(log, kernels=("swa_wgmma_kernel", "swa_kernel")):
     """{kernel instance: (registers, spill store bytes, spill load bytes)}
-    from ptxas's -v report of the swa_attention source."""
+    from ptxas's -v report of a source (by default swa_attention's)."""
     import re
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"(swa_wgmma_kernel|swa_kernel)ILi(\d+)E", m[1])
-            name = f"{k[1]}<{k[2]}>" if k else m[1]
+            k = re.search(rf"({'|'.join(kernels)})(?:ILi(\d+)E)?", m[1])
+            name = (f"{k[1]}<{k[2]}>" if k[2] else k[1]) if k else m[1]
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and name:
@@ -758,11 +785,14 @@ def _serve_reference_check(swa, cfg):
                              f"{err:.3e} > 1e-4 x {scale:.3e}")
 
 
-def _profile_generate(generate, model, params, prompts, buf, new):
+def _profile_generate(generate, model, params, prompts, buf, new,
+                      prefill_kernel=None):
     """``torch.profiler`` over one ``generate`` call (prefill + new - 1
     decode steps): wall time, the device's busy time (the sum of its
     kernels' and copies' spans: one stream, so they do not overlap) and
-    idle share, and the kernels that hold the device longest."""
+    idle share, and the kernels that hold the device longest. With
+    ``prefill_kernel = (name, n)``: the time of the kernels whose name
+    holds ``name``, in all and in their first n launches (the prefill's)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -787,6 +817,14 @@ def _profile_generate(generate, model, params, prompts, buf, new):
            "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
            "device_launches": sum(n for _, n in by_name.values()),
            "top": [[name[:70], ms, n] for name, (ms, n) in top]}
+    if prefill_kernel:
+        name, n = prefill_kernel
+        spans = sorted((e.time_range.start, e.time_range.elapsed_us() / 1e3)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA and name in e.name)
+        out[f"{name}_ms"] = sum(ms for _, ms in spans)
+        out[f"{name}_kernels"] = len(spans)
+        out[f"{name}_prefill_ms"] = sum(ms for _, ms in spans[:n])
     if not busy_ms:
         out["note"] = "the profiler recorded no device time: not measured"
     return out
@@ -1277,27 +1315,82 @@ def _slstm_bound(B, T, H, P):
                                  else "operations"), t_bytes, t_ops, flops
 
 
+def _device_ms(fn, reps=20, sleep_cycles=20_000_000):
+    """Mean device time in ms of ``reps`` back-to-back calls of ``fn``:
+    queued behind a sleep kernel (~10 ms), so that the host has enqueued
+    them all before the first runs. At T = 1 a call's host cost exceeds
+    its kernel's, and CUDA events around each call would time the host."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _slstm_layout(sk):
+    """The kernel's geometry at each head dim (B = 4), the card's count of
+    resident clusters, ptxas's registers and spills; fails if the P = 512
+    instance spills."""
+    from repro_torch.kernels import _build
+    geo = {P: dataclasses.asdict(sk.geometry(P, 4)) for P in sk.HEAD_DIMS}
+    for P, row in geo.items():
+        row["max_active_clusters"] = sk.max_active_clusters(P)
+    print("  geometry (B = 4) and cudaOccupancyMaxActiveClusters: "
+          + json.dumps(geo))
+    regs = _ptxas_report(_build.build_info["slstm_step"]["log"],
+                         ("slstm_cluster_kernel",
+                          "slstm_exchange_probe_kernel"))
+    print("  ptxas (registers, spill store / load bytes) " + json.dumps(regs))
+    big = regs.get("slstm_cluster_kernel<512>")
+    if big is None or big[1] or big[2]:
+        raise AssertionError(f"slstm_cluster_kernel<512> spills or is "
+                             f"missing from the ptxas report: {big}")
+    need = SLSTM_SLICE[2] * -(-SLSTM_SLICE[0] // sk.G)
+    if geo[512]["max_active_clusters"] < need:
+        raise AssertionError(f"{need} clusters of 16 needed at once, the "
+                             f"card holds {geo[512]['max_active_clusters']}")
+    return geo, regs
+
+
 def phase_slstm(sk, sref):
     gen = torch.Generator(device="cuda").manual_seed(9)
     errs = []
-    with torch.no_grad():
-        for B, T, H, P, carried in SLSTM_CASES:
+    geo, regs = _slstm_layout(sk)
+    def check_cases(cases):
+        for B, T, H, P, carried in cases:
             g, R, st = _slstm_inputs(B, T, H, P, gen, carried)
             got = sk.slstm_steps(g, R, st)
             torch.cuda.synchronize()
             e = _slstm_errs(got, sref.slstm_steps_ref(g, R, st))
-            errs += e
+            errs.extend(e)
             worst = max(err / scale for err, scale in e)
             print(f"  checked {(B, T, H, P)} carried={carried}: max rel "
                   f"err {worst:.3e}")
             if not worst <= TOL:
                 raise AssertionError(f"slstm_steps {(B, T, H, P)}: max rel "
                                      f"err {worst:.3e} > {TOL}")
-        # the serving shape on the model's own gates, head by head
+
+    with torch.no_grad():
+        check_cases(SLSTM_CASES)
+        # the serving shape on the model's own gates, head by head, twice
         B, T, H, P = SLSTM_SLICE
         g, R, st = _slstm_model_inputs(B, T, gen)
         k32 = sk.slstm_steps(g, R, st)
+        again = sk.slstm_steps(g, R, st)
         torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(
+            (k32[0],) + tuple(k32[1]), (again[0],) + tuple(again[1])))
+        print(f"  serving shape, the model's gates: two launches bit-equal "
+              f"{same}")
+        if not same:
+            raise AssertionError("two slstm_steps launches on the same "
+                                 "inputs differ")
         p32 = sref.slstm_steps_ref(g, R, st)
         p64 = sref.slstm_steps_ref(g.double(), R.double(),
                                    tuple(t.double() for t in st))
@@ -1315,10 +1408,23 @@ def phase_slstm(sk, sref):
                 raise AssertionError(
                     f"slstm_steps head {hd}: rel err "
                     f"{row['kernel_vs_plain32']:.3e} > {row['bar']:.3e}")
+        # the same gates over one chunk's steps (a strided view), before
+        # 4096 chaotic steps amplify rounding: every head within TOL
+        gc = g[:, :SLSTM_CHUNK]
+        e = _slstm_errs(sk.slstm_steps(gc, R, st),
+                        sref.slstm_steps_ref(gc, R, st))
+        worst = max(err / scale for err, scale in e)
+        print(f"  the model's gates, first {SLSTM_CHUNK} steps: max rel err "
+              f"{worst:.3e}")
+        if not worst <= TOL:
+            raise AssertionError(f"slstm_steps on the model's gates, "
+                                 f"{SLSTM_CHUNK} steps: max rel err "
+                                 f"{worst:.3e} > {TOL}")
+        errs += e
         ms = _time_ms(lambda: sk.slstm_steps(g, R, st))
         plain_ms = _time_ms(lambda: sref.slstm_steps_ref(g, R, st), reps=3,
                             warm=1)
-        del g, R, st, k32, p32, p64
+        del g, R, st, k32, again, p32, p64
         # a forget bias of 3 on every head: not the model's layout
         g, R, st = _slstm_inputs(B, T, H, P, gen, forget_bias=FORGET_BIAS)
         got = sk.slstm_steps(g, R, st)
@@ -1334,6 +1440,31 @@ def phase_slstm(sk, sref):
             raise AssertionError(f"slstm_steps serving shape: max rel err "
                                  f"{worst:.3e} > {TOL}")
         del got, g, R, st
+        check_cases(SLSTM_MORE_CASES)
+        # the three shapes of the main path: CUDA events around a call and
+        # the kernel's device time (profiler)
+        shapes = {}
+        for name, shape in SLSTM_TIMED.items():
+            g, R, st = _slstm_inputs(*shape, gen)
+            run = lambda: sk.slstm_steps(g, R, st)  # noqa: E731
+            row = {"shape": list(shape), "events_ms": _time_ms(run),
+                   "device_ms": _device_ms(run),
+                   "bound_ms": _slstm_bound(*shape)[0]}
+            row["us_per_step"] = row["device_ms"] / shape[1] * 1e3
+            row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+            shapes[name] = row
+            print(f"  {name} {shape}: {row['device_ms']:.4f} ms on the "
+                  f"device ({row['events_ms']:.4f} ms in events), "
+                  f"{row['us_per_step']:.3f} us a step, "
+                  f"{row['share_of_bound']:.1%} of the bound")
+            del g, R, st
+        # what a step pays to pass h around, without arithmetic
+        exchange = {}
+        for mode, what in enumerate(sk.EXCHANGES):
+            t_ms = _time_ms(lambda: sk.exchange_probe(H, T, mode))
+            exchange[what] = t_ms / T * 1e3
+        print("  h exchange alone, us a step at the serving geometry "
+              f"(H = {H}, T = {T}): " + json.dumps(exchange))
     bound, bound_by, t_bytes, t_ops, flops = _slstm_bound(B, T, H, P)
     row = {"name": "slstm_steps", "route": "cuda", "source": SLSTM_SOURCE,
            "replaces": SLSTM_REPLACES, "launches": 0,
@@ -1345,7 +1476,9 @@ def phase_slstm(sk, sref):
            "flops": flops, "library_ms": None,
            "library_note": "no single PyTorch call computes the sLSTM "
                            "recurrence",
-           "model_gates_by_head": heads}
+           "model_gates_by_head": heads, "shapes": shapes,
+           "exchange_us_per_step": exchange,
+           "geometry": geo[P], "ptxas": regs}
     print("  slstm_steps " + json.dumps(row))
     torch.cuda.empty_cache()
     return row
@@ -1499,10 +1632,18 @@ def phase_xlstm(sk):
     if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
         raise AssertionError("token ids out of the vocabulary")
     # where the time goes: the same call traced, with 8 new tokens
-    prof = _profile_generate(generate, timed, params, prompts, BUF, 8)
+    prof = _profile_generate(generate, timed, params, prompts, BUF, 8,
+                             prefill_kernel=("slstm", n_slstm))
     prof["prefill_ms"] = events["prefill"][-1][0].elapsed_time(
         events["prefill"][-1][1])
+    prof["slstm_share_of_prefill"] = (prof["slstm_prefill_ms"]
+                                      / prof["prefill_ms"])
     print("  (a) profile " + json.dumps(prof))
+    print(f"  (a) slstm kernels: {prof['slstm_prefill_ms']:.2f} ms of the "
+          f"traced prefill's {prof['prefill_ms']:.2f} "
+          f"({prof['slstm_share_of_prefill']:.1%}), "
+          f"{prof['slstm_kernels']} launches in the traced call (of "
+          f"{n_slstm * 8} launched)")
 
     # (b) one prompt in chunks of 512: the recurrent states carried
     sk.reset_launches()

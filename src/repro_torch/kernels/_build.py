@@ -14,7 +14,9 @@ named by a hash of the source and the flags, so an edited source builds
 anew and an unchanged one is reused. The write is atomic (temp file +
 ``os.replace``), so concurrent builders agree; a lock serialises builders
 within one process. ``build_info[name]`` records the build's seconds, the
-ptxas register / spill report and the library's path.
+compiler's output (ptxas's register / spill report; kept beside the
+library as ``.log``, so a reused library reports it too) and the
+library's path.
 """
 from __future__ import annotations
 
@@ -101,6 +103,7 @@ def build(*sources: Source):
                 failed.append(f"nvcc failed for {name} ({proc.returncode}):"
                               f"\n{logs[name]}")
             else:
+                so.with_suffix(".log").write_text(logs[name])
                 os.replace(tmp, so)          # atomic: concurrent builds agree
         if failed:
             raise RuntimeError("\n".join(failed))
@@ -110,8 +113,11 @@ def build(*sources: Source):
             lib = ctypes.CDLL(str(so))
             s.bind(lib)
             _libs[s.name] = lib
-            build_info[s.name] = dict(seconds=seconds,
-                                      log=logs.get(s.name, ""), path=str(so))
+            log = so.with_suffix(".log")
+            if s.name not in logs:
+                logs[s.name] = log.read_text() if log.exists() else ""
+            build_info[s.name] = dict(seconds=seconds, log=logs[s.name],
+                                      path=str(so))
         return [_libs[s.name] for s in sources]
 
 

@@ -173,6 +173,34 @@ def test_guards_run_before_dispatch_and_build(monkeypatch):
         pk.build()
 
 
+def test_build_keeps_the_compiler_report_for_a_reused_library(
+        monkeypatch, tmp_path):
+    """A library built in an earlier process is reused, and its ptxas
+    report still reaches ``build_info`` (chip_smoke.py reads registers and
+    spills from it). A stand-in nvcc copies a shared library that loads
+    anywhere torch does (torch's own extension module)."""
+    import sys
+    lib = torch._C.__file__
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        f"#!{sys.executable}\nimport shutil, sys\n"
+        f"shutil.copy({lib!r}, sys.argv[sys.argv.index('-o') + 1])\n"
+        "print('ptxas info    : Used 42 registers, used 1 barriers')\n")
+    fake.chmod(0o755)
+    cu = tmp_path / "k.cu"
+    cu.write_text("// stand-in source\n")
+    src = _build.Source("stand_in", cu, lambda lib: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    for fresh in (True, False):        # built, then reused
+        monkeypatch.setattr(_build, "_libs", {})
+        monkeypatch.setattr(_build, "build_info", {})
+        _build.build(src)
+        assert _build._target(src).exists()
+        assert "Used 42 registers" in _build.build_info["stand_in"]["log"]
+    assert len(list((tmp_path / "build").glob("*.log"))) == 1
+
+
 def test_kernel_module_imports_without_nvcc(tmp_path):
     """Importing the kernel module builds nothing: a fresh interpreter
     with no nvcc on PATH imports it and runs the CPU path."""

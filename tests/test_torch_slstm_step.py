@@ -137,6 +137,121 @@ def test_steps_without_out_state_leave_the_input_state():
 
 
 # ---------------------------------------------------------------------------
+# the kernel's partition of the recurrence and its launch geometry
+# ---------------------------------------------------------------------------
+
+def _emulate_partition(g, R, st, geo):
+    """The recurrence in numpy fp32, split as the CUDA kernel splits it:
+    per batch group of ``geo.batch_rows``, block r of the cluster owns
+    state elements [r S, (r + 1) S) and R's columns q P + r S + j for the
+    gates q = z, i, f, o; each column's dot product runs over its register
+    rows (k < rows_reg) and then its shared rows, and is added to g_in;
+    every block reads h from one buffer of a double buffer and writes its
+    slice into the other."""
+    B, T, H, P4 = g.shape
+    P, C, S, kr = P4 // 4, geo.C, geo.S, geo.rows_reg
+    c, n, h0, m = (np.array(a, np.float32) for a in st)
+    out = np.zeros((B, T, H, P), np.float32)
+    hf = np.zeros_like(h0)
+    for b0, nb in geo.batch_rows(B):
+        rows = slice(b0, b0 + nb)
+        hbuf = np.zeros((2, nb, H, P), np.float32)
+        hbuf[0] = h0[rows]
+        for t in range(T):
+            cur, nxt = hbuf[t & 1], hbuf[(t + 1) & 1]
+            for r in range(C):
+                own = slice(r * S, (r + 1) * S)
+                cols = np.concatenate([q * P + np.arange(r * S, (r + 1) * S)
+                                       for q in range(4)])
+                acc = np.einsum("bhk,hkc->bhc", cur[:, :, :kr],
+                                R[:, :kr][:, :, cols])
+                acc = acc + np.einsum("bhk,hkc->bhc", cur[:, :, kr:],
+                                      R[:, kr:][:, :, cols])
+                z, i, f, o = np.split(g[rows, t][..., cols] + acc, 4, axis=-1)
+                c_s, n_s, m_s = (a[rows, :, own] for a in (c, n, m))
+                m_new = np.maximum(f + m_s, i)
+                ie = np.exp(i - m_new)
+                fe = np.exp(f + m_s - m_new)
+                c[rows, :, own] = fe * c_s + ie * np.tanh(z)
+                n[rows, :, own] = fe * n_s + ie
+                m[rows, :, own] = m_new
+                h = (np.float32(1) / (np.float32(1) + np.exp(-o))
+                     * c[rows, :, own] / np.maximum(n[rows, :, own],
+                                                    np.float32(1e-6)))
+                nxt[:, :, own] = h
+                out[rows, t, :, own] = h
+        hf[rows] = hbuf[T & 1]
+    return out, (c, n, hf, m)
+
+
+# (B, T, H, P, C, carried): C = 1 at P = 8; C = 2 and the kernel's C = 4 at
+# the reduced config's P = 128; xlstm-350m's C = 16 at P = 512
+PARTITION_CASES = [
+    (2, 37, 2, 8, 1, False),
+    (3, 20, 2, 8, 1, True),
+    (2, 9, 2, 128, 2, True),
+    (5, 6, 2, 128, 4, False),          # two batch groups, the second of 1
+    (1, 1, 3, 128, 4, True),           # T = 1
+    (1, 3, 4, 512, 16, False),
+    (1, 3, 4, 512, 16, True),
+    (2, 1, 4, 512, 16, False),         # T = 1
+]
+
+
+@pytest.mark.parametrize("case", PARTITION_CASES, ids=str)
+def test_kernel_partition_matches_reference(case):
+    """Which columns of R belong to which block, the split into register
+    and shared rows, the double buffer and the batch groups: the emulation
+    of the kernel's partition against the reference."""
+    B, T, H, P, C, carried = case
+    geo = slstm_mod.geometry(P, B)
+    if C != geo.C:
+        geo = dataclasses.replace(geo, C=C, S=P // C)
+    g, R, st = _inputs(B, T, H, P, seed=sum(case[:5]), carried=carried)
+    want = jslstm_steps_ref(jnp.asarray(g), jnp.asarray(R), _j(st))
+    _close_all(_emulate_partition(g, R, st, geo), want)
+
+
+@pytest.mark.parametrize("B", [1, 3, 4, 8, 9])
+@pytest.mark.parametrize("P", HEAD_DIMS)
+def test_geometry_fits_the_card_and_covers_every_row(P, B):
+    geo = slstm_mod.geometry(P, B)
+    assert (geo.P, geo.G, geo.S) == (P, 4, P // geo.C)
+    assert geo.smem_bytes <= slstm_mod.SMEM_MAX == 232_448
+    assert 1 <= geo.C <= 16 and P % geo.C == 0
+    assert geo.rows_reg + geo.rows_smem == P
+    # rows go in fours (16-byte loads), and a thread's register rows fit
+    # beside its other registers
+    assert geo.rows_reg % 4 == 0 and geo.rows_reg <= 128
+    assert geo.rows_smem % 4 == 0 and geo.rows_smem > 0
+    # a thread per column, a whole number of warps, and a gate thread per
+    # state element of the group
+    assert geo.threads == 4 * geo.S == geo.G * geo.S
+    assert geo.threads % 32 == 0 and geo.threads <= 1024
+    assert geo.smem_bytes == 4 * (geo.rows_smem * 4 * geo.S
+                                  + 2 * geo.G * P + geo.G * 4 * geo.S) + 16
+    groups = geo.batch_rows(B)
+    assert len(groups) == geo.groups == -(-B // geo.G)
+    rows = [b for b0, nb in groups for b in range(b0, b0 + nb)]
+    assert rows == list(range(B))
+    assert all(1 <= nb <= geo.G for _, nb in groups)
+    assert geo.c_args() == (geo.C, geo.G, geo.rows_reg, geo.threads,
+                            geo.smem_bytes)
+
+
+def test_geometry_of_the_serving_shape_and_refusals():
+    """xlstm-350m (P = 512, B = 4): one cluster of 16 per head, rows 0-127
+    in registers, 128-511 (192 KiB) in shared memory."""
+    geo = slstm_mod.geometry(512, 4)
+    assert (geo.C, geo.G, geo.threads, geo.groups) == (16, 4, 128, 1)
+    assert (geo.rows_reg, geo.rows_smem) == (128, 384)
+    assert geo.smem_bytes == 196_608 + 16_384 + 2_048 + 16
+    for P, B in ((64, 4), (6, 1), (512, 0)):
+        with pytest.raises(ValueError, match="no geometry"):
+            slstm_mod.geometry(P, B)
+
+
+# ---------------------------------------------------------------------------
 # the model's blocks
 # ---------------------------------------------------------------------------
 
