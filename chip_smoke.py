@@ -50,13 +50,23 @@ Phases (any failure raises, and the script exits non-zero):
    (b) one prompt through ``make_state`` +
    ``prefill_chunk`` in chunks of 512; (c) the continuous-batching
    launcher ``repro_torch.launch.serve.main`` at full size.
-7. SSD kernel: ``ssd_chunks`` against its plain version on the three
-   cases of ``tests/test_kernels.py``, then in the model's layout a
-   ragged sequence (S = 70 in chunks of 32) and the serving shape
-   (B = 4, S = 8160 -> 64 chunks of 128 with a 96-token last one,
-   H = 112, P = N = 64, B_ / C_ as strided column slices); times kernel
-   and plain version (CUDA events, median of 20 after 3 warm-ups). No
-   single PyTorch call computes this function.
+7. SSD kernel: ptxas's registers and spills and a ``cuobjdump -sass``
+   census of every ``ssd_kernel`` instance (highest register, HMMA and
+   HGMMA counts: the phase fails unless each instance runs its products
+   on the tensor cores) and the launch geometry at the three timed
+   shapes; ``ssd_chunks`` against its plain version (fp32, TF32 off) on
+   the three cases of ``tests/test_kernels.py``, then in the model's
+   layout a ragged sequence (S = 70 in chunks of 32) and the serving
+   shape (B = 4, S = 8160 -> 64 chunks of 128 with a 96-token last one,
+   H = 112, P = N = 64, B_ / C_ as strided column slices, decay spanning
+   A = 1..8), launched twice there (the two results must be bit-equal);
+   then a 512-token chunk of the chunked prefill (1, 512, 112) and the
+   launcher's 64-token chunk (1, 64, 112). Every output held to 1e-4 of
+   its scale. Times kernel and plain version at the three shapes (CUDA
+   events, median of 20 after 3 warm-ups) beside the bound of the
+   kernel's route (bytes, or 3xTF32 operations over the TF32 peak), with
+   the fp32 CUDA-core bound kept beside it. No single PyTorch call
+   computes this function.
 8. Serving zamba2-7b at full width and full depth (81 layers: 68 Mamba2
    blocks and 13 occurrences of one shared attention + MLP block, bf16,
    5,737,416,000 random parameters from a seeded generator): (0) one
@@ -205,6 +215,11 @@ SSD_CASES = (
 # 2 x 32 + 6), and zamba2-7b's prefill
 SSD_RAGGED = (2, 70, 3, 16, 8, 32)
 SSD_SLICE = (4, SERVE_S, 112, 64, 64, 128)
+# checked and timed after the serving shape, so that the draws above stay
+# as they were: a 512-token chunk of zamba2-7b's chunked prefill and the
+# serving launcher's 64-token chunk
+SSD_MORE = {"chunk512": (1, 512, 112, 64, 64, 128),
+            "launcher64": (1, 64, 112, 64, 64, 128)}
 SSD_SOURCE = "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu"
 SSD_REPLACES = "src/repro/kernels/mamba_scan/mamba_scan.py:46"
 # zamba2-7b's parameter tree, counted from the reference's init
@@ -635,7 +650,8 @@ def _attn_case(swa, plain, case, dtype, gen, name):
 
 def _ptxas_report(log, kernels=("swa_wgmma_kernel", "swa_kernel")):
     """{kernel instance: (registers, spill store bytes, spill load bytes)}
-    from ptxas's -v report of a source (by default swa_attention's)."""
+    from ptxas's -v report of a source (by default swa_attention's;
+    an instance is named by its first template argument)."""
     import re
     out, name = {}, None
     for line in log.splitlines():
@@ -653,26 +669,29 @@ def _ptxas_report(log, kernels=("swa_wgmma_kernel", "swa_kernel")):
     return {k: tuple(v) for k, v in out.items()}
 
 
-def _sass_census(path):
-    """{kernel instance: (highest register the SASS names, wgmma
-    instructions)} from ``cuobjdump -sass`` of the built library. ptxas
-    reports a launch's registers; a warpgroup that raises its share with
-    ``setmaxnreg`` shows only here."""
+def _sass_census(path, kernels=("swa_wgmma_kernel", "swa_kernel"),
+                 op="HGMMA"):
+    """{kernel instance: (highest register the SASS names, ``op``
+    instructions: HGMMA for wgmma, HMMA for mma.sync)} from ``cuobjdump
+    -sass`` of the built library. ptxas reports a launch's registers; a
+    warpgroup that raises its share with ``setmaxnreg`` shows only here."""
     import re
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", path], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     out, name = {}, None
     for line in sass.splitlines():
-        m = re.search(
-            r"Function : \S*?(swa_wgmma_kernel|swa_kernel)ILi(\d+)E", line)
+        m = re.search(rf"Function : \S*?({'|'.join(kernels)})ILi(\d+)E",
+                      line)
         if m:
             name = f"{m[1]}<{m[2]}>"
             out[name] = [-1, 0]
+        elif "Function : " in line:
+            name = None
         elif name:
             for r in re.findall(r"\bR(\d+)\b", line):
                 out[name][0] = max(out[name][0], int(r))
-            out[name][1] += bool(re.search(r"\bHGMMA\.", line))
+            out[name][1] += bool(re.search(rf"\b{op}\.", line))
     return {k: tuple(v) for k, v in out.items()}
 
 
@@ -958,12 +977,16 @@ def _ssd_check(name, errs, got, want):
 def _ssd_bound(Bt, S, H, P, N, L):
     """Least time in ms for ``ssd_chunks_seq`` on S tokens in chunks of L:
     x, B, C, a read once and y, states written once over the memory rate,
-    or the operations the function needs over the fp32 peak, whichever is
-    larger. A chunk of v tokens has v (v + 1) / 2 causal (t, s) pairs; per
-    pair y = (G o decay) x needs 2 P FLOPs per head and S = G o decay one
-    multiply per head, G = C B^T needs 2 N once per (b, chunk) (it does
-    not depend on the head), and the state x^T (B o rem) needs 2 P N per
-    token and head. Pairs with s > t and tokens past S need nothing."""
+    or the operations the function needs over the peak of the route,
+    whichever is larger. A chunk of v tokens has v (v + 1) / 2 causal
+    (t, s) pairs; per pair y = (G o decay) x needs 2 P FLOPs per head and
+    S = G o decay one multiply per head, G = C B^T needs 2 N once per (b,
+    chunk) (it does not depend on the head), and the state x^T (B o rem)
+    needs 2 P N per token and head. Pairs with s > t and tokens past S
+    need nothing. The kernel's route takes each product in 3xTF32 (three
+    TF32 passes on the tensor cores), so its operations bound is 3 x the
+    FLOPs over the TF32 peak; the fp32 CUDA-core figure (the first
+    kernel's route) and one TF32 pass are kept beside it."""
     nc = -(-S // L)
     pairs = sum(v * (v + 1) // 2 for v in (min(L, S - c * L)
                                             for c in range(nc)))
@@ -971,12 +994,42 @@ def _ssd_bound(Bt, S, H, P, N, L):
                   + 2 * Bt * S * N + Bt * S * H)
     flops = (Bt * H * (2 * P * pairs + pairs + 2 * P * N * S)
              + Bt * 2 * N * pairs)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), t_bytes, t_ops, flops
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * flops / TF32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms_bytes": t_bytes, "bound_ms_3xtf32_ops": t_ops,
+            "bound_ms_tf32_ops": flops / TF32_FLOPS * 1e3,
+            "bound_ms_fp32_ops": flops / FP32_FLOPS * 1e3, "flops": flops}
+
+
+def _ssd_census(mk):
+    """ptxas's registers and spills and the SASS census of every instance
+    of the kernel (``ssd_kernel<MP>``, MP = P / 16): its products must run
+    on the tensor cores (HMMA, mma.sync; or HGMMA, wgmma)."""
+    from repro_torch.kernels import _build
+    info = _build.build_info["mamba_scan"]
+    regs = _ptxas_report(info["log"], kernels=("ssd_kernel",))
+    hmma = _sass_census(info["path"], kernels=("ssd_kernel",), op="HMMA")
+    hgmma = _sass_census(info["path"], kernels=("ssd_kernel",), op="HGMMA")
+    census = {k: {"ptxas_registers": regs.get(k, (None,))[0],
+                  "spill_store_bytes": regs.get(k, (None, None))[1],
+                  "spill_load_bytes": regs.get(k, (None, None, None))[2],
+                  "sass_highest_register": v[0], "hmma": v[1],
+                  "hgmma": hgmma[k][1]} for k, v in hmma.items()}
+    print("  ptxas and SASS per instance " + json.dumps(census))
+    if len(census) != mk.MAX_P // 16 or not all(
+            c["hmma"] + c["hgmma"] for c in census.values()):
+        raise AssertionError("ssd_kernel's instances do not all run their "
+                             f"products on the tensor cores: {census}")
+    return census
 
 
 def phase_ssd(mk, ssd_ref):
+    census = _ssd_census(mk)
+    for name, (Bt, S, H, P, N, L) in dict(
+            serving=SSD_SLICE, **SSD_MORE).items():
+        print(f"  geometry {name}: {mk.geometry(Bt, S, H, L, P, N)}")
     gen = torch.Generator(device="cuda").manual_seed(5)
     errs = []
 
@@ -1001,40 +1054,66 @@ def phase_ssd(mk, ssd_ref):
         # B_ and C_ as strided column slices, as the conv output gives them
         return (xh, conv[..., :N], conv[..., N:2 * N],
                 a_log_of((Bt, S, H)) * decay)
+
+    def zamba2_decay(H):  # zamba2's A = 1..8: la falls to about -700
+        return torch.linspace(1.0, 8.0, H, device="cuda")
     # the model's layout: a ragged last chunk (the plain version pads it
     # with zeros, the kernel reads past S as zero), then the serving shape,
     # whose decay spans zamba2's A = 1..8 (la falls to about -700 over a
-    # chunk)
+    # chunk); the serving shape twice, bit for bit
+    bit_equal = None
     for name, (Bt, S, H, P, N, L), decay in (
             ("ragged", SSD_RAGGED, 1.0),
-            ("serving shape", SSD_SLICE,
-             torch.linspace(1.0, 8.0, SSD_SLICE[2], device="cuda"))):
+            ("serving shape", SSD_SLICE, zamba2_decay(SSD_SLICE[2]))):
         xh, B_, C_, a = seq_inputs(Bt, S, H, P, N, decay)
         got = mk.ssd_chunks_seq(xh, B_, C_, a, L)
         torch.cuda.synchronize()
         _ssd_check(name, errs, got,
                    ssd_ref.ssd_chunks_seq_plain(xh, B_, C_, a, L))
+        if name == "serving shape":
+            again = mk.ssd_chunks_seq(xh, B_, C_, a, L)
+            bit_equal = all(torch.equal(u, v) for u, v in zip(got, again))
+            del again
+            if not bit_equal:
+                raise AssertionError("two launches at the serving shape "
+                                     "differ")
         del got
         torch.cuda.empty_cache()
         print(f"  checked the {name} {(Bt, S, H, P, N, L)}: "
-              f"{-(-S // L)} chunks")
+              f"{-(-S // L)} chunks" + (", two launches bit-equal"
+                                       if bit_equal else ""))
     ms = _time_ms(lambda: mk.ssd_chunks_seq(xh, B_, C_, a, L))
     plain_ms = _time_ms(lambda: ssd_ref.ssd_chunks_seq_plain(xh, B_, C_, a,
                                                              L))
-    bound, bound_by, t_bytes, t_ops, flops = _ssd_bound(Bt, S, H, P, N, L)
+    bound = _ssd_bound(Bt, S, H, P, N, L)
     row = {"name": "ssd_chunks", "route": "cuda", "source": SSD_SOURCE,
            "replaces": SSD_REPLACES, "launches": 0,
-           "max_abs_err": max(e for e, _ in errs),
-           "max_rel_err": max(r for _, r in errs), "tol_rel": TOL,
+           "product_route": "mma.sync m16n8k8 tf32, 3xTF32",
            "shape": [Bt, S, H, P, N, L], "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound, "bound_by": bound_by,
-           "bound_ms_bytes": t_bytes, "bound_ms_fp32_ops": t_ops,
-           "bound_ms_tf32_ops": flops / TF32_FLOPS * 1e3, "flops": flops,
+           **bound, "bit_equal_serving": bit_equal,
            "library_ms": None,
-           "library_note": "no single PyTorch call computes the SSD chunk"}
-    print("  ssd_chunks " + json.dumps(row))
+           "library_note": "no single PyTorch call computes the SSD chunk",
+           "census": census}
     del xh, B_, C_, a
     torch.cuda.empty_cache()
+    # the chunked prefill's and the launcher's chunks, checked and timed
+    for name, (Bt, S, H, P, N, L) in SSD_MORE.items():
+        xh, B_, C_, a = seq_inputs(Bt, S, H, P, N, zamba2_decay(H))
+        got = mk.ssd_chunks_seq(xh, B_, C_, a, L)
+        torch.cuda.synchronize()
+        _ssd_check(name, errs, got,
+                   ssd_ref.ssd_chunks_seq_plain(xh, B_, C_, a, L))
+        row[f"ms_{name}"] = _time_ms(
+            lambda: mk.ssd_chunks_seq(xh, B_, C_, a, L))
+        row[f"plain_ms_{name}"] = _time_ms(
+            lambda: ssd_ref.ssd_chunks_seq_plain(xh, B_, C_, a, L))
+        row[f"bound_ms_{name}"] = _ssd_bound(Bt, S, H, P, N, L)["bound_ms"]
+        print(f"  checked and timed {name} {(Bt, S, H, P, N, L)}: "
+              f"{row[f'ms_{name}']:.4f} ms")
+    row["max_abs_err"] = max(e for e, _ in errs)
+    row["max_rel_err"] = max(r for _, r in errs)
+    row["tol_rel"] = TOL
+    print("  ssd_chunks " + json.dumps(row))
     return row
 
 
@@ -1186,6 +1265,7 @@ def phase_zamba2(swa, mk):
     prof["ssd_scan_ms"] = scan_ms
     prof["ssd_kernel_ms"] = kernel_ms
     prof["ssd_glue_ms"] = scan_ms - kernel_ms
+    prof["ssd_kernel_share_of_prefill"] = kernel_ms / traced_prefill
     prof["ssd_glue_share_of_prefill"] = (scan_ms - kernel_ms) / traced_prefill
     prof["swa_share_of_prefill"] = prof["swa_ms"] / traced_prefill
     print("  (a) profile " + json.dumps(prof))

@@ -4,7 +4,10 @@ model-layout entry point with a ragged last chunk, the full scan with and
 without a carried-in state, ``mamba_forward`` (prefill, a chunk with
 state, a decode step), the route of the chunked branch and the wrapper's
 input checks. The CUDA kernel itself is held against the plain version on
-the card by ``chip_smoke.py`` (phase 7)."""
+the card by ``chip_smoke.py`` (phase 7); here a torch emulation of its
+error-compensated TF32 (3xTF32) arithmetic is held against the reference's
+oracle, beside a single TF32 pass that misses the bar, and its launch
+geometry is checked at the model's shapes."""
 from __future__ import annotations
 
 import importlib
@@ -187,6 +190,144 @@ def test_ssd_scan_matches_reference_ops_ssd_scan():
 
 
 # ---------------------------------------------------------------------------
+# the kernel's arithmetic: 3xTF32 on the tensor cores, emulated
+# ---------------------------------------------------------------------------
+
+def _tf32(v):
+    """``cvt.rna.tf32.f32``: round to nearest, ties away from zero, the 13
+    low mantissa bits cleared (adding half of the dropped range to the
+    magnitude's bits carries into the kept ones)."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(v):
+    hi = _tf32(v)
+    return hi, _tf32(v - hi)
+
+
+def _mm(a, b, passes):
+    """a @ b as the kernel's mma.sync takes it: TF32 operands, fp32 sums;
+    3 passes are hi.hi + hi.lo + lo.hi, 1 pass hi.hi alone."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    out = ah @ bh
+    return al @ bh + ah @ bl + out if passes == 3 else out
+
+
+def _emulate(x, B_, C_, a_log, passes):
+    """``ssd_chunks`` as the kernel computes it: G = C B^T on the tensor
+    cores, S = G o exp(la_t - la_s) (zero where s > t) formed in fp32 and
+    split, y = S x and state = x^T (B o rem) on the tensor cores."""
+    L = x.shape[3]
+    la = torch.cumsum(a_log, dim=-1)
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool))
+    seg = la[..., :, None] - la[..., None, :]
+    decay = torch.where(causal, torch.exp(torch.where(causal, seg, 0.0)),
+                        0.0)
+    G = _mm(C_, B_.transpose(-1, -2), passes)          # (B, nc, t, s)
+    y = _mm(G[:, None] * decay, x, passes)
+    rem = torch.exp(la[..., -1:] - la)
+    st = _mm(x.transpose(-1, -2), B_[:, None] * rem[..., None], passes)
+    return y, st
+
+
+def _scale_err(got, want):
+    want = np.asarray(want)
+    return float(np.abs(got.numpy() - want).max() / np.abs(want).max())
+
+
+# the SSD_CASES, then zamba2-7b's chunk (L = 128, P = N = 64) over heads
+# whose decay spans its A = 1..8 (la falls to about -700 over a chunk)
+EMU_CASES = SSD_CASES + ["serving decay"]
+
+
+def _emu_inputs(case):
+    if case != "serving decay":
+        return _chunked_inputs(*case, seed=sum(case))
+    x, B_, C_, a_log = _chunked_inputs(1, 8, 2, 128, 64, 64, seed=7)
+    span = np.linspace(1.0, 8.0, 8, dtype=np.float32)[None, :, None, None]
+    return x, B_, C_, a_log * span
+
+
+def _emu_errs(case, passes):
+    arrays = _emu_inputs(case)
+    y, st = _emulate(*_t(*arrays), passes)
+    ry, rst = jssd_chunks_ref(*(jnp.asarray(a) for a in arrays))
+    return _scale_err(y, ry), _scale_err(st, rst)
+
+
+@pytest.mark.parametrize("case", EMU_CASES, ids=str)
+def test_3xtf32_emulation_matches_oracle(case):
+    """The kernel's split arithmetic holds the reference's oracle to TOL
+    of each output's scale (chip_smoke.py's bar for the kernel)."""
+    err_y, err_st = _emu_errs(case, passes=3)
+    print(f"3xTF32 {case}: y {err_y:.3e}, states {err_st:.3e}")
+    assert err_y <= TOL and err_st <= TOL, (err_y, err_st)
+
+
+@pytest.mark.parametrize("case", EMU_CASES, ids=str)
+def test_single_tf32_pass_misses_the_bar(case):
+    """Why the kernel splits: one TF32 pass (hi.hi alone) on the same
+    inputs lands above TOL on every case (the errors print with ``-s``;
+    PERF.md records them)."""
+    err_y, err_st = _emu_errs(case, passes=1)
+    print(f"one TF32 pass {case}: y {err_y:.3e}, states {err_st:.3e}")
+    assert max(err_y, err_st) > TOL, (err_y, err_st)
+    assert max(err_y, err_st) < 1e-2, (err_y, err_st)
+
+
+# (Bt, S, H, L, P, N): zamba2-7b's 4 x 8160 prefill, a 512-token chunk of
+# its chunked prefill, the serving launcher's 64-token chunk, and the
+# SSD_CASES (S = nc L)
+GEOMETRY_SHAPES = {
+    "serving": (4, 8160, 112, 128, 64, 64),
+    "chunk512": (1, 512, 112, 128, 64, 64),
+    "launcher64": (1, 64, 112, 128, 64, 64),
+    **{str(c): (c[0], c[2] * c[3], c[1], c[3], c[4], c[5])
+       for c in SSD_CASES},
+}
+
+
+@pytest.mark.parametrize("name", list(GEOMETRY_SHAPES))
+def test_geometry_fills_the_card(name):
+    Bt, S, H, L, P, N = GEOMETRY_SHAPES[name]
+    geo = ssd_mod.geometry(Bt, S, H, L, P, N)
+    nc = -(-S // L)
+    assert 1 <= geo.heads_per_block <= ssd_mod.MAX_HEADS
+    assert geo.groups == -(-H // geo.heads_per_block)
+    assert geo.grid == (nc, geo.groups, Bt)
+    assert geo.blocks == nc * geo.groups * Bt
+    # the grid fills the card's SMs wherever there are that many
+    # (chunk, head) pairs
+    assert geo.blocks >= min(ssd_mod.NUM_SMS, Bt * nc * H)
+    assert geo.threads == 256
+    assert geo.smem_bytes <= ssd_mod.SMEM_MAX
+    assert geo.c_args() == (geo.heads_per_block, 256, geo.smem_bytes)
+    want = {"serving": (28, 1024), "chunk512": (2, 224),
+            "launcher64": (1, 112)}
+    if name in want:
+        assert (geo.heads_per_block, geo.blocks) == want[name]
+
+
+def test_geometry_shared_bytes_match_the_kernel_layout():
+    """The kernel's ``Layout`` at L = 128, P = N = 64, 16 heads: x^T of two
+    heads split into hi and lo 4 x 32 KiB, G's 136 causal 8 x 8 blocks, B,
+    la and rem (rows of 17 heads: an odd count)."""
+    assert ssd_mod.smem_bytes(128, 64, 64, 16) == 4 * (
+        4 * 128 * 64 + 136 * 64 + 128 * 64 + 2 * 128 * 17) == 216_064
+    # C (rows to 16) outgrows x^T at P = 16, N = 64
+    assert ssd_mod.smem_bytes(40, 16, 64, 1) == 4 * (
+        4 * 48 * 64 + 15 * 64 + 40 * 64 + 2 * 40)
+    assert ssd_mod.geometry(4, 8160, 112, 128).smem_bytes == 4 * (
+        4 * 128 * 64 + 136 * 64 + 128 * 64 + 2 * 128 * 29)
+    assert ssd_mod.smem_bytes(128, 64, 64, ssd_mod.MAX_HEADS) <= (
+        ssd_mod.SMEM_MAX)
+    with pytest.raises(ValueError, match="no geometry"):
+        ssd_mod.geometry(0, 64, 112, 128)
+
+
+# ---------------------------------------------------------------------------
 # mamba_forward
 # ---------------------------------------------------------------------------
 
@@ -320,9 +461,24 @@ def _z(d, *shape, dtype=torch.float32):
      "multiples of 8"),
     (lambda d: (_z(d, 1, 2, 2, 32, 16), _z(d, 1, 2, 32, 6),
                 _z(d, 1, 2, 32, 6), _z(d, 1, 2, 2, 32)), ValueError,
-     "multiples of 4"),
+     "N <= 64 in multiples of 8"),
+    # the tensor-core tiles: P in m16 tiles, N in n8 tiles
+    (lambda d: (_z(d, 1, 2, 2, 32, 8), _z(d, 1, 2, 32, 8),
+                _z(d, 1, 2, 32, 8), _z(d, 1, 2, 2, 32)), ValueError,
+     "P <= 64 in multiples of 16"),
+    (lambda d: (_z(d, 1, 2, 2, 32, 16), _z(d, 1, 2, 32, 12),
+                _z(d, 1, 2, 32, 12), _z(d, 1, 2, 2, 32)), ValueError,
+     "N <= 64 in multiples of 8"),
+    # the kernel reads x and C_ in pairs of floats
+    (lambda d: (_z(d, 1, 2, 2, 32, 17)[..., :16], _z(d, 1, 2, 32, 8),
+                _z(d, 1, 2, 32, 8), _z(d, 1, 2, 2, 32)), ValueError,
+     "even strides"),
+    (lambda d: (_z(d, 1, 2, 2, 32, 16), _z(d, 1, 2, 32, 8),
+                _z(d, 1, 2, 32, 9)[..., 1:], _z(d, 1, 2, 2, 32)), ValueError,
+     "8-byte boundary"),
 ], ids=["rank", "dtype", "shapes", "chunk", "head-dim", "strided",
-        "ragged-chunk", "ragged-state"])
+        "ragged-chunk", "ragged-state", "head-dim-m16", "state-n8",
+        "x-pairs", "c-pairs"])
 def test_guards_raise_before_dispatch_and_build(monkeypatch, make, err,
                                                 match):
     """Bad inputs raise on either device (meta stands in for a card)
