@@ -141,6 +141,29 @@ Phases (any failure raises, and the script exits non-zero):
    push): 144 and 48. Then, on the full-width state, one Eq. 5 round on
    the kernels against the same round on ``ref.py``'s plain functions,
    leaf by leaf.
+13. The overlap modes: yi-6b at full width, 4 layers, as phase 3
+   otherwise, through ``make_round_step``: ``staleness1``, ``doublebuf``
+   (4 chunks), ``staleness_k`` k = 1 elastic (row 2 dropped through
+   ``set_participation`` in rounds 1-2, forced back in at round 2 after k
+   misses, ``sync = 0`` in round 3); then ``staleness_k`` k = 2 elastic at
+   2 layers (a ring of two does not fit at 4; the reckoning is printed),
+   6 rounds, row 2 out in rounds 2-4, ``sync = 0`` in round 5. Counters
+   zeroed before each round and held to the launches the code implies;
+   a frozen row and every row of a ``sync = 0`` round bit-exact; peak
+   memory under 70 GB. Prints round ms (host clock, synchronised),
+   boundary ms (CUDA events around the consensus application after the
+   local steps), the chunk Grams' ms (events around each
+   ``stage_comm``) and peak memory for each, beside phase 3's. (c) On
+   the doublebuf run's full-width state: one stale application on the
+   kernels (4 strided ``partial_gram`` chunks, ``mix_from_gram`` with the
+   ``stale_mix`` epilogue) against the same on ``ref.py``'s plain
+   functions, each row within 1e-5 of its scale; the epilogue bit-equal
+   to the plain ``q + (mix(s) - s)`` on the kernel's coefficients;
+   times of the epilogue, ``mix_from_gram`` and a strided chunk Gram
+   beside a contiguous one; then doublebuf in one chunk against
+   staleness_k k = 1 in one chunk, 3 rounds at 1 layer, bit for bit.
+   (d) The launcher with ``--overlap doublebuf --log-every-round``:
+   one JSONL record a round, staleness 0 in round 0 and 1 after.
 
 It prints a ``kernels`` line, the ``{"kernels": [...]}`` record and, last,
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -269,6 +292,26 @@ PAIR_N = {"sq_dist": (128, 1000, 32768, 40001),
           "apply_update": (256, 5000, 33000)}
 # the slice's leaves: embed / lm_head, and one stacked MLP leaf (4 layers)
 PAIR_SLICE_N = (262_144_000, 180_355_072)
+# phase 13: (label, overlap settings, layers, rounds, elastic plan);
+# a plan maps a round to (row dropped or None, sync)
+OVERLAP_RUNS = (
+    ("staleness1", dict(overlap="staleness1"), LAYERS, 4, None),
+    ("doublebuf", dict(overlap="doublebuf", overlap_chunks=4), LAYERS, 4,
+     None),
+    ("staleness_k k=1 elastic", dict(overlap="staleness_k", staleness=1,
+                                     elastic=True, overlap_chunks=4),
+     LAYERS, 4, {1: (2, 1.0), 2: (2, 1.0), 3: (None, 0.0)}),
+    ("staleness_k k=2 elastic", dict(overlap="staleness_k", staleness=2,
+                                     elastic=True, overlap_chunks=4),
+     2, 6, {2: (2, 1.0), 3: (2, 1.0), 4: (2, 1.0), 5: (None, 0.0)}),
+)
+OVERLAP_TOL = 1e-5      # each row of a stale application, of its scale
+STALE_SOURCE = SOURCE
+STALE_REPLACES = {
+    "mix_from_gram": "src/repro/kernels/pullpush/pullpush.py:345",
+    "stale_mix": "src/repro/kernels/pullpush/pullpush.py:319 (mix_shard) "
+                 "+ src/repro/train/trainer.py:387 (q + (c_out - s))",
+}
 PAIR_DTYPES = ((torch.float32, torch.float32),
                (torch.bfloat16, torch.bfloat16),
                (torch.bfloat16, torch.float32))
@@ -517,12 +560,12 @@ def phase_slice(pk):
         raise AssertionError(f"peak memory {peak / 1e9:.1f} GB > 70 GB: set "
                              "LAYERS = 2 and record why in PERF.md")
     later = rounds[1:] or rounds
-    print("  mean of rounds 1.. " + json.dumps({
-        k: statistics.mean(r[k] for r in later)
-        for k in ("round_ms", "consensus_ms", "local_ms")}))
+    summary = {k: statistics.mean(r[k] for r in later)
+               for k in ("round_ms", "consensus_ms", "local_ms")}
+    print("  mean of rounds 1.. " + json.dumps(summary))
     del state, step
     torch.cuda.empty_cache()
-    return launches
+    return launches, dict(summary, peak_bytes=peak)
 
 
 def phase_launcher(pk):
@@ -2089,6 +2132,344 @@ def phase_tree(pk, ref):
             "plain_round_sq_rel": sq_rel, "plain_round_ulp": worst}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the overlap modes
+# ---------------------------------------------------------------------------
+
+def _expected_launches(dcfg, r, launch_names):
+    """The kernel launches round r of a one-stage lowering runs: a
+    staleness1 round is one fused_round with the stale epilogue; a fill
+    round of doublebuf / staleness_k is one fused_round; a stale one runs
+    its chunk Grams, then mix_from_gram (gram_coef + stale_mix)."""
+    want = dict.fromkeys(launch_names, 0)
+    k = dcfg.staleness if dcfg.overlap == "staleness_k" else 1
+    if dcfg.overlap == "staleness1":
+        want.update(fused_round=1, partial_gram=1, gram_coef=1, stale_mix=1)
+    elif r < k:
+        want.update(fused_round=1, partial_gram=1, gram_coef=1, mix_shard=1)
+    else:
+        c = dcfg.overlap_chunks
+        want.update(partial_gram=c, gram_coef=c + 1, mix_from_gram=1,
+                    stale_mix=1)
+    return want
+
+
+def _equal(a, b, chunk=1 << 24):
+    """Bit-equality of two (R, n) tensors on the card, column chunk by
+    chunk (a whole-width comparison would be an (R, n) temporary)."""
+    return all(torch.equal(x, y) for x, y in zip(a.split(chunk, dim=-1),
+                                                  b.split(chunk, dim=-1)))
+
+
+class _Events:
+    """CUDA events around every call of a function in a module or class,
+    collected per round."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name = owner, name
+        self.fn = getattr(owner, name)
+        self.ms, self.pairs = [], []
+
+    def __enter__(self):
+        def timed(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = self.fn(*a, **kw)
+            e1.record()
+            self.pairs.append((e0, e1))
+            return out
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def close_round(self):
+        self.ms.append(sum(a.elapsed_time(b) for a, b in self.pairs))
+        self.pairs = []
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.fn)
+
+
+def _overlap_run(pk, label, over, layers, rounds, plan, keep=False):
+    from repro_torch.configs import DPPFConfig, get_arch
+    from repro_torch.core.engine import ConsensusEngine
+    from repro_torch.data import TokenTask, make_round_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import (
+        RoundClock, init_train_state, make_round_step, set_participation,
+    )
+    import repro_torch.train.trainer as trainer_mod
+
+    cfg = dataclasses.replace(get_arch("yi-6b"), n_layers=layers)
+    M, tau, seq, batch = 4, 4, 64, 8
+    model = build_model(cfg)
+    dcfg = DPPFConfig(alpha=0.1, lam=0.5, tau=tau, consensus="simple_avg",
+                      engine="flat", **over)
+    opt = make_optimizer("sgd", momentum=0.9, weight_decay=1e-3)
+    clock = RoundClock.from_config(dcfg, base_lr=LR,
+                                   total_steps=rounds * tau)
+    task = TokenTask(vocab_size=cfg.vocab_size, seq_len=seq)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model.init, opt, dcfg, M, gen, device="cuda")
+    step = make_round_step(model.loss, opt, dcfg, clock=clock)
+    boundary = "_staleness1" if dcfg.overlap == "staleness1" \
+        else "_ring_round"
+    out, held = [], None
+    launched = dict.fromkeys(pk.LAUNCHES, 0)
+    # the dropped row before each round, in page-locked host memory
+    row = torch.empty((state.engine.layout.n,), pin_memory=True) \
+        if plan else None
+    with _Events(trainer_mod, boundary) as bev, \
+            _Events(ConsensusEngine, "stage_comm") as gev:
+        for spec in clock.rounds:
+            r = spec.index
+            drop, sync = (plan or {}).get(r, (None, 1.0))
+            if plan is not None:
+                mask = torch.ones(M)
+                if drop is not None:
+                    mask[drop] = 0.0
+                state = set_participation(state, mask, sync=sync)
+            b = make_round_batch(task, 0, M, spec.tau, spec.start, batch,
+                                 cfg, device="cuda")
+            if drop is not None:
+                row.copy_(state.params[drop])
+            missed = state.snap["missed"].tolist() if plan else None
+            pk.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            round_ms = (time.perf_counter() - t0) * 1e3
+            got = dict(pk.LAUNCHES)
+            for key, v in got.items():
+                launched[key] += v
+            bev.close_round()
+            gev.close_round()
+            want = _expected_launches(dcfg, r, pk.LAUNCHES)
+            if got != want:
+                raise AssertionError(f"{label} round {r} launched {got}, "
+                                     f"want {want}")
+            rec = {"round": r, "loss": float(m["train_loss"]),
+                   "consensus_dist": float(m["consensus_dist"]),
+                   "staleness": m["staleness"], "round_ms": round_ms,
+                   "boundary_ms": bev.ms[-1], "chunk_gram_ms": gev.ms[-1]}
+            if plan is not None:
+                frozen = drop is not None and missed[drop] < dcfg.staleness
+                if drop is not None:
+                    same = all(torch.equal(now, was.to("cuda"))
+                               for now, was in zip(
+                                   state.params[drop].split(1 << 24),
+                                   row.split(1 << 24)))
+                    if frozen != same:
+                        raise AssertionError(
+                            f"{label} round {r}: row {drop} "
+                            f"{'moved' if frozen else 'did not move'} (it "
+                            f"was {'frozen' if frozen else 'forced back'})")
+                if sync == 0.0 and not _equal(state.params,
+                                              state.snap["x"][-1]):
+                    raise AssertionError(f"{label} round {r}: a sync = 0 "
+                                         "round moved a row off its q")
+                rec.update(dropped=drop, frozen=frozen, sync=sync)
+            if not math.isfinite(rec["loss"]) or not (
+                    r == 0 or rec["consensus_dist"] > 0):
+                raise AssertionError(f"{label} round {r}: {rec}")
+            out.append(rec)
+            print(f"  {label} round " + json.dumps(rec))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {label}: peak memory allocated {peak} bytes "
+          f"({peak / 1e9:.2f} GB), layers {layers}, "
+          f"n = {state.engine.layout.n}")
+    if peak > 70e9:
+        raise AssertionError(f"{label}: peak memory {peak / 1e9:.1f} GB > "
+                             "70 GB: an (R, n) temporary beside the carry")
+    if keep:
+        held = state
+    del state, step
+    torch.cuda.empty_cache()
+    k = dcfg.staleness if dcfg.overlap == "staleness_k" else 1
+    stale = [rec for rec in out if rec["round"] >= k] or out
+    summary = {key: statistics.mean(rec[key] for rec in stale)
+               for key in ("round_ms", "boundary_ms", "chunk_gram_ms")}
+    summary.update(peak_bytes=peak, rounds=[rec["round"] for rec in stale],
+                   launches=launched)
+    print(f"  {label}: mean of stale rounds " + json.dumps(summary))
+    return summary, held
+
+
+def _stale_against_plain(pk, ref, state):
+    """(c): one stale application on the doublebuf run's full-width state
+    (snapshot s, fresh view q = its params) on the kernels and on the
+    plain functions; times of the epilogue and of a strided chunk Gram."""
+    from repro_torch.train.trainer import _chunk_bounds
+    s, q = state.snap["x"], state.params
+    R, n = s.shape
+    state.opt = None                    # the momentum's 19.5 GB go
+    torch.cuda.empty_cache()
+    T = torch.full((R, R), 1.0 / R, device="cuda")
+    c0 = torch.full((R,), 0.1, device="cuda")        # alpha
+    c1 = torch.full((R,), -0.5, device="cuda")       # -lam
+    bounds = _chunk_bounds(n, 4)
+    pk.reset_launches()
+    Gk = sum(pk.partial_gram(s[:, a:b]) for a, b in bounds)
+    Gp = sum(ref.partial_gram_plain(s[:, a:b]) for a, b in bounds)
+    out = torch.empty_like(s)
+    pk.mix_from_gram(s, T, c0, c1, Gk, out=out, base=q)
+    _, rk, coef_k = pk.gram_coef(Gk[None], T, c0, c1)
+    rp, coef_p = ref.gram_coef_plain(Gp, T, c0, c1)
+    torch.cuda.synchronize()
+    r_rel = float(((rk - rp).abs() / rp).max())
+    err = torch.zeros(R, device="cuda")
+    scale = torch.zeros(R, device="cuda")
+    bitwise = True
+    for a in range(0, n, ref.PLAIN_CHUNK * 4):
+        b = min(n, a + ref.PLAIN_CHUNK * 4)
+        got = out[:, a:b]
+        plain = ref.stale_mix_plain(s[:, a:b], T, coef_p, q[:, a:b])
+        err = torch.maximum(err, (got - plain).abs().amax(dim=1))
+        scale = torch.maximum(scale, plain.abs().amax(dim=1))
+        same = ref.stale_mix_plain(s[:, a:b], T, coef_k, q[:, a:b])
+        bitwise = bitwise and torch.equal(got, same)
+        del got, plain, same
+    rel = float((err / scale).max())
+    abs_err = float(err.max())
+    print(f"  stale application, kernels vs plain: r max rel err "
+          f"{r_rel:.3e}, rows max err {rel:.3e} of their scale "
+          f"(tolerance {OVERLAP_TOL}); epilogue bit-equal to the plain "
+          f"q + (mix(s) - s) on the kernel's coefficients: {bitwise}")
+    if not (rel <= OVERLAP_TOL and r_rel <= OVERLAP_TOL and bitwise):
+        raise AssertionError("the stale application differs from plain")
+    # times at the main path's shape
+    a, b = bounds[0]
+    contiguous = out.view(-1)[:R * (b - a)].view(R, b - a)
+    contiguous.copy_(s[:, a:b])
+    times = {
+        "stale_mix": (
+            _time_ms(lambda: pk.stale_mix(s, T, coef_k, q, out=out)),
+            _time_ms(lambda: ref.stale_mix_plain(s, T, coef_k, q, out=out),
+                     reps=1, warm=1),
+            None),
+        "mix_from_gram": (
+            _time_ms(lambda: pk.mix_from_gram(s, T, c0, c1, Gk, out=out,
+                                              base=q)),
+            _time_ms(lambda: ref.mix_from_gram_plain(
+                s, T, c0, c1, Gk, out=out, base=q), reps=1, warm=1),
+            None),
+    }
+    strided_ms = _time_ms(lambda: pk.partial_gram(s[:, a:b]))
+    contiguous_ms = _time_ms(lambda: pk.partial_gram(contiguous))
+    chunk_bound = (R * (b - a) * 4 + R * R * 4) / HBM_BYTES_PER_S * 1e3
+    print(f"  partial_gram on a 4-chunk column slice ({R}, {b - a}) of the "
+          f"({R}, {n}) view: strided {strided_ms:.4f} ms, contiguous copy "
+          f"{contiguous_ms:.4f} ms, bound {chunk_bound:.4f} ms (bytes)")
+    small = 4 * (R * R + 3 * R)
+    nbytes = {"stale_mix": 3 * R * n * 4 + small,
+              "mix_from_gram": 3 * R * n * 4 + small + R * R * 4}
+    ops = 3 * R * R * n
+    rows = {}
+    for name, (ms, plain_ms, lib_ms) in times.items():
+        t_bytes = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_FLOPS * 1e3
+        rows[name] = {
+            "name": name, "route": "cuda", "source": STALE_SOURCE,
+            "replaces": STALE_REPLACES[name], "launches": 0,
+            "max_abs_err": 0.0 if bitwise else abs_err,
+            "max_rel_err": 0.0 if bitwise else rel, "tol_rel": OVERLAP_TOL,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms,
+            "round_vs_plain_rel_err": rel}
+    rows["partial_gram_strided"] = {"ms": strided_ms,
+                                    "contiguous_ms": contiguous_ms,
+                                    "bound_ms": chunk_bound,
+                                    "shape": [R, b - a], "ld": n}
+    del out, contiguous
+    return rows
+
+
+def _k1_pin(pk):
+    """(c): doublebuf in one chunk against staleness_k k = 1 in one chunk,
+    3 rounds at full width and 1 layer from one seed: bit for bit."""
+    kept = {}
+    for label, over in (("doublebuf", dict(overlap="doublebuf",
+                                           overlap_chunks=1)),
+                        ("k=1", dict(overlap="staleness_k", staleness=1,
+                                     overlap_chunks=1))):
+        _, st = _overlap_run(pk, f"pin {label}", over, 1, 3, None,
+                             keep=True)
+        x = st.snap["x"]
+        kept[label] = (st.params, x[0] if isinstance(x, list) else x)
+        del st, x
+        torch.cuda.empty_cache()
+    (pa, sa), (pb, sb) = kept["doublebuf"], kept["k=1"]
+    same = _equal(pa, pb) and _equal(sa, sb)
+    print(f"  doublebuf (1 chunk) and staleness_k k=1 (1 chunk) after 3 "
+          f"rounds: params and snapshot bit-equal: {same}")
+    if not same:
+        raise AssertionError("staleness_k k=1 differs from doublebuf")
+    del kept, pa, pb, sa, sb
+    torch.cuda.empty_cache()
+
+
+def _launcher_overlap(pk):
+    """(d): the launcher with --overlap doublebuf --log-every-round."""
+    from repro_torch.launch.train import main as train_main
+    path = os.path.join(ROOT, "build", "chip_smoke", "round_metrics.jsonl")
+    pk.reset_launches()
+    loss = train_main(["--arch", "yi-6b", "--smoke", "--workers", "4",
+                       "--tau", "4", "--steps", "16", "--seq", "16",
+                       "--batch", "2", "--overlap", "doublebuf",
+                       "--log-every-round", path])
+    with open(path) as fh:
+        recs = [json.loads(line) for line in fh]
+    stal = [r["staleness"] for r in recs]
+    print(f"  launcher --overlap doublebuf: eval loss {loss:.4f}, "
+          f"{len(recs)} records, staleness {stal}, launches "
+          f"{json.dumps(dict(pk.LAUNCHES))}")
+    if not math.isfinite(loss) or stal != [0.0] + [1.0] * 3 \
+            or [r["round"] for r in recs] != [0, 1, 2, 3] \
+            or pk.LAUNCHES["stale_mix"] != 3:
+        raise AssertionError("the overlap launcher's records are off")
+
+
+def phase_overlap(pk, ref, none_mode):
+    view4 = 4 * MAIN_N * 4
+    n2 = 870_338_560
+    print(f"  reckoning: one (4, n) fp32 view is {view4 / 1e9:.2f} GB at 4 "
+          f"layers, {4 * n2 * 4 / 1e9:.2f} GB at 2; with one snapshot the "
+          f"carry is params + momentum + snapshot, ~"
+          f"{none_mode['peak_bytes'] / 1e9 + view4 / 1e9:.1f} GB at 4 "
+          f"layers (phase 3's peak + a view); a k = 2 ring needs 4 views + "
+          f"~9.8 GB = {(4 * view4) / 1e9 + 9.8:.1f} GB at 4 layers (more "
+          f"than the card), {4 * 4 * n2 * 4 / 1e9 + 7.0:.1f} GB at 2")
+    summaries = {"none (phase 3)": none_mode}
+    for label, over, layers, rounds, plan in OVERLAP_RUNS:
+        keep = label == "doublebuf"
+        summary, st = _overlap_run(pk, label, over, layers, rounds, plan,
+                                   keep=keep)
+        summaries[label] = summary
+        if keep:
+            rows = _stale_against_plain(pk, ref, st)
+        del st
+        torch.cuda.empty_cache()
+    # the counters are zeroed before each round: the runs' sums
+    totals = {key: sum(summaries[label]["launches"][key]
+                       for label, *_ in OVERLAP_RUNS)
+              for key in pk.LAUNCHES}
+    print("  launches over the phase's runs " + json.dumps(totals))
+    print("  modes side by side " + json.dumps(summaries))
+    _k1_pin(pk)
+    _launcher_overlap(pk)
+    strided = rows.pop("partial_gram_strided")
+    for name in ("stale_mix", "mix_from_gram"):
+        rows[name]["launches"] = totals[name]
+        rows[name]["boundary_ms"] = summaries["doublebuf"]["boundary_ms"]
+    return {"rows": rows, "launches": totals, "summaries": summaries,
+            "partial_gram_strided": strided}
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2132,7 +2513,7 @@ def main():
 
     print("phase 3: the slice (yi-6b, full width)")
     t0 = time.perf_counter()
-    launches = phase_slice(pk)
+    launches, none_mode = phase_slice(pk)
     secs["slice"] = time.perf_counter() - t0
     for name, row in rows.items():
         row["launches"] = launches[name]
@@ -2196,6 +2577,18 @@ def main():
             "yi-6b tree training, 4 Eq. 5 rounds": tree["eq5"][name],
             "yi-6b tree training, 1 easgd round": tree["easgd"][name]}
         rows[name]["launches"] = tree["eq5"][name] + tree["easgd"][name]
+
+    print("phase 13: the overlap modes (yi-6b, full width)")
+    t0 = time.perf_counter()
+    overlap = phase_overlap(pk, ref, none_mode)
+    secs["overlap"] = time.perf_counter() - t0
+    rows.update(overlap["rows"])
+    for name in REPLACES:
+        rows[name]["launches_by_path"] = {
+            "yi-6b training, none (phase 3)": launches[name],
+            "yi-6b training, overlap modes (phase 13)":
+                overlap["launches"][name]}
+        rows[name]["launches"] += overlap["launches"][name]
     secs["total"] = time.perf_counter() - t_start
     print("phase seconds " + json.dumps(secs))
 

@@ -71,23 +71,32 @@ def _pull_coef(spec, dcfg, lam_t, pull_scale):
 
 def apply_round(params, dcfg, lam_t, state, *, losses=None, grad_norms=None,
                 push_from="average", engine=None, first_gram=None, mask=None,
-                push_vec=None, pull_scale=1.0):
+                push_vec=None, pull_scale=1.0, base=None, out=None):
     """One communication round. Returns ``(params, state, metrics)``.
 
     ``params`` is a worker-stacked tree (``engine=None``: new tensors come
     back, as in the reference) or the engine's flat ``(R, n)`` view (on
-    the kernel path updated in place). ``mask`` (flat path only) is the
-    elastic participation vector ``(M,)``; ``push_vec`` (flat path only)
-    the ``(M, n)`` push field of ``push_source="filtered_grad"`` specs
-    (LPF-SGD); ``first_gram`` (the overlap modes) is not ported yet."""
+    the kernel path updated in place). The rest is flat path only:
+
+    * ``mask``: the elastic participation vector ``(M,)``;
+    * ``push_vec``: the ``(M, n)`` push field of
+      ``push_source="filtered_grad"`` specs (LPF-SGD);
+    * ``first_gram``: the first stage's precomputed column contraction
+      (the summed ``engine.stage_comm`` chunks of the overlap modes);
+    * ``base``: a fresh view q; the round then returns the stale delta
+      applied to it, ``q + (C(params) - params)`` (the reference's
+      ``q + (c_out - snap)``). A one-stage lowering runs it as one
+      ``stale_mix`` pass over ``params`` in place; a longer one forms
+      C(params) in one new (R, n) buffer first;
+    * ``out``: where the kernel mode writes the first stage (default
+      ``params`` itself).
+    """
     if engine is not None:
-        if first_gram is not None:
-            raise NotImplementedError("not yet ported: first_gram "
-                                      "(overlap)")
         return _apply_round_flat(engine, params, dcfg, lam_t, state,
                                  losses=losses, grad_norms=grad_norms,
-                                 push_from=push_from, mask=mask,
-                                 push_vec=push_vec, pull_scale=pull_scale)
+                                 push_from=push_from, first_gram=first_gram,
+                                 mask=mask, push_vec=push_vec,
+                                 pull_scale=pull_scale, base=base, out=out)
     if first_gram is not None:
         raise ValueError("first_gram requires the flat engine")
     if mask is not None:
@@ -254,7 +263,8 @@ def lower_stages(engine, dcfg, lam_t, *, losses=None, grad_norms=None,
 
 
 def _apply_round_flat(engine, flat, dcfg, lam_t, state, *, losses, grad_norms,
-                      push_from, mask=None, push_vec=None, pull_scale=1.0):
+                      push_from, first_gram=None, mask=None, push_vec=None,
+                      pull_scale=1.0, base=None, out=None):
     spec = get_method(dcfg.consensus)
     if engine.eps != dcfg.eps:
         # the engine's norm guard must match the config's
@@ -262,15 +272,29 @@ def _apply_round_flat(engine, flat, dcfg, lam_t, state, *, losses, grad_norms,
     stages, pull = lower_stages(engine, dcfg, lam_t, losses=losses,
                                 grad_norms=grad_norms, push_from=push_from,
                                 mask=mask, pull_scale=pull_scale)
+    if (first_gram is not None or base is not None) \
+            and (not stages or stages[0][0] != "coef"):
+        raise ValueError("first_gram / base require a leading coefficient "
+                         "stage (every communicating lowering has one)")
     if any(s[0] == "vec" for s in stages) and push_vec is None:
         raise ValueError(f"{spec.name} needs push_vec (the filtered-"
                          f"gradient field) on the flat path")
+    # the stale epilogue fuses into a one-stage lowering; a longer one
+    # forms C(flat) beside flat (which the delta still reads)
+    fused = base is not None and len(stages) == 1
+    if base is not None and not fused and engine.use_kernel and out is None:
+        out = torch.empty_like(flat)
+    snap = flat
 
+    # only stage 1's contraction can be precomputed: later stages contract
+    # the PREVIOUS stage's output, which does not exist until the boundary
     pre = post = None
-    for stage in stages:
+    for i, stage in enumerate(stages):
         if stage[0] == "coef":
             _, T, c0, c1 = stage
-            flat, _, s_pre, s_post = engine.stage(flat, T, c0, c1)
+            flat, _, s_pre, s_post = engine.stage(
+                flat, T, c0, c1, gram=first_gram if i == 0 else None,
+                base=base if fused else None, out=out if i == 0 else None)
         elif stage[0] == "vec":
             _, cvec = stage
             flat, _, s_pre, s_post = engine.vec_stage(flat, push_vec, cvec)
@@ -279,6 +303,8 @@ def _apply_round_flat(engine, flat, dcfg, lam_t, state, *, losses, grad_norms,
             flat, _, s_pre, s_post = engine.exact_stage(flat, lam_r)
         pre = s_pre if pre is None else pre
         post = s_post
+    if base is not None and not fused:
+        flat = flat.sub_(snap).add_(base)        # q + (C(s) - s)
 
     if post is None:                        # no consensus stage: metrics only
         pre = torch.mean(engine.dists_to_mean(flat))

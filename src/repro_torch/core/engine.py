@@ -14,10 +14,12 @@ Every consensus method lowers (``core/consensus.py``) to stages
 reference:
 
 * kernel (``use_kernel``): the hand-written CUDA ``fused_round``
-  (block-centered Gram, exact at every scale). It writes the stage into
-  ``flat`` in place — the port's counterpart of buffer donation — so the
-  caller's view is consumed. On CPU tensors the wrapper runs its plain
-  version, as Pallas interpret mode stands in for the TPU kernel.
+  (block-centered Gram, exact at every scale), or ``mix_from_gram`` when
+  the Gram is given. It writes the stage into ``flat`` in place — the
+  port's counterpart of buffer donation — so the caller's view is
+  consumed (``out`` names another buffer). On CPU tensors the wrappers run
+  their plain versions, as Pallas interpret mode stands in for the TPU
+  kernel.
 * fast (default off the card): uncentered Gram + one mixing GEMM, every
   stage distance floored at the Gram's fp32 resolution
   (``GRAM_NOISE_FACTOR``).
@@ -256,17 +258,36 @@ class ConsensusEngine:
         """x <- W @ x (one GEMM over the flat view)."""
         return W.to(torch.float32) @ flat
 
-    def _gap_stage(self, flat, T, c0, c1):
+    def stage_comm(self, chunk, T):
+        """The stage's column contraction over a column chunk
+        ``x[:, a:b]`` of the flat view — the piece the overlap modes
+        dispatch before the round boundary. Matched to ``stage``'s mode:
+        block-centered ``partial_gram`` read in place (kernel), gap Gram
+        (precise), ``f @ f.T`` (fast). Disjoint chunks add up to the
+        full-width contraction's zero-sum forms, so ``sum_j
+        stage_comm(x[:, j], T)`` feeds ``stage(x, T, c0, c1, gram=...)``."""
+        if self.use_kernel:
+            return pk.partial_gram(chunk)
+        f = chunk.to(torch.float32)
+        if self.precise:
+            g = T.to(torch.float32) @ f - f
+            return g @ g.T
+        return f @ f.T
+
+    def _gap_stage(self, flat, T, c0, c1, *, gram=None):
         """Exact (``precise=True``) stage in gap space: ``tx = T x``,
         distances from ``diag((tx - x)(tx - x)^T)``, the uniform apply
         ``tx + (1 - c)(x - tx)``, pre/post metrics as forms over the gap
-        Gram. Requires every worker row of T to share one weight vector."""
+        Gram (``gram``: the summed ``stage_comm`` chunks). Requires every
+        worker row of T to share one weight vector."""
         R, M = self.layout.R, self.layout.M
         eye = self._eye()
         u = self.uniform
         tx = T @ flat
-        g = tx - flat
-        Gg = g @ g.T
+        Gg = gram
+        if Gg is None:
+            g = tx - flat
+            Gg = g @ g.T
         r = torch.sqrt(torch.clamp(torch.diagonal(Gg), min=0.0))
         coef = c0 + c1 / torch.clamp(r, min=self.eps)
         new = tx + (1.0 - coef)[:, None] * (flat - tx)
@@ -276,25 +297,35 @@ class ConsensusEngine:
         post = torch.mean(torch.sqrt(self.sq_forms(Gg, V_post)[:M]))
         return new, r, pre, post
 
-    def stage(self, flat, T, c0, c1, *, gram=None):
+    def stage(self, flat, T, c0, c1, *, gram=None, base=None, out=None):
         """One fused consensus stage.
 
         Per row i: ``r_i = ||x_i - T_i x||``, ``coef_i = c0_i + c1_i /
         max(r_i, eps)``, ``x_i <- x_i + coef_i (T_i x - x_i)``.
         Returns ``(new_flat, r, pre_dist, post_dist)`` — pre/post are the
         mean worker distance to the worker mean before/after the stage.
-        The kernel mode returns ``flat`` itself, updated in place.
+
+        ``gram`` (the summed ``stage_comm`` chunks, mode-matched) skips the
+        column contraction: only the coefficients and the mix run — the
+        round-boundary epilogue of the overlap modes. ``base`` (a fresh
+        view q) returns the stale delta applied to it, ``q + (new -
+        flat)``: in the kernel mode one ``stale_mix`` pass. The kernel
+        mode writes into ``out`` (default ``flat`` itself, in place); the
+        other modes return new tensors.
         """
-        if gram is not None:
-            raise NotImplementedError(
-                "not yet ported: precomputed-Gram stages (overlap modes)")
         R, M = self.layout.R, self.layout.M
         eye = self._eye()
         Vu = eye - self.uniform.expand(R, R)
 
         if self.use_kernel:
-            new, r, G = pk.fused_round(flat, T, c0, c1, eps=self.eps,
-                                       out=flat)
+            out = flat if out is None else out
+            if gram is None:
+                new, r, G = pk.fused_round(flat, T, c0, c1, eps=self.eps,
+                                           out=out, base=base)
+            else:
+                new, r, G = pk.mix_from_gram(flat, T, c0, c1, gram,
+                                             eps=self.eps, out=out,
+                                             base=base)
             coef = c0 + c1 / torch.clamp(r, min=self.eps)
             W = eye + coef[:, None] * (T - eye)
             pre = torch.mean(torch.sqrt(self.sq_forms(G, Vu)[:M]))
@@ -302,17 +333,21 @@ class ConsensusEngine:
             return new, r, pre, post
 
         if self.precise:
-            return self._gap_stage(flat, T, c0, c1)
-
-        G = self.gram(flat)
-        # the floor guards coef only — metrics report the (clamped) forms
-        floor = GRAM_NOISE_FACTOR * _EPS32 * torch.max(torch.diagonal(G))
-        r = torch.sqrt(torch.maximum(self.sq_forms(G, eye - T), floor))
-        coef = c0 + c1 / torch.clamp(r, min=self.eps)
-        W = eye + coef[:, None] * (T - eye)
-        pre = torch.mean(torch.sqrt(self.sq_forms(G, Vu)[:M]))
-        post = torch.mean(torch.sqrt(self.sq_forms(G, Vu @ W)[:M]))
-        return self.mix(flat, W), r, pre, post
+            new, r, pre, post = self._gap_stage(flat, T, c0, c1, gram=gram)
+        else:
+            G = self.gram(flat) if gram is None else gram
+            # the floor guards coef only — metrics report the (clamped)
+            # forms
+            floor = GRAM_NOISE_FACTOR * _EPS32 * torch.max(torch.diagonal(G))
+            r = torch.sqrt(torch.maximum(self.sq_forms(G, eye - T), floor))
+            coef = c0 + c1 / torch.clamp(r, min=self.eps)
+            W = eye + coef[:, None] * (T - eye)
+            pre = torch.mean(torch.sqrt(self.sq_forms(G, Vu)[:M]))
+            post = torch.mean(torch.sqrt(self.sq_forms(G, Vu @ W)[:M]))
+            new = self.mix(flat, W)
+        if base is not None:
+            new = new.sub_(flat).add_(base)      # q + (new - s)
+        return new, r, pre, post
 
     def exact_stage(self, flat, lam_r):
         """Exact two-term push (Appendix E.1): x_m += (lam_r / M)

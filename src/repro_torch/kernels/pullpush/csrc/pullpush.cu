@@ -1,24 +1,38 @@
 // DPPF consensus stage on Hopper (sm_90a): the port of
 // src/repro/kernels/pullpush/pullpush.py::fused_round (_fused_round_kernel),
-// partial_gram (_partial_gram_kernel) and mix_shard (_mix_kernel), and of
-// the per-vector pair the tree path runs, sq_dist (_sq_dist_kernel) and
+// partial_gram (_partial_gram_kernel) and mix_shard (_mix_kernel), of the
+// overlap modes' stale epilogue (the trainer's q + (mix_from_gram(s) - s),
+// src/repro/train/trainer.py:387 and :449, as one pass), and of the
+// per-vector pair the tree path runs, sq_dist (_sq_dist_kernel) and
 // apply_update (_apply_kernel); the last two are described at their code.
 //
 // On a TPU the one pallas_call runs its grid in order, so phase 1 reads the
 // Gram that phase 0 summed in VMEM. Blocks on Hopper do not wait on each
 // other, so the stage is three launches on one stream:
 //
-//   pp_partial_gram  grid-stride over the columns of the row-major (R, n)
-//                    view; every column is centered on its row-0 value
-//                    (e = x - x[0]) and each block writes its own (R, R)
-//                    partial sum of e e^T to a workspace. No float atomics:
-//                    the result is the same from run to run.
+//   pp_partial_gram  grid-stride over the columns of a row-major (R, n)
+//                    view whose rows lie ld floats apart (ld = n for the
+//                    whole view; a column chunk x[:, a:b] of the overlap
+//                    modes is read in place, ld = the view's n); every
+//                    column is centered on its row-0 value (e = x - x[0])
+//                    and each block writes its own (R, R) partial sum of
+//                    e e^T to a workspace. No float atomics: the result is
+//                    the same from run to run.
 //   pp_gram_coef     one block: sums the partials in a fixed order into G,
 //                    then r_i = sqrt(max(G_ii - 2 (T G)_ii + (T G T^T)_ii, 0))
 //                    and coef_i = c0_i + c1_i / max(r_i, eps).
 //   pp_mix           per column: tx = T x, out = tx + (1 - coef)(x - tx).
 //                    A thread reads all R rows of its columns before it
-//                    writes them, so out may be x itself.
+//                    writes them, so out may be x itself. Every operation
+//                    is rounded on its own (__fmul_rn / __fadd_rn, tx
+//                    summed over j = 0..R-1 in order), so the result equals
+//                    ref.py's mix_shard_plain bit for bit.
+//   pp_stale_mix     the same pass with a base operand q:
+//                    out = q + (mix(x) - x), the stale delta of the overlap
+//                    modes applied to the fresh view q in one pass (reads
+//                    x and q, writes out: 3 R n 4 bytes). out may be x or
+//                    q: each thread reads its columns of x and q before it
+//                    writes them.
 //
 // Bound: both passes over the view are memory-bound (the Gram does R/2
 // FMAs per float it reads, the mix R). The design moves each byte once:
@@ -82,7 +96,7 @@ struct Vec<4> {
 template <int RB, int VEC>
 __global__ void __launch_bounds__(kThreads)
 partial_gram_kernel(const float* __restrict__ x, int R, long long n,
-                    float* __restrict__ ws) {
+                    long long ld, float* __restrict__ ws) {
   constexpr int P = Tri<RB>::kPairs;
   __shared__ float sred[kWarps][P];
 
@@ -102,7 +116,7 @@ partial_gram_kernel(const float* __restrict__ x, int R, long long n,
     for (int r = 1; r < RB; ++r) {
       if (r < R) {
         float v[VEC];
-        Vec<VEC>::load(x + (long long)r * n + c, v);
+        Vec<VEC>::load(x + (long long)r * ld + c, v);
 #pragma unroll
         for (int q = 0; q < VEC; ++q) e[r][q] = v[q] - base[q];
       } else {
@@ -200,15 +214,16 @@ gram_coef_kernel(const float* __restrict__ ws, int nblk, int R,
 }
 
 // ---------------------------------------------------------------------------
-// mix: out = T x + (1 - coef)(x - T x), column by column
+// mix: out = T x + (1 - coef)(x - T x), column by column; with kStale,
+// out = base + (that - x)
 // ---------------------------------------------------------------------------
 
-// x and out may be the same buffer: no __restrict__ on either, so every
+// x, base and out may share storage: no __restrict__ on them, so every
 // load of a thread's columns stays ahead of its stores
-template <int RB, int VEC>
+template <int RB, int VEC, bool kStale>
 __global__ void __launch_bounds__(kThreads)
 mix_kernel(const float* x, int R, long long n, const float* __restrict__ T,
-           const float* __restrict__ coef, float* out) {
+           const float* __restrict__ coef, const float* base, float* out) {
   __shared__ float sT[RB * RB];
   __shared__ float soc[RB];
   const int tid = threadIdx.x;
@@ -237,13 +252,19 @@ mix_kernel(const float* x, int R, long long n, const float* __restrict__ T,
 #pragma unroll
     for (int i = 0; i < RB; ++i) {
       if (i < R) {
+        float b[VEC];
+        if (kStale) Vec<VEC>::load(base + (long long)i * n + c, b);
         float o[VEC];
 #pragma unroll
         for (int q = 0; q < VEC; ++q) {
+          // one rounding per operation, in the plain version's order
           float tx = 0.f;
 #pragma unroll
-          for (int j = 0; j < RB; ++j) tx = fmaf(sT[i * RB + j], v[j][q], tx);
-          o[q] = tx + soc[i] * (v[i][q] - tx);
+          for (int j = 0; j < RB; ++j)
+            if (j < R) tx = __fadd_rn(tx, __fmul_rn(sT[i * RB + j], v[j][q]));
+          const float m =
+              __fadd_rn(tx, __fmul_rn(soc[i], __fsub_rn(v[i][q], tx)));
+          o[q] = kStale ? __fadd_rn(b[q], __fsub_rn(m, v[i][q])) : m;
         }
         Vec<VEC>::store(out + (long long)i * n + c, o);
       }
@@ -255,10 +276,36 @@ int row_bucket(int R) {
   return R <= 4 ? 4 : R <= 8 ? 8 : R <= 16 ? 16 : 32;
 }
 
-bool valid_shape(int R, long long n, int vec) {
-  if (R < 1 || R > kMaxRows || n < 1) return false;
-  if (vec == 4) return row_bucket(R) <= 8 && n % 4 == 0;
+bool valid_shape(int R, long long n, long long ld, int vec) {
+  if (R < 1 || R > kMaxRows || n < 1 || ld < n) return false;
+  if (vec == 4) return row_bucket(R) <= 8 && n % 4 == 0 && ld % 4 == 0;
   return vec == 1;
+}
+
+template <bool kStale>
+int launch_mix(const float* x, int R, long long n, const float* T,
+               const float* coef, const float* base, float* out, int nblk,
+               int vec, cudaStream_t s) {
+  const int rb = row_bucket(R);
+  if (vec == 4 && rb == 4)
+    mix_kernel<4, 4, kStale><<<nblk, kThreads, 0, s>>>(x, R, n, T, coef, base,
+                                                       out);
+  else if (vec == 4)
+    mix_kernel<8, 4, kStale><<<nblk, kThreads, 0, s>>>(x, R, n, T, coef, base,
+                                                       out);
+  else if (rb == 4)
+    mix_kernel<4, 1, kStale><<<nblk, kThreads, 0, s>>>(x, R, n, T, coef, base,
+                                                       out);
+  else if (rb == 8)
+    mix_kernel<8, 1, kStale><<<nblk, kThreads, 0, s>>>(x, R, n, T, coef, base,
+                                                       out);
+  else if (rb == 16)
+    mix_kernel<16, 1, kStale><<<nblk, kThreads, 0, s>>>(x, R, n, T, coef,
+                                                        base, out);
+  else
+    mix_kernel<32, 1, kStale><<<nblk, kThreads, 0, s>>>(x, R, n, T, coef,
+                                                        base, out);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -470,25 +517,26 @@ struct ApplyLaunch {
 
 extern "C" {
 
-// ws: (nblk, R, R) fp32 workspace, one partial Gram per block
-int pp_partial_gram(const float* x, int R, long long n, float* ws, int nblk,
-                    int vec, void* stream) {
-  if (!valid_shape(R, n, vec) || nblk < 1)
+// ws: (nblk, R, R) fp32 workspace, one partial Gram per block; the rows of
+// x lie ld floats apart (ld >= n)
+int pp_partial_gram(const float* x, int R, long long n, long long ld,
+                    float* ws, int nblk, int vec, void* stream) {
+  if (!valid_shape(R, n, ld, vec) || nblk < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rb = row_bucket(R);
   if (vec == 4 && rb == 4)
-    partial_gram_kernel<4, 4><<<nblk, kThreads, 0, s>>>(x, R, n, ws);
+    partial_gram_kernel<4, 4><<<nblk, kThreads, 0, s>>>(x, R, n, ld, ws);
   else if (vec == 4)
-    partial_gram_kernel<8, 4><<<nblk, kThreads, 0, s>>>(x, R, n, ws);
+    partial_gram_kernel<8, 4><<<nblk, kThreads, 0, s>>>(x, R, n, ld, ws);
   else if (rb == 4)
-    partial_gram_kernel<4, 1><<<nblk, kThreads, 0, s>>>(x, R, n, ws);
+    partial_gram_kernel<4, 1><<<nblk, kThreads, 0, s>>>(x, R, n, ld, ws);
   else if (rb == 8)
-    partial_gram_kernel<8, 1><<<nblk, kThreads, 0, s>>>(x, R, n, ws);
+    partial_gram_kernel<8, 1><<<nblk, kThreads, 0, s>>>(x, R, n, ld, ws);
   else if (rb == 16)
-    partial_gram_kernel<16, 1><<<nblk, kThreads, 0, s>>>(x, R, n, ws);
+    partial_gram_kernel<16, 1><<<nblk, kThreads, 0, s>>>(x, R, n, ld, ws);
   else
-    partial_gram_kernel<32, 1><<<nblk, kThreads, 0, s>>>(x, R, n, ws);
+    partial_gram_kernel<32, 1><<<nblk, kThreads, 0, s>>>(x, R, n, ld, ws);
   return (int)cudaGetLastError();
 }
 
@@ -505,23 +553,20 @@ int pp_gram_coef(const float* ws, int nblk, int R, const float* T,
 
 int pp_mix(const float* x, int R, long long n, const float* T,
            const float* coef, float* out, int nblk, int vec, void* stream) {
-  if (!valid_shape(R, n, vec) || nblk < 1)
+  if (!valid_shape(R, n, n, vec) || nblk < 1)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rb = row_bucket(R);
-  if (vec == 4 && rb == 4)
-    mix_kernel<4, 4><<<nblk, kThreads, 0, s>>>(x, R, n, T, coef, out);
-  else if (vec == 4)
-    mix_kernel<8, 4><<<nblk, kThreads, 0, s>>>(x, R, n, T, coef, out);
-  else if (rb == 4)
-    mix_kernel<4, 1><<<nblk, kThreads, 0, s>>>(x, R, n, T, coef, out);
-  else if (rb == 8)
-    mix_kernel<8, 1><<<nblk, kThreads, 0, s>>>(x, R, n, T, coef, out);
-  else if (rb == 16)
-    mix_kernel<16, 1><<<nblk, kThreads, 0, s>>>(x, R, n, T, coef, out);
-  else
-    mix_kernel<32, 1><<<nblk, kThreads, 0, s>>>(x, R, n, T, coef, out);
-  return (int)cudaGetLastError();
+  return launch_mix<false>(x, R, n, T, coef, nullptr, out, nblk, vec,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// out = base + (mix(x) - x); x, base and out are (R, n) row-major
+int pp_stale_mix(const float* x, int R, long long n, const float* T,
+                 const float* coef, const float* base, float* out, int nblk,
+                 int vec, void* stream) {
+  if (!valid_shape(R, n, n, vec) || nblk < 1 || base == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch_mix<true>(x, R, n, T, coef, base, out, nblk, vec,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // partials: (nblk,) fp32 scratch; out: one fp32. vec8 needs x and a

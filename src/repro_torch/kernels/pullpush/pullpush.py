@@ -8,10 +8,19 @@ Replaces ``src/repro/kernels/pullpush/pullpush.py``:
   ``mix_shard`` — because Hopper blocks cannot wait on each other the way
   TPU grid steps run in order (``csrc/pullpush.cu`` says how).
 * ``partial_gram`` ← ``partial_gram`` (``_partial_gram_kernel``):
-  block-centered Gram of a column shard. Bound: memory, R·n·4 bytes read.
+  block-centered Gram of a column shard, or of a column chunk
+  ``x[:, a:b]`` read in place (its rows lie ``x.stride(0)`` floats apart).
+  Bound: memory, R·n·4 bytes read.
 * ``mix_shard`` ← ``mix_shard`` (``_mix_kernel``): the uniform gap-form
   mix with given coefficients. Bound: memory, 2·R·n·4 bytes (read +
   write).
+* ``mix_from_gram`` ← ``mix_from_gram``: a stage whose Gram is given (the
+  summed ``partial_gram`` chunks of the overlap modes): ``gram_coef`` on
+  the Gram as a one-block workspace, then one ``mix_shard`` launch — or,
+  with ``base``, one ``stale_mix`` launch.
+* ``stale_mix``: the overlap modes' stale epilogue ``q + (mix(s) − s)``
+  (``src/repro/train/trainer.py:387, :449``, three (R, n) passes there)
+  as one pass. Bound: memory, 3·R·n·4 bytes (s and q read, out written).
 * ``sq_dist`` ← ``sq_dist`` (``_sq_dist_kernel``): ``Σ (x − a)²`` of two
   (n,) vectors, fp32 accumulation, in a fixed order (two launches: block
   partials into a scratch buffer, then one block adds them). Bound:
@@ -35,8 +44,9 @@ For tensors on the CPU it runs the plain version from ``ref.py``; for a
 CUDA tensor it launches the kernel or raises — there is no fallback. The
 shared library is built from ``csrc/pullpush.cu`` with ``nvcc`` on first
 CUDA use (``build()``, through ``kernels/_build.py``), never at import.
-``LAUNCHES`` counts kernel launches per kernel; ``fused_round`` and
-``sq_dist`` count their calls (each is more than one launch).
+``LAUNCHES`` counts kernel launches per kernel; ``fused_round``,
+``mix_from_gram`` and ``sq_dist`` count their calls (each is more than
+one launch).
 """
 from __future__ import annotations
 
@@ -47,8 +57,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.pullpush.ref import (
-    apply_plain, fused_round_plain, gram_coef_plain, mix_shard_plain,
-    partial_gram_plain, sq_dist_plain,
+    apply_plain, fused_round_plain, gram_coef_plain, mix_from_gram_plain,
+    mix_shard_plain, partial_gram_plain, sq_dist_plain, stale_mix_plain,
 )
 
 MAX_ROWS = 32          # the kernels keep one column of every row in registers
@@ -60,19 +70,21 @@ GROUP = 8              # kGroup: elements a thread step of the vector kernels
 PAIR_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = {"fused_round": 0, "partial_gram": 0, "gram_coef": 0,
-            "mix_shard": 0, "sq_dist": 0, "apply_update": 0}
+            "mix_shard": 0, "mix_from_gram": 0, "stale_mix": 0,
+            "sq_dist": 0, "apply_update": 0}
 
 
 def _bind(lib):
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.pp_partial_gram.argtypes = [vp, i32, i64, vp, i32, i32, vp]
+    lib.pp_partial_gram.argtypes = [vp, i32, i64, i64, vp, i32, i32, vp]
     lib.pp_gram_coef.argtypes = [vp, i32, i32, vp, vp, vp, ctypes.c_float,
                                  vp, vp, vp, vp]
     lib.pp_mix.argtypes = [vp, i32, i64, vp, vp, vp, i32, i32, vp]
+    lib.pp_stale_mix.argtypes = [vp, i32, i64, vp, vp, vp, vp, i32, i32, vp]
     lib.pp_sq_dist.argtypes = [vp, i32, vp, i32, i64, vp, i32, i32, vp, vp]
     lib.pp_apply.argtypes = [vp, i32, vp, i32, vp, vp, i64, i32, i32, vp]
     for fn in (lib.pp_partial_gram, lib.pp_gram_coef, lib.pp_mix,
-               lib.pp_sq_dist, lib.pp_apply):
+               lib.pp_stale_mix, lib.pp_sq_dist, lib.pp_apply):
         fn.restype = i32
     lib.pp_error_string.argtypes = [i32]
     lib.pp_error_string.restype = ctypes.c_char_p
@@ -99,12 +111,19 @@ def build():
 # argument checks (both devices) and launch plumbing (CUDA)
 # ---------------------------------------------------------------------------
 
-def _check_flat(flat, name="flat"):
+def _check_flat(flat, name="flat", *, strided=False):
+    """``strided``: a column chunk ``x[:, a:b]`` of a row-major view is
+    taken in place (unit column stride, rows ``flat.stride(0)`` apart)."""
     if not isinstance(flat, torch.Tensor) or flat.dim() != 2:
         raise ValueError(f"{name} must be a 2-D (R, n) tensor")
     if flat.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {flat.dtype}")
-    if not flat.is_contiguous():
+    if strided:
+        if flat.stride(1) != 1 or (flat.shape[0] > 1
+                                   and flat.stride(0) < flat.shape[1]):
+            raise ValueError(f"{name} must be row-major with unit column "
+                             "stride (a column chunk of an (R, n) view)")
+    elif not flat.is_contiguous():
         raise ValueError(f"{name} must be contiguous (row-major (R, n))")
     R, n = flat.shape
     if not 1 <= R <= MAX_ROWS:
@@ -128,28 +147,43 @@ def _small(v, shape, flat):
     return t.contiguous()
 
 
-def _check_out(out, flat):
+def _aliased(a, b):
+    """``a`` shares ``b``'s storage without being ``b`` itself: a shifted
+    view, whose rows a thread would write before others read them."""
+    return a.data_ptr() != b.data_ptr() and \
+        a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+
+
+def _check_out(out, flat, base=None):
+    """``out`` may be ``flat`` (or the stale epilogue's ``base``) itself,
+    or lie in another buffer."""
     if out is None:
         return torch.empty_like(flat)
     if out.shape != flat.shape or out.dtype != torch.float32 \
             or out.device != flat.device or not out.is_contiguous():
         raise ValueError("out must be a contiguous float32 tensor of the "
                          "same shape and device as flat")
-    if out.data_ptr() != flat.data_ptr() and \
-            out.untyped_storage().data_ptr() == \
-            flat.untyped_storage().data_ptr():
-        # a column's rows would be written before other threads read them
+    if _aliased(out, flat) or (base is not None and _aliased(out, base)):
         raise ValueError("out must be flat itself or lie in another buffer")
     return out
 
 
-def _vec(*tensors):
-    """float4 loads need 16-byte aligned rows: n % 4 == 0 and aligned
-    base pointers; the 16- and 32-row buckets load one float per row."""
+def _ld(t):
+    return t.stride(0) if t.shape[0] > 1 else t.shape[1]
+
+
+def _vec(*tensors, want=None):
+    """float4 loads need 16-byte aligned rows: n and the row stride
+    multiples of 4 and aligned base pointers; the 16- and 32-row buckets
+    load one float per row. ``want=4`` asks for float4 and raises where
+    the tensors do not allow it (before any build or launch)."""
     R, n = tensors[0].shape
-    ok = R <= 8 and n % 4 == 0 and all(t.data_ptr() % 16 == 0
-                                       for t in tensors)
-    return 4 if ok else 1
+    ok = R <= 8 and n % 4 == 0 and all(
+        _ld(t) % 4 == 0 and t.data_ptr() % 16 == 0 for t in tensors)
+    if want == 4 and not ok:
+        raise ValueError("float4 loads need R <= 8, n and the row stride "
+                         "multiples of 4 and 16-byte aligned rows")
+    return want or (4 if ok else 1)
 
 
 _SM_COUNT = {}
@@ -173,7 +207,7 @@ def _grid(flat, vec):
 def workspace_blocks(flat):
     """Number of partial Grams the first launch of ``fused_round`` writes
     for this CUDA tensor (the leading dim of ``gram_coef``'s input)."""
-    _check_flat(flat)
+    _check_flat(flat, strided=True)
     return _grid(flat, _vec(flat))
 
 
@@ -184,16 +218,15 @@ def _raise_if(code, what):
     _build.raise_if(build(), code, what)
 
 
-def _launch_partial_gram(flat):
+def _launch_partial_gram(flat, vec):
     """partial-Gram kernel -> (nblk, R, R) workspace of block partials."""
     lib = build()
     R, n = flat.shape
-    vec = _vec(flat)
     nblk = _grid(flat, vec)
     ws = torch.empty((nblk, R, R), dtype=torch.float32, device=flat.device)
     LAUNCHES["partial_gram"] += 1
-    _raise_if(lib.pp_partial_gram(_ptr(flat), R, n, _ptr(ws), nblk, vec,
-                                  _stream(flat)), "partial_gram")
+    _raise_if(lib.pp_partial_gram(_ptr(flat), R, n, _ld(flat), _ptr(ws),
+                                  nblk, vec, _stream(flat)), "partial_gram")
     return ws
 
 
@@ -213,14 +246,22 @@ def _launch_gram_coef(ws, T=None, c0=None, c1=None, eps=1e-12):
     return G, r, coef
 
 
-def _launch_mix(flat, T, coef, out):
+def _launch_mix(flat, T, coef, out, base=None):
+    """``mix_shard``'s kernel, or with ``base`` the stale epilogue's."""
     lib = build()
     R, n = flat.shape
-    vec = _vec(flat, out)
+    vec = _vec(*(t for t in (flat, out, base) if t is not None))
     nblk = _grid(flat, vec)
-    LAUNCHES["mix_shard"] += 1
-    _raise_if(lib.pp_mix(_ptr(flat), R, n, _ptr(T), _ptr(coef), _ptr(out),
-                         nblk, vec, _stream(flat)), "mix_shard")
+    if base is None:
+        LAUNCHES["mix_shard"] += 1
+        _raise_if(lib.pp_mix(_ptr(flat), R, n, _ptr(T), _ptr(coef),
+                             _ptr(out), nblk, vec, _stream(flat)),
+                  "mix_shard")
+    else:
+        LAUNCHES["stale_mix"] += 1
+        _raise_if(lib.pp_stale_mix(_ptr(flat), R, n, _ptr(T), _ptr(coef),
+                                   _ptr(base), _ptr(out), nblk, vec,
+                                   _stream(flat)), "stale_mix")
     return out
 
 
@@ -228,40 +269,65 @@ def _launch_mix(flat, T, coef, out):
 # public wrappers (the reference's signatures, minus the TPU block knobs)
 # ---------------------------------------------------------------------------
 
-def fused_round(flat, T, c0, c1, eps=1e-12, out=None):
+def _check_base(base, flat):
+    """The stale epilogue's fresh view: flat's shape, contiguous fp32 on
+    flat's device, in another buffer."""
+    if base is None:
+        return None
+    if not isinstance(base, torch.Tensor) or base.shape != flat.shape \
+            or base.dtype != torch.float32 or base.device != flat.device \
+            or not base.is_contiguous():
+        raise ValueError("base must be a contiguous float32 tensor of the "
+                         "same shape and device as flat")
+    if _aliased(base, flat):
+        raise ValueError("base must lie in another buffer than flat")
+    return base
+
+
+def fused_round(flat, T, c0, c1, eps=1e-12, out=None, base=None):
     """One consensus stage over the flat (R, n) worker matrix.
 
     Per row i: ``r_i = ||x_i - T_i x||``, ``coef_i = c0_i + c1_i /
     max(r_i, eps)``, ``out_i = T_i x + (1 - coef_i)(x_i - T_i x)``.
     ``T`` must be row-stochastic. ``out`` may be ``flat`` (in place).
-    Returns ``(out, r, G)``; G is the block-centered Gram, so only its
-    zero-sum quadratic forms mean anything.
+    With ``base`` (a fresh (R, n) view q) the last launch is the stale
+    epilogue: ``out = q + (mix(flat) - flat)``; ``out`` may then be
+    ``flat`` or ``base``. Returns ``(out, r, G)``; G is the block-centered
+    Gram, so only its zero-sum quadratic forms mean anything.
     """
     _check_flat(flat)
     R = flat.shape[0]
     T = _small(T, (R, R), flat)
     c0 = _small(c0, (R,), flat)
     c1 = _small(c1, (R,), flat)
-    out = _check_out(out, flat)
+    base = _check_base(base, flat)
+    out = _check_out(out, flat, base)
     if flat.device.type == "cpu":
-        return fused_round_plain(flat, T, c0, c1, eps, out=out)
+        if base is None:
+            return fused_round_plain(flat, T, c0, c1, eps, out=out)
+        G = partial_gram_plain(flat)
+        return mix_from_gram_plain(flat, T, c0, c1, G, eps, out=out,
+                                   base=base)
     LAUNCHES["fused_round"] += 1
     with torch.cuda.device(flat.device):
-        ws = _launch_partial_gram(flat)
+        ws = _launch_partial_gram(flat, _vec(flat))
         G, r, coef = _launch_gram_coef(ws, T, c0, c1, eps)
-        _launch_mix(flat, T, coef, out)
+        _launch_mix(flat, T, coef, out, base)
     return out, r, G
 
 
-def partial_gram(flat):
-    """Block-centered Gram of a (R, n_local) column shard; the partial
-    Grams of disjoint shards add up to a Gram with the same zero-sum
-    forms as the full-width one."""
-    _check_flat(flat)
+def partial_gram(flat, *, vec=None):
+    """Block-centered Gram of a (R, n_local) column shard, or of a column
+    chunk ``x[:, a:b]`` of a row-major view, read in place. The partial
+    Grams of disjoint chunks add up to a Gram with the same zero-sum
+    forms as the full-width one. ``vec=4`` insists on 16-byte loads and
+    raises where the chunk's alignment does not allow them."""
+    _check_flat(flat, strided=True)
+    vec = _vec(flat, want=vec)
     if flat.device.type == "cpu":
         return partial_gram_plain(flat)
     with torch.cuda.device(flat.device):
-        G, _, _ = _launch_gram_coef(_launch_partial_gram(flat))
+        G, _, _ = _launch_gram_coef(_launch_partial_gram(flat, vec))
     return G
 
 
@@ -296,6 +362,52 @@ def mix_shard(flat, T, coef, out=None):
         return mix_shard_plain(flat, T, coef, out=out)
     with torch.cuda.device(flat.device):
         return _launch_mix(flat, T, coef, out)
+
+
+def stale_mix(flat, T, coef, base, out=None):
+    """The overlap modes' stale epilogue in one pass: ``out = base +
+    (mix_shard(flat) - flat)`` — the consensus delta of the snapshot
+    ``flat`` applied to the fresh view ``base`` (q), with every operation
+    rounded as ``ref.py::stale_mix_plain`` does. ``out`` may be ``flat``
+    or ``base`` (in place)."""
+    _check_flat(flat)
+    R = flat.shape[0]
+    T = _small(T, (R, R), flat)
+    coef = _small(coef, (R,), flat)
+    base = _check_base(base, flat)
+    if base is None:
+        raise ValueError("stale_mix needs a base view")
+    out = _check_out(out, flat, base)
+    if flat.device.type == "cpu":
+        return stale_mix_plain(flat, T, coef, base, out=out)
+    with torch.cuda.device(flat.device):
+        return _launch_mix(flat, T, coef, out, base)
+
+
+def mix_from_gram(flat, T, c0, c1, G, eps=1e-12, out=None, base=None):
+    """A consensus stage whose column contraction already happened: ``G``
+    is a completed block-centered (or plain) Gram, e.g. the sum of
+    per-chunk ``partial_gram`` calls. ``gram_coef`` takes G as a one-block
+    workspace for ``r`` and ``coef``; then one ``mix_shard`` launch, or
+    with ``base`` one ``stale_mix`` launch (``out = base + (mix(flat) -
+    flat)``). ``out`` defaults to a new buffer and may be ``flat`` (or
+    ``base``). Returns ``(out, r, G)`` like ``fused_round``."""
+    _check_flat(flat)
+    R = flat.shape[0]
+    G = _small(G, (R, R), flat)
+    T = _small(T, (R, R), flat)
+    c0 = _small(c0, (R,), flat)
+    c1 = _small(c1, (R,), flat)
+    base = _check_base(base, flat)
+    out = _check_out(out, flat, base)
+    if flat.device.type == "cpu":
+        return mix_from_gram_plain(flat, T, c0, c1, G, eps, out=out,
+                                   base=base)
+    LAUNCHES["mix_from_gram"] += 1
+    with torch.cuda.device(flat.device):
+        _, r, coef = _launch_gram_coef(G[None], T, c0, c1, eps)
+        _launch_mix(flat, T, coef, out, base)
+    return out, r, G
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,14 @@ holds each kernel against. They mirror the phases of the reference
 * ``gram_coef_plain`` — ``r_i = ||x_i - T_i x||`` from the zero-sum form
   ``(e_i - T_i)^T G (e_i - T_i)`` and ``coef = c0 + c1 / max(r, eps)``;
 * ``mix_shard_plain`` — the uniform gap form ``tx + (1 - c)(x - tx)``,
-  exact at c = 1 and for huge |c|.
+  exact at c = 1 and for huge |c|; ``tx = T x`` summed over the rows in
+  order, every product and sum rounded on its own, as the kernel does, so
+  the two agree bit for bit on the card;
+* ``stale_mix_plain`` — the overlap modes' stale epilogue ``q + (mix(s)
+  - s)`` (``src/repro/train/trainer.py:387``), in the same rounding;
+* ``mix_from_gram_plain`` — a stage from a given Gram
+  (``pullpush.py::mix_from_gram``): ``gram_coef_plain``, then the mix or
+  the stale epilogue.
 
 and the tree path's pair, twins of the reference's ``ref.py::sq_dist_ref``
 and ``apply_ref``:
@@ -57,6 +64,15 @@ def gram_coef_plain(G, T, c0, c1, eps=1e-12):
     return r, c0 + c1 / torch.clamp(r, min=eps)
 
 
+def _mix_chunk(x, T, oc):
+    """``tx + oc (x - tx)`` with ``tx = sum_j T[:, j] x_j`` in j order,
+    one rounding per operation (the kernel's ``__fmul_rn``/``__fadd_rn``)."""
+    tx = torch.zeros_like(x)
+    for j in range(x.shape[0]):
+        tx = tx + T[:, j:j + 1] * x[j:j + 1]
+    return tx + oc * (x - tx)
+
+
 def mix_shard_plain(flat, T, coef, out=None):
     """``out_i = T_i x + (1 - coef_i)(x_i - T_i x)`` per column. ``out``
     may be ``flat`` itself: each chunk is read in full before it is
@@ -66,10 +82,32 @@ def mix_shard_plain(flat, T, coef, out=None):
         out = torch.empty_like(flat)
     oc = (1.0 - coef)[:, None]
     for a in range(0, n, PLAIN_CHUNK):
-        x = flat[:, a:a + PLAIN_CHUNK]
-        tx = T @ x
-        out[:, a:a + PLAIN_CHUNK] = tx + oc * (x - tx)
+        out[:, a:a + PLAIN_CHUNK] = _mix_chunk(flat[:, a:a + PLAIN_CHUNK],
+                                               T, oc)
     return out
+
+
+def stale_mix_plain(flat, T, coef, base, out=None):
+    """``out = base + (mix_shard_plain(flat) - flat)``, chunk by chunk;
+    ``out`` may be ``flat`` or ``base``."""
+    R, n = flat.shape
+    if out is None:
+        out = torch.empty_like(flat)
+    oc = (1.0 - coef)[:, None]
+    for a in range(0, n, PLAIN_CHUNK):
+        x = flat[:, a:a + PLAIN_CHUNK]
+        m = _mix_chunk(x, T, oc)
+        out[:, a:a + PLAIN_CHUNK] = base[:, a:a + PLAIN_CHUNK] + (m - x)
+    return out
+
+
+def mix_from_gram_plain(flat, T, c0, c1, G, eps=1e-12, out=None, base=None):
+    """A stage from a given Gram: returns ``(out, r, G)``; with ``base``
+    the output is the stale epilogue's."""
+    r, coef = gram_coef_plain(G, T, c0, c1, eps)
+    if base is None:
+        return mix_shard_plain(flat, T, coef, out=out), r, G
+    return stale_mix_plain(flat, T, coef, base, out=out), r, G
 
 
 def fused_round_plain(flat, T, c0, c1, eps=1e-12, out=None):

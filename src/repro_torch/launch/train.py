@@ -1,19 +1,24 @@
 """Training launcher: single-device DPPF rounds (or DDP) on any dense LM
 config.
 
-Counterpart of ``repro/launch/train.py`` with ``--overlap none``, on the
-flat engine (the default here, as in the reference's launcher) and the
-tree engine (``--engine tree``); ``--method ddp`` runs the per-step DDP
-baseline. Runs on the card (``device="cuda"``) unless the caller passes
-``device="cpu"``, as the tests do; it never falls back to the CPU.
+Counterpart of ``repro/launch/train.py`` on one device, on the flat
+engine (the default here, as in the reference's launcher) and the tree
+engine (``--engine tree``); ``--method ddp`` runs the per-step DDP
+baseline; ``--overlap staleness1|doublebuf|staleness_k`` (with
+``--overlap-chunks``, ``--staleness``, ``--elastic``,
+``--elastic-catchup``) runs the overlapped rounds on the flat engine;
+``--log-every-round PATH`` writes one JSON line a round. Runs on the card
+(``device="cuda"``) unless the caller passes ``device="cpu"``, as the
+tests do; it never falls back to the CPU.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \
       --workers 4 --tau 4 --alpha 0.1 --lam 0.5 --steps 16 --seq 16 --batch 2
 
 The round loop is the plain ``for spec in clock.rounds`` — the reference's
 supervisor with no membership and no chaos plan, bit for bit. The sharded
-and overlapped rounds, the supervisor, autotune and checkpoints are not
-ported yet: their flags exit with "not yet ported".
+rounds, the supervisor (``--elastic-drop``, ``--quorum``, ``--chaos``),
+autotune and checkpoints are not ported yet: their flags exit with "not
+yet ported".
 """
 from __future__ import annotations
 
@@ -30,8 +35,8 @@ from repro_torch.kernels.pullpush import LAUNCHES
 from repro_torch.models import build_model
 from repro_torch.optim import make_optimizer
 from repro_torch.train import (
-    RoundClock, TrainState, average_params, init_train_state, make_ddp_step,
-    make_round_step,
+    RoundClock, RoundMetricsLogger, TrainState, average_params,
+    init_train_state, make_ddp_step, make_round_step,
 )
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -84,14 +89,43 @@ def _parser():
     ap.add_argument("--warmup", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=5)
-    # reference flags whose paths are not ported yet
     ap.add_argument("--overlap", default="none",
                     choices=["none", "staleness1", "doublebuf",
-                             "staleness_k"])
+                             "staleness_k"],
+                    help="staleness1 = apply the consensus of the previous "
+                         "round's snapshot; doublebuf = its column "
+                         "contraction in chunks before the local steps, "
+                         "coefficients + one mixing pass at the boundary; "
+                         "staleness_k = a k-deep snapshot ring (--staleness)"
+                         " (flat engine only)")
+    ap.add_argument("--overlap-chunks", type=int, default=4,
+                    help="doublebuf/staleness_k: column chunks of the "
+                         "snapshot's contraction")
+    ap.add_argument("--staleness", type=int, default=1,
+                    help="staleness_k: ring depth k; rounds 0..k-1 are "
+                         "exact-consensus fill")
+    ap.add_argument("--elastic", action="store_true",
+                    help="staleness_k: bounded-async elastic rounds (a row "
+                         "may sit out up to k rounds, then rejoins with a "
+                         "catch-up pull)")
+    ap.add_argument("--elastic-catchup", type=float, default=0.5,
+                    help="elastic: fraction of the gap to the active-row "
+                         "mean a rejoining row closes")
+    ap.add_argument("--log-every-round", default="", metavar="PATH",
+                    help="write one JSON line of the round metrics "
+                         "(consensus_dist/pull_force/push_force/staleness, "
+                         "plus the clock position) per round to PATH (the "
+                         "ddp branch logs per step)")
+    ap.add_argument("--legacy-metrics", action="store_true",
+                    help="also write the boolean 'stale' next to "
+                         "'staleness' in --log-every-round records")
+    # reference flags whose paths are not ported yet
     for flag in ("--sharded", "--autotune"):
         ap.add_argument(flag, action="store_true", help=NOT_PORTED)
-    for flag in ("--mesh", "--chaos", "--tune-plan", "--ckpt"):
+    for flag in ("--mesh", "--chaos", "--tune-plan", "--ckpt",
+                 "--elastic-drop"):
         ap.add_argument(flag, default="", help=NOT_PORTED)
+    ap.add_argument("--quorum", type=int, default=0, help=NOT_PORTED)
     return ap
 
 
@@ -99,8 +133,9 @@ def main(argv=None, *, device="cuda"):
     ap = _parser()
     args = ap.parse_args(argv)
     for flag, used in (("--sharded", args.sharded), ("--mesh", args.mesh),
-                       ("--overlap " + args.overlap, args.overlap != "none"),
                        ("--chaos", args.chaos),
+                       ("--elastic-drop", args.elastic_drop),
+                       ("--quorum", args.quorum),
                        ("--autotune", args.autotune),
                        ("--tune-plan", args.tune_plan), ("--ckpt", args.ckpt)):
         if used:
@@ -129,12 +164,19 @@ def main(argv=None, *, device="cuda"):
     task = TokenTask(vocab_size=cfg.vocab_size, seq_len=args.seq)
     dcfg = DPPFConfig(alpha=args.alpha, lam=args.lam, tau=args.tau,
                       consensus=args.consensus, engine=args.engine,
+                      overlap=args.overlap,
+                      overlap_chunks=args.overlap_chunks,
+                      staleness=args.staleness, elastic=args.elastic,
+                      elastic_catchup=args.elastic_catchup,
                       lam_schedule=args.lam_schedule,
                       tau_schedule=args.tau_schedule, qsr_beta=args.qsr_beta)
     opt = make_optimizer(args.optimizer, momentum=0.9, weight_decay=1e-3)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     clock = RoundClock.from_config(dcfg, base_lr=args.lr,
                                    total_steps=args.steps, warmup=args.warmup)
+    logger = RoundMetricsLogger(args.log_every_round,
+                                legacy=args.legacy_metrics) \
+        if args.log_every_round else None
 
     t0 = time.time()
     launches0 = dict(LAUNCHES)
@@ -148,6 +190,8 @@ def main(argv=None, *, device="cuda"):
                                 device=device) for m in range(args.workers)]
             batch = {k: torch.stack([b[k] for b in bs]) for k in bs[0]}
             state, m = step(state, batch)
+            if logger is not None:   # ddp: per step on the tau=1 clock
+                logger(s, m)
             if s % (args.log_every * args.tau) == 0:
                 print(f"step {s:5d} loss {float(m['train_loss']):.4f}")
         final = state.params
@@ -167,6 +211,8 @@ def main(argv=None, *, device="cuda"):
                       f"loss {float(m['train_loss']):.4f} "
                       f"consensus_dist {float(m['consensus_dist']):.3f} "
                       f"lam_t {float(m['lam_t']):.3f}")
+            if logger is not None:
+                logger(spec, m)
         print(f"comm rounds {clock.total_rounds} "
               f"(fixed tau={args.tau} would take {clock.fixed_rounds}; "
               f"all-reduces saved {clock.fixed_rounds - clock.total_rounds})"
@@ -180,6 +226,9 @@ def main(argv=None, *, device="cuda"):
                                args.batch * args.workers, cfg, device=device)
     with torch.no_grad():
         loss, _ = model.loss(final, eval_batch)
+    if logger is not None:
+        logger.close()
+        print(f"round metrics -> {args.log_every_round}")
     print(f"eval loss {float(loss):.4f}  wall {time.time() - t0:.1f}s")
     return float(loss)
 

@@ -15,10 +15,13 @@ cosine LR at the round's first step) — and owns the schedule reads:
 PyTorch runs eagerly, so all three return python floats. ``describe()``
 and ``plan_table()`` render the plan (the reference's dry-run report and
 committed round-clock baseline), string for string as the reference does.
+``RoundMetricsLogger`` writes the reference's per-round JSONL record.
 """
 from __future__ import annotations
 
+import json
 import math
+import os
 from dataclasses import dataclass
 from functools import cached_property
 from typing import Tuple
@@ -325,3 +328,55 @@ class RoundClock:
                         f"{r['lam']:.4f} | {r['lr_start']:.4f} -> "
                         f"{r['lr_end']:.4f} | {r['staleness']} |")
         return "\n".join(head)
+
+
+class RoundMetricsLogger:
+    """Per-round metrics hook: one JSON line per communication round, as
+    the reference's ``RoundMetricsLogger`` writes it.
+
+    Called with the round's ``RoundSpec`` (or, for the per-step DDP
+    loop, a plain step index) and the unified round-metrics dict every
+    round step emits (``consensus_dist`` / ``pre_dist`` /
+    ``pull_force`` / ``push_force`` / ``train_loss`` / ``lam_t`` /
+    ``staleness``). Each line carries the clock position (round, global
+    start step, tau) and the metrics as floats; ``staleness`` is the depth
+    of the consensus the round applied (0 = exact). A legacy boolean
+    ``stale`` key is read as ``staleness``; ``legacy=True`` writes the
+    boolean next to it. ``launch/train.py --log-every-round PATH`` wires
+    it (``--legacy-metrics`` for the boolean).
+    """
+
+    def __init__(self, path: str, *, legacy: bool = False):
+        self.path = path
+        self.legacy = legacy
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        self._fh = open(path, "w")
+
+    def __call__(self, spec, metrics: dict):
+        if isinstance(spec, RoundSpec):
+            row = {"round": spec.index, "start": spec.start, "tau": spec.tau}
+        else:   # the per-step DDP loop: a bare global step index
+            row = {"round": int(spec), "start": int(spec), "tau": 1}
+        for k, v in metrics.items():
+            if k == "stale":
+                if "staleness" in metrics:
+                    continue
+                k = "staleness"
+            try:
+                row[k] = float(v)
+            except (TypeError, ValueError):
+                row[k] = str(v)
+        if self.legacy and "staleness" in row:
+            row["stale"] = bool(row["staleness"] > 0)
+        self._fh.write(json.dumps(row) + "\n")
+        self._fh.flush()
+        return row
+
+    def close(self):
+        self._fh.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

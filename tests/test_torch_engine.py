@@ -185,19 +185,39 @@ def test_kernel_mode_is_in_place_and_default_off_the_card():
     assert not default.use_kernel and default.device == "cpu"
 
 
-def test_tree_path_is_not_ported():
-    """What stays unported beside the tree path is the overlap modes'
-    precomputed Gram (``first_gram``); the tree path itself runs, and
-    ``tests/test_torch_tree.py`` holds it against the reference."""
+@pytest.mark.parametrize("mode", MODES)
+def test_first_gram_runs_on_the_flat_engine_and_refuses_the_tree_path(mode):
+    """The overlap modes' precomputed Gram (``first_gram``, the summed
+    ``stage_comm`` chunks) runs on the flat engine: one chunk gives the
+    un-overlapped round bit for bit, and the round matches the reference's
+    ``apply_round(first_gram=...)``. The tree path runs without it
+    (``tests/test_torch_tree.py`` holds it against the reference) and
+    refuses it with a ValueError, as the reference does."""
     stacked = {k: torch.from_numpy(v) for k, v in _stacked().items()}
     _, m = consensus.apply_round(stacked, DPPFConfig(), 0.1, {})[1:]
     assert set(m) == {"consensus_dist", "pre_dist", "pull_force",
                       "push_force"}
-    _, p = _engines(_stacked(), "fast")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        consensus.apply_round(p.flatten(stacked), DPPFConfig(engine="flat"),
-                              0.1, {}, engine=p,
+    with pytest.raises(ValueError, match="flat engine"):
+        consensus.apply_round(stacked, DPPFConfig(), 0.1, {},
                               first_gram=torch.zeros((4, 4)))
+    j, p = _engines(_stacked(), mode)
+    dcfg, jd = DPPFConfig(engine="flat"), JDPPFConfig(engine="flat")
+    flat = p.flatten(stacked)
+    T = consensus.lower_stages(p, dcfg, 0.1)[0][0][1]
+    G = p.stage_comm(flat, T)
+    want, _, wm = consensus.apply_round(flat.clone(), dcfg, 0.1, {},
+                                        engine=p)
+    got, _, gm = consensus.apply_round(flat.clone(), dcfg, 0.1, {},
+                                       engine=p, first_gram=G)
+    assert torch.equal(got, want)
+    assert all(torch.equal(gm[k], wm[k]) for k in wm)
+    jflat = j.flatten({k: jnp.asarray(v) for k, v in _stacked().items()})
+    jT = jcons.lower_stages(j, jd, 0.1)[0][0][1]
+    jnew, _, jm = jcons.apply_round(jflat, jd, 0.1, {}, engine=j,
+                                    first_gram=j.stage_comm(jflat, jT))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jnew), **TOL)
+    np.testing.assert_allclose(float(gm["consensus_dist"]),
+                               float(jm["consensus_dist"]), **TOL)
 
 
 # ---------------------------------------------------------------------------

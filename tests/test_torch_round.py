@@ -138,7 +138,7 @@ def test_launcher_smoke_on_cpu():
     assert np.isfinite(loss)
 
 
-@pytest.mark.parametrize("flags", [["--overlap", "staleness1"],
+@pytest.mark.parametrize("flags", [["--elastic-drop", "2,3,5"],
                                    ["--mesh", "2,2,2"], ["--sharded"],
                                    ["--autotune"]])
 def test_launcher_refuses_unported_paths(flags, capsys):
