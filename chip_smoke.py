@@ -164,12 +164,39 @@ Phases (any failure raises, and the script exits non-zero):
    staleness_k k = 1 in one chunk, 3 rounds at 1 layer, bit for bit.
    (d) The launcher with ``--overlap doublebuf --log-every-round``:
    one JSONL record a round, staleness 0 in round 0 and 1 after.
+14. The paper's harness and measures (``repro_torch.benchmarks``): (a)
+   the README quickstart through ``common.run_distributed`` (M = 4,
+   alpha 0.1, lam 0.5, tau 4; 300 steps on the tree engine and on the
+   flat engine, 100 DDP steps) on the card and on the CPU from the same
+   weights (``mlp_init`` draws on a CPU generator): the card's width
+   within 1e-3 of the CPU's, its errors within 0.5 points; counters
+   zeroed just before each card run and held to what the code implies
+   (tree: 24 ``sq_dist`` + 24 ``apply_update`` a round, 6 MLP leaves x 4
+   workers, plus the final ``worker_dists``' 24 ``sq_dist``; flat: one
+   ``fused_round`` a round plus those 24; DDP: none); wall seconds of
+   each. (b) ``pullpush_fused`` against the tree ``pullpush``
+   (``sq_dist`` / ``apply_update``): the reference test's near-consensus
+   case (M = 8, n = 4096, spread 1e-5: r within 1e-3, entries within
+   2e-3), then yi-6b's stacked bf16 tree at 4 layers, M = 4 (r within
+   1e-5 relative, each entry within 2 bf16 ulps of the larger of its
+   input and output); one ``fused_round`` a call; its time at full width
+   (CUDA events, median of 5 after 1 warm-up) beside the ``fused_round``
+   launch alone, the tree route and the tree route on ``ref.py``'s plain
+   functions (median of 3). (c) ``mean_valley`` (Table 1's kappa 2, step 0.05, 120
+   steps) and ``hessian_measures`` on the tree run's workers, on the card
+   and on the CPU with the same draws: MV within 1e-4 relative,
+   lambda_max, trace and Frobenius norm within 1e-3; seconds of each.
+   (d) ``repro_torch.benchmarks.run --fast --only theorem1,table2,
+   method_zoo`` in this process: its CSV rows printed, every number
+   finite, ``fused_round`` and ``sq_dist`` launched; seconds of each
+   suite.
 
 It prints a ``kernels`` line, the ``{"kernels": [...]}`` record and, last,
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1997,16 +2024,24 @@ def _timed_rounds(trainer_mod, step, box, batches, label):
     return state, rounds
 
 
-def _plain_round(core_pp, ref, stacked):
-    """One Eq. 5 round on ``ref.py``'s plain functions in place of the
-    kernels."""
+@contextlib.contextmanager
+def _plain_pair(core_pp, ref):
+    """``core/pullpush.py`` on ``ref.py``'s plain functions in place of the
+    ``sq_dist`` / ``apply_update`` kernels."""
     kernels = core_pp.sq_dist, core_pp.apply_update
     core_pp.sq_dist, core_pp.apply_update = ref.sq_dist_plain, ref.apply_plain
     try:
-        return core_pp.pullpush(stacked, 0.1, 0.5)[0], \
-            core_pp.worker_dists(stacked)
+        yield
     finally:
         core_pp.sq_dist, core_pp.apply_update = kernels
+
+
+def _plain_round(core_pp, ref, stacked):
+    """One Eq. 5 round on ``ref.py``'s plain functions in place of the
+    kernels."""
+    with _plain_pair(core_pp, ref):
+        return core_pp.pullpush(stacked, 0.1, 0.5)[0], \
+            core_pp.worker_dists(stacked)
 
 
 def phase_tree(pk, ref):
@@ -2470,6 +2505,353 @@ def phase_overlap(pk, ref, none_mode):
             "partial_gram_strided": strided}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the paper's harness and measures
+# ---------------------------------------------------------------------------
+
+# (a) the README quickstart through run_distributed: (label, DPPFConfig
+# settings, steps)
+HARNESS_RUNS = (("tree", dict(alpha=0.1, lam=0.5, tau=4), 300),
+                ("flat", dict(alpha=0.1, lam=0.5, tau=4, engine="flat"), 300),
+                ("ddp", dict(consensus="ddp"), 100))
+HARNESS_M = 4
+MLP_LEAVES = 6           # the benchmark MLP: 3 layers x (w, b)
+HARNESS_SUITES = "theorem1,table2,method_zoo"
+FUSED_SPREAD = 1e-5      # (b) the reference test's near-consensus spread
+FUSED_VIEW_RTOL = 1e-5   # (b) full width: the fp32 update against the tree's
+
+
+def _harness_launches(label, rounds, M):
+    """The launches a quickstart run implies: the tree engine runs one
+    ``sq_dist`` and one ``apply_update`` per (worker, leaf) a round, the
+    flat engine one ``fused_round`` a round; both end with the final
+    ``worker_dists`` (one ``sq_dist`` per (worker, leaf)); DDP none."""
+    want = {"fused_round": 0, "partial_gram": 0, "gram_coef": 0,
+            "mix_shard": 0, "mix_from_gram": 0, "stale_mix": 0,
+            "sq_dist": 0, "apply_update": 0}
+    if label == "ddp":
+        return want
+    pair = M * MLP_LEAVES
+    if label == "tree":
+        want.update(sq_dist=pair * rounds + pair, apply_update=pair * rounds)
+    else:           # each fused_round is a partial_gram, gram_coef and mix
+        want.update({k: rounds for k in ("fused_round", "partial_gram",
+                                         "gram_coef", "mix_shard")},
+                    sq_dist=pair)
+    return want
+
+
+def _quickstart(pk, common):
+    """(a): each run on the card, launches counted, then on the CPU from
+    the same weights: ``run_distributed`` draws them from its seed on a CPU
+    generator (``mlp_init``) and moves them to the data's device."""
+    from repro_torch.configs import DPPFConfig
+    from repro_torch.train import RoundClock
+    dev_data = common.default_data()
+    cpu_data = common.default_data(device="cpu")
+    out, total = {}, {k: 0 for k in pk.LAUNCHES}
+    for label, dkw, steps in HARNESS_RUNS:
+        dcfg = DPPFConfig(**dkw)
+        rounds = RoundClock.from_config(dcfg, base_lr=0.05,
+                                        total_steps=steps).total_rounds
+        torch.cuda.synchronize()
+        pk.reset_launches()                 # main path: counts from here
+        t0 = time.perf_counter()
+        card = common.run_distributed(dev_data, dcfg, M=HARNESS_M,
+                                      steps=steps)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        got = {k: pk.LAUNCHES[k] for k in total}
+        t0 = time.perf_counter()
+        cpu = common.run_distributed(cpu_data, dcfg, M=HARNESS_M,
+                                     steps=steps)
+        cpu_s = time.perf_counter() - t0
+        want = _harness_launches(label, rounds, HARNESS_M)
+        row = {"card_s": card_s, "cpu_s": cpu_s, "rounds": rounds,
+               "width": [card.consensus_dist, cpu.consensus_dist],
+               "train_err": [card.train_err, cpu.train_err],
+               "test_err": [card.test_err, cpu.test_err],
+               "launches": got}
+        print(f"  quickstart {label} ({steps} steps) " + json.dumps(row))
+        if got != want:
+            raise AssertionError(f"quickstart {label} launched {got}, the "
+                                 f"code implies {want}")
+        if abs(card.consensus_dist - cpu.consensus_dist) > 1e-3:
+            raise AssertionError(f"quickstart {label}: width on the card "
+                                 f"{card.consensus_dist}, on the CPU "
+                                 f"{cpu.consensus_dist}")
+        for k in ("train_err", "test_err"):
+            a, b = getattr(card, k), getattr(cpu, k)
+            if not (math.isfinite(a) and abs(a - b) <= 0.5):
+                raise AssertionError(f"quickstart {label}: {k} {a} on the "
+                                     f"card, {b} on the CPU")
+        for k in total:
+            total[k] += got[k]
+        out[label] = row
+        if label == "tree":
+            workers = card.workers
+    return out, total, workers, dev_data
+
+
+@contextlib.contextmanager
+def _kept_views(kept):
+    """Append each flat view ``ConsensusEngine.unflatten`` is handed to
+    ``kept``: ``pullpush_fused``'s fp32 result before the cast to its
+    leaves' dtypes."""
+    from repro_torch.core.engine import ConsensusEngine
+    unflatten = ConsensusEngine.unflatten
+
+    def keep(self, flat):
+        kept.append(flat)
+        return unflatten(self, flat)
+    ConsensusEngine.unflatten = keep
+    try:
+        yield
+    finally:
+        ConsensusEngine.unflatten = unflatten
+
+
+def _fused_checks(pk, ref, pullpush_fused, core_pp):
+    """(b): ``pullpush_fused`` on the card against the port's tree
+    ``pullpush`` (the sq_dist / apply_update route): the reference test's
+    near-consensus case, then yi-6b's stacked bf16 tree at 4 layers;
+    times at full width, beside the ``fused_round`` launch alone, the tree
+    route and the tree route on the plain functions."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.engine import ConsensusEngine, tree_items
+    from repro_torch.models import build_model
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    # near consensus: M = 8, n = 4096, spread 1e-5 (coef ~ -800)
+    base = torch.randn((4096,), generator=gen, device="cuda")
+    small = {"w": base[None] + FUSED_SPREAD * torch.randn(
+        (8, 4096), generator=gen, device="cuda")}
+    pk.reset_launches()
+    got, r = pullpush_fused(small, 0.1, 0.5)
+    one = dict(pk.LAUNCHES)
+    want, _ = core_pp.pullpush(small, 0.1, 0.5)
+    r_exact = core_pp.worker_dists(small)
+    near = {"r_rel": float(((r - r_exact).abs() / r_exact).max()),
+            "max_abs": float((got["w"] - want["w"]).abs().max())}
+    print("  pullpush_fused near consensus (M = 8, n = 4096, spread 1e-5) "
+          + json.dumps(near) + f", launches {json.dumps(one)}")
+    if not (near["r_rel"] <= 1e-3 and near["max_abs"] <= 2e-3):
+        raise AssertionError("pullpush_fused near consensus differs from "
+                             "the tree route")
+    if one["fused_round"] != 1 or one["sq_dist"] or one["apply_update"] \
+            or one["mix_from_gram"] or one["stale_mix"]:
+        raise AssertionError(f"pullpush_fused launched {one}; want one "
+                             "fused_round")
+    del small, got, want
+
+    cfg = dataclasses.replace(get_arch("yi-6b"), n_layers=LAYERS)
+    M = 4
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p = build_model(cfg).init(gen, "cuda")
+    items = []
+    for path, leaf in tree_items(p):
+        # M distinct workers around the model: x + 0.01 N(0, 1) each
+        w = leaf[None].expand((M,) + leaf.shape).to(torch.float32)
+        w = w + 0.01 * torch.randn(w.shape, generator=gen, device="cuda")
+        items.append((path, w.to(leaf.dtype)))
+        del w
+    del p
+    from repro_torch.core.engine import tree_from_items
+    stacked = tree_from_items(items)
+    del items
+    n = sum(leaf[0].numel() for _, leaf in tree_items(stacked))
+    kept = []
+    pk.reset_launches()
+    with _kept_views(kept):
+        got, r = pullpush_fused(stacked, 0.1, 0.5)
+    torch.cuda.synchronize()
+    one = dict(pk.LAUNCHES)
+    view, = kept            # the fp32 (M, n) result before the cast
+    del kept
+    want, _ = core_pp.pullpush(stacked, 0.1, 0.5)
+    center = core_pp.tree_mean0(stacked)
+    r_tree = core_pp.worker_dists(stacked, center)
+    coef = 0.1 - 0.5 / torch.clamp(r_tree, min=1e-12)
+    peak = torch.cuda.max_memory_allocated()
+    # the update, held in fp32: the fused view against the tree route's
+    # apply_update on an fp32 copy of each row, relative to the larger of
+    # |x| and |x_A| (the two routes round T x + (1 - c)(x - T x) and
+    # x + c (T x - x), so they part by ~eps32 there). ``seen``: each leaf's
+    # largest update on that basis, so the bar can see every leaf's mix
+    view_rel, seen, cast_ok = 0.0, math.inf, True
+    worst, flips, off = 0.0, 0, 0
+    for (_, k), (_, t), (_, x), (_, c) in zip(
+            tree_items(got), tree_items(want), tree_items(stacked),
+            tree_items(center)):
+        if k.dtype != t.dtype:
+            raise AssertionError(f"pullpush_fused returned {k.dtype} for a "
+                                 f"{t.dtype} leaf")
+        size, cv, leaf_seen = x[0].numel(), c.reshape(-1), 0.0
+        for m in range(M):
+            v = view[m, off:off + size]
+            cast_ok &= torch.equal(k[m].reshape(-1), v.to(k.dtype))
+            xf = x[m].reshape(-1).float()
+            tf = pk.apply_update(xf, cv, coef[m:m + 1])
+            basis = torch.clamp(torch.maximum(xf.abs(), cv.abs()),
+                                min=1e-30)
+            view_rel = max(view_rel, float(((v - tf).abs() / basis).max()))
+            leaf_seen = max(leaf_seen, float(((tf - xf).abs() / basis)
+                                             .max()))
+            # the bf16 results of the two routes, in ulps of the larger of
+            # input and output
+            d = (k[m].float() - t[m].float()).abs()
+            u = _bf16_ulp(torch.maximum(x[m].float().abs(),
+                                        t[m].float().abs()))
+            worst = max(worst, float((d / u).max()))
+            flips += int((d > 0).sum())
+            del v, xf, tf, basis, d, u
+        seen = min(seen, leaf_seen)
+        off += size
+    r_rel = float(((r - r_tree).abs() / r_tree).max())
+    del got, want, view, center
+    full = {"n": n, "dtypes": sorted({str(l.dtype) for _, l in
+                                      tree_items(stacked)}),
+            "r_rel": r_rel, "view_rel": view_rel, "update_rel_min": seen,
+            "cast_exact": cast_ok, "max_ulp": worst, "entries_differ": flips,
+            "peak_bytes": peak, "launches": one}
+    print(f"  pullpush_fused, yi-6b stacked at {LAYERS} layers, M = {M} "
+          + json.dumps(full))
+    if one["fused_round"] != 1 or one["sq_dist"] or one["apply_update"]:
+        raise AssertionError(f"pullpush_fused launched {one}")
+    if not (r_rel <= 1e-5 and view_rel <= FUSED_VIEW_RTOL and cast_ok
+            and worst <= 2.0):
+        raise AssertionError("pullpush_fused at full width differs from the "
+                             "tree route")
+    if seen <= 10 * FUSED_VIEW_RTOL:
+        raise AssertionError(f"a leaf's update ({seen}) is too small for "
+                             "the fp32 bar to see")
+    torch.cuda.empty_cache()
+    ms = _time_ms(lambda: pullpush_fused(stacked, 0.1, 0.5), reps=5,
+                  warm=1)
+    eng = ConsensusEngine.from_stacked(stacked, precise=True)
+    flat = eng.flatten(stacked)
+    T = eng.uniform.expand(M, M)
+    c0 = torch.full((M,), 0.1, device="cuda")
+    c1 = torch.full((M,), -0.5, device="cuda")
+    alone = _time_ms(lambda: pk.fused_round(flat, T, c0, c1, out=flat),
+                     reps=5, warm=1)
+    del flat, eng
+    torch.cuda.empty_cache()
+    tree_ms = _time_ms(lambda: core_pp.pullpush(stacked, 0.1, 0.5), reps=5,
+                       warm=1)
+    with _plain_pair(core_pp, ref):
+        plain_ms = _time_ms(lambda: core_pp.pullpush(stacked, 0.1, 0.5),
+                            reps=3, warm=1)
+    full.update(pullpush_fused_ms=ms, fused_round_ms=alone,
+                flatten_unflatten_ms=ms - alone, tree_route_ms=tree_ms,
+                plain_ms=plain_ms)
+    print(f"  pullpush_fused {ms:.4f} ms, its fused_round alone "
+          f"{alone:.4f} ms: flatten + unflatten {ms - alone:.4f} ms a call; "
+          f"the tree route {tree_ms:.4f} ms, on the plain functions "
+          f"{plain_ms:.4f} ms")
+    del stacked
+    torch.cuda.empty_cache()
+    return {"near": near, "full": full}
+
+
+def _measures_checks(common, workers, data):
+    """(c): Mean Valley and the Hessian measures on the tree run's card
+    workers, on the card and on the CPU with the same draws."""
+    from repro_torch.core import sharpness as sh
+    from repro_torch.core.engine import tree_map
+    from repro_torch.core.valley import mean_valley
+    fb = {"x": data["x_train"][:1024], "y": data["y_train"][:1024]}
+    fb_cpu = {k: v.cpu() for k, v in fb.items()}
+    cpu_workers = [tree_map(lambda a: a.cpu(), w) for w in workers]
+    out = {}
+    for dev, ws, b in (("card", workers, fb), ("cpu", cpu_workers, fb_cpu)):
+        sync = torch.cuda.synchronize if dev == "card" else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        mv = mean_valley(lambda p: common.mlp_loss(p, b)[0], ws, kappa=2.0,
+                         step=0.05, max_steps=120)
+        sync()
+        t1 = time.perf_counter()
+        avg = tree_map(lambda *ls: sum(ls) / len(ls), *ws)
+        hm = sh.hessian_measures(lambda p, bb: common.mlp_loss(p, bb)[0],
+                                 avg, b, torch.Generator().manual_seed(0))
+        sync()
+        t2 = time.perf_counter()
+        out[dev] = {"mv": mv["mv"], "betas": mv["betas"], **hm,
+                    "mv_s": t1 - t0, "hessian_s": t2 - t1}
+        print(f"  measures on the {dev} " + json.dumps(out[dev]))
+    c, p = out["card"], out["cpu"]
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    errs = {"mv": rel(c["mv"], p["mv"]),
+            **{k: rel(c[k], p[k]) for k in ("lambda_max", "trace", "frob")}}
+    print("  measures card vs cpu, relative " + json.dumps(errs))
+    if errs["mv"] > 1e-4 or max(errs[k] for k in ("lambda_max", "trace",
+                                                  "frob")) > 1e-3:
+        raise AssertionError(f"measures on the card differ: {errs}")
+    return {"card": c, "cpu": p, "rel": errs}
+
+
+def _fast_suites(pk):
+    """(d): ``repro_torch.benchmarks.run --fast`` on three suites, in this
+    process; every number of their CSV rows finite."""
+    import contextlib
+    import io
+    from repro_torch.benchmarks import run
+    buf = io.StringIO()
+    pk.reset_launches()                     # main path: counts from here
+    try:
+        with contextlib.redirect_stdout(buf):
+            secs = run.main(["--fast", "--only", HARNESS_SUITES])
+    finally:
+        print("\n".join("  " + line for line in
+                        buf.getvalue().splitlines()))
+    launches = dict(pk.LAUNCHES)
+    bad = []
+    n_rows = 0
+    for line in buf.getvalue().splitlines():
+        if line.startswith("#") or "=" not in line:
+            continue
+        n_rows += 1
+        for kv in line.split(",")[1:]:
+            v = kv.split("=", 1)[1]
+            try:
+                x = float(v)
+            except ValueError:
+                continue
+            if not math.isfinite(x):
+                bad.append(line)
+    print(f"  --fast {HARNESS_SUITES}: {n_rows} rows, seconds "
+          f"{json.dumps(secs)}, launches {json.dumps(launches)}")
+    if bad or n_rows == 0:
+        raise AssertionError(f"non-finite rows: {bad}")
+    if launches["fused_round"] <= 0 or launches["sq_dist"] <= 0:
+        raise AssertionError(f"the --fast suites launched {launches}")
+    return {"seconds": secs, "launches": launches, "rows": n_rows}
+
+
+def phase_harness(pk, ref):
+    from repro_torch.benchmarks import common
+    from repro_torch.core import pullpush as core_pp
+    from repro_torch.kernels.pullpush import pullpush_fused
+    secs = {}
+    t0 = time.perf_counter()
+    runs, quick, workers, data = _quickstart(pk, common)
+    secs["quickstart"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fused = _fused_checks(pk, ref, pullpush_fused, core_pp)
+    secs["pullpush_fused"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    measures = _measures_checks(common, workers, data)
+    secs["measures"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fast = _fast_suites(pk)
+    secs["fast_suites"] = time.perf_counter() - t0
+    launches = {k: quick[k] + fast["launches"][k] for k in quick}
+    print("  phase 14 seconds " + json.dumps(secs))
+    return {"runs": runs, "fused": fused, "measures": measures,
+            "fast": fast, "launches": launches, "seconds": secs}
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2589,6 +2971,17 @@ def main():
             "yi-6b training, overlap modes (phase 13)":
                 overlap["launches"][name]}
         rows[name]["launches"] += overlap["launches"][name]
+
+    print("phase 14: the paper's harness and measures")
+    t0 = time.perf_counter()
+    harness = phase_harness(pk, ref)
+    secs["harness"] = time.perf_counter() - t0
+    for name, n in harness["launches"].items():
+        if n:
+            rows[name].setdefault("launches_by_path", {})[
+                "MLP harness: quickstart + --fast suites (phase 14)"] = n
+            rows[name]["launches"] += n
+    rows["fused_round"]["pullpush_fused"] = harness["fused"]["full"]
     secs["total"] = time.perf_counter() - t_start
     print("phase seconds " + json.dumps(secs))
 
