@@ -190,6 +190,37 @@ Phases (any failure raises, and the script exits non-zero):
    method_zoo`` in this process: its CSV rows printed, every number
    finite, ``fused_round`` and ``sq_dist`` launched; seconds of each
    suite.
+15. The sharded round on ``torch.distributed`` ranks, spawned from this
+   script (two, then eight, on the one card: the transport is gloo, every
+   collective staged through host memory; the kernels are built in phase
+   1 and the ranks load them). (a) ``fused_round_sharded`` on each rank's
+   column shard of the main path's (4, 1,216,385,024) view (2 shards of
+   608,192,512 columns, seeds 15 and 16): out within 1e-6 of each row's
+   scale of ``fused_round`` on the whole view (its columns are
+   ``mix_shard`` of the shard with its coefficients, checked here), r
+   within 1e-6; against its plain version within 1e-4; times (CUDA
+   events, median of 20 after 3 warm-ups; plain: 5 after 1) of the
+   composite on each rank alone (the other runs only the matching
+   all-reduces) and on both at once, of the all-reduce, and of each
+   launch alone; bound 3 R n_local 4 bytes / 3.35 TB/s. (b) The trainer:
+   yi-6b at full width cut to 1 layer (n = 697,316,352), M = 4, tau 4,
+   simple_avg, 3 rounds, on the kernel route, meshes 2x1 and 1x2, overlap
+   ``none`` and ``doublebuf`` (4 chunks), each rank's block within 2e-5
+   of the single-device run's parameter scale on 2x1 and 1e-3 on 1x2
+   (``SH_BAR`` says why), each round's consensus_dist within 1e-5
+   relative (each rank runs the single-device rounds alone first and
+   keeps its blocks on the host);
+   per rank: round times, host seconds in gathers and all-reduces, bytes
+   staged, peak memory (their sum beside the card's); the counters are
+   zeroed just before each sharded run. (c) The launcher: ``--sharded
+   --arch yi-6b --smoke`` under ``torch.distributed.run`` with two ranks
+   against the same run unsharded: per-round consensus_dist and
+   pull_force within 1e-5 relative. (d) Eight ranks on the 2x2x2
+   hierarchical mesh: the MLP, easgd, precise mode, 3 rounds, against the
+   single-device rounds, each entry within eps32 * max(|x|, 1). Then the
+   transport line: backend, ranks a card, bytes staged; NCCL is not
+   verified on one card. ``python3 chip_smoke.py --phases 15`` runs
+   phase 1 and this phase alone.
 
 It prints a ``kernels`` line, the ``{"kernels": [...]}`` record and, last,
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -2500,6 +2531,8 @@ def phase_overlap(pk, ref, none_mode):
     strided = rows.pop("partial_gram_strided")
     for name in ("stale_mix", "mix_from_gram"):
         rows[name]["launches"] = totals[name]
+        rows[name]["launches_by_path"] = {
+            "yi-6b training, overlap modes (phase 13)": totals[name]}
         rows[name]["boundary_ms"] = summaries["doublebuf"]["boundary_ms"]
     return {"rows": rows, "launches": totals, "summaries": summaries,
             "partial_gram_strided": strided}
@@ -2528,7 +2561,7 @@ def _harness_launches(label, rounds, M):
     ``worker_dists`` (one ``sq_dist`` per (worker, leaf)); DDP none."""
     want = {"fused_round": 0, "partial_gram": 0, "gram_coef": 0,
             "mix_shard": 0, "mix_from_gram": 0, "stale_mix": 0,
-            "sq_dist": 0, "apply_update": 0}
+            "fused_round_sharded": 0, "sq_dist": 0, "apply_update": 0}
     if label == "ddp":
         return want
     pair = M * MLP_LEAVES
@@ -2852,7 +2885,707 @@ def phase_harness(pk, ref):
             "fast": fast, "launches": launches, "seconds": secs}
 
 
-def main():
+# ---------------------------------------------------------------------------
+# phase 15: the sharded round on torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+DEV = "cuda"                   # where the phase runs (the card)
+SHARD_SEED = 15                # x's column shard j is drawn with seed 15 + j
+SHARD_TOL = 1e-6               # of each row's scale, against fused_round
+SHARDED_SOURCE = SOURCE
+SHARDED_REPLACES = "src/repro/kernels/pullpush/pullpush.py:367"
+# (b): yi-6b at full width cut to 1 layer, M = 4, tau 4, 3 rounds
+SH_LAYERS, SH_ROUNDS, SH_M, SH_TAU, SH_SEQ, SH_BATCH = 1, 3, 4, 4, 64, 8
+SH_MESHES = ((2, 1), (1, 2))
+SH_OVERLAPS = (("none", dict(overlap="none")),
+               ("doublebuf", dict(overlap="doublebuf", overlap_chunks=4)))
+# each rank's block against the single-device run, of its parameter scale:
+# 2e-5 (the CPU tests' fast-mode bar) where the mesh splits no column (the
+# ranks run the single-device operations); 1e-3 where it does. There the
+# Gram is summed over column shards in another order, which moves the fp32
+# view by ulps, and the next round's bf16 local steps re-round it: a
+# flipped bf16 rounding moves the parameters by lr times the change of the
+# gradient (1.4e-4 of the scale seen on 1x2 doublebuf; the 1-layer model's
+# single-device rounds show the same under any reduction order). The
+# consensus itself is held per round: consensus_dist within SH_METRIC_BAR.
+SH_BAR = {"2x1": 2e-5, "1x2": 1e-3}
+SH_METRIC_BAR = 1e-5           # relative, each round's consensus_dist
+# the kernels the sharded rounds of (b) must launch
+SHARDED_KERNELS = ("fused_round_sharded", "partial_gram", "gram_coef",
+                   "mix_shard", "fused_round", "mix_from_gram", "stale_mix")
+HIER_ULP = 1.0                 # (d): eps32 * max(|x|, 1) an entry
+
+
+def _rank_entry(fn, rank, world, tmp, args):
+    """A spawned rank: gloo on the one card (``launch.mesh.start``), a
+    ``file://`` rendezvous in ``tmp``; ``fn``'s result is pickled beside
+    it, a failure's traceback too."""
+    import pickle
+    import traceback
+    # set before the rank's first allocation: two ranks share the card
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    try:
+        from repro_torch.launch import mesh as mm
+        mm.start(DEV, init_method=f"file://{tmp}/rendezvous", rank=rank,
+                 world=world, timeout_s=600)
+        out = fn(rank, world, *args)
+        with open(os.path.join(tmp, f"{rank}.pkl"), "wb") as fh:
+            pickle.dump(out, fh)
+        torch.distributed.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(tmp, f"{rank}.err"), "w") as fh:
+            fh.write(traceback.format_exc())
+        raise SystemExit(1)
+
+
+def _spawn_ranks(fn, world, *args, timeout=600):
+    """``[fn(r, world, *args) for r in range(world)]``, each in a rank of
+    its own; every child is stopped before this returns or raises."""
+    import pickle
+    import tempfile
+    ctx = torch.multiprocessing.get_context("spawn")
+    base = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(base, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ranks-", dir=base)
+    procs = [ctx.Process(target=_rank_entry, args=(fn, r, world, tmp, args))
+             for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    errs = []
+    for r, p in enumerate(procs):
+        err = os.path.join(tmp, f"{r}.err")
+        if os.path.exists(err):
+            errs.append(f"rank {r}:\n" + open(err).read())
+        elif p.exitcode != 0:
+            errs.append(f"rank {r}: exit code {p.exitcode}")
+    if errs:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise AssertionError("phase 15 ranks failed:\n" + "\n".join(errs))
+    out = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"{r}.pkl"), "rb") as fh:
+            out.append(pickle.load(fh))
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _shard_x(j, n_loc):
+    """Column shard j of the (a) view: (4, n_loc) from seed 15 + j."""
+    gen = torch.Generator(device=DEV).manual_seed(SHARD_SEED + j)
+    x = torch.randn((MAIN_R, n_loc), generator=gen, device=DEV)
+    return x.mul_(2.0).add_(1.0)
+
+
+def _shard_stage_inputs():
+    gen = torch.Generator(device=DEV).manual_seed(SHARD_SEED + 100)
+    T = torch.softmax(torch.randn((MAIN_R, MAIN_R), generator=gen,
+                                  device=DEV), dim=1)
+    c0 = torch.linspace(0.1, 0.5, MAIN_R, device=DEV)
+    c1 = torch.linspace(-0.4, -0.1, MAIN_R, device=DEV)
+    return T, c0, c1
+
+
+def _single_rank_round(pk, world):
+    """(a), in this process before the ranks start: ``fused_round`` on the
+    whole (4, n) view (the shards side by side), its r and coefficients
+    for the ranks, and the check that its columns are ``mix_shard`` of a
+    shard with those coefficients (the mix is column-local), which is
+    what each rank holds its shard's output against."""
+    n_loc = MAIN_N // world
+    x = torch.empty((MAIN_R, MAIN_N), device=DEV)
+    for j in range(world):
+        x[:, j * n_loc:(j + 1) * n_loc] = _shard_x(j, n_loc)
+    T, c0, c1 = _shard_stage_inputs()
+    out, r, G = pk.fused_round(x, T, c0, c1)
+    _, r1, coef = pk.gram_coef(G[None], T, c0, c1)
+    x0 = x[:, :n_loc].contiguous()
+    del x
+    m0 = pk.mix_shard(x0, T, coef)
+    col_err = float((m0 - out[:, :n_loc]).abs().max())
+    del x0, m0, out
+    torch.cuda.empty_cache()
+    print(f"  (a) single-rank fused_round on (4, {MAIN_N}): r "
+          f"{[round(v, 3) for v in r.tolist()]}; its first {n_loc} columns "
+          f"against mix_shard of that shard with its coefficients: max abs "
+          f"{col_err:.3e}; r from the Gram again: "
+          f"{float((r1 - r).abs().max()):.3e}")
+    if col_err > SHARD_TOL * 10:
+        raise AssertionError("fused_round's columns are not mix_shard's")
+    return {"r": r.cpu(), "coef": coef.cpu()}
+
+
+def _time_alone(rank, world, fn, partner, reps=20, warm=3):
+    """``fn`` timed on each rank in turn (CUDA events, median) while the
+    other ranks run only ``partner`` (the matching collectives)."""
+    import torch.distributed as dist
+    ms = None
+    for turn in range(world):
+        dist.barrier()
+        if turn == rank:
+            ms = _time_ms(fn, reps=reps, warm=warm)
+        else:
+            for _ in range(reps + warm):
+                partner()
+        torch.cuda.synchronize()
+    dist.barrier()
+    return ms
+
+
+def _sharded_kernel_rank(rank, world, single):
+    """(a) on a rank: its column shard of the (4, n) view through
+    ``fused_round_sharded`` (the Gram's all-reduce over the two ranks)."""
+    from repro_torch.kernels.pullpush import pullpush as pk
+    from repro_torch.kernels.pullpush import ref
+    from repro_torch.launch import mesh as mm
+    mesh = mm.Mesh(mm.FLAT_AXES, (1, world), device=DEV)
+    g = mesh.group(("model",))
+    n_loc = MAIN_N // world
+    x = _shard_x(g.index, n_loc)
+    T, c0, c1 = _shard_stage_inputs()
+    r1, coef1 = single["r"].to(DEV), single["coef"].to(DEV)
+    out = torch.empty_like(x)
+    mm.reset_staged()
+    _, r, G = pk.fused_round_sharded(x, T, c0, c1, group=g, out=out)
+    torch.cuda.synchronize()
+    staged = mm.STAGED["bytes"]
+    want = pk.mix_shard(x, T, coef1)
+    err1 = float((_row_err(out, want) / _row_absmax(want)).max())
+    r_err = float(((r - r1).abs() / r1.abs()).max())
+    del want
+    reduce = lambda G_: mm.all_reduce(G_, g)
+    plain = torch.empty_like(x)
+    p_out, p_r, _ = ref.fused_round_sharded_plain(x, T, c0, c1, reduce,
+                                                  out=plain)
+    pscale = float(_row_absmax(plain).max())
+    perr = float(_row_err(out, plain).max())
+    prerr = float((r - p_r).abs().max())
+    Gs = torch.zeros((MAIN_R, MAIN_R), device=DEV)
+    ar = lambda: mm.all_reduce(Gs, g)
+    comp = lambda: pk.fused_round_sharded(x, T, c0, c1, group=g, out=out)
+    both_ms = _time_ms(comp)
+    ar_ms = _time_ms(ar)
+    alone_ms = _time_alone(rank, world, comp, ar)
+    plain_ms = _time_alone(
+        rank, world, lambda: ref.fused_round_sharded_plain(
+            x, T, c0, c1, reduce, out=plain), ar, reps=5, warm=1)
+    del plain
+    launches = {}
+    for turn in range(world):
+        torch.distributed.barrier()
+        if turn == rank:
+            coef = c0 + c1 / torch.clamp(r, min=1e-12)
+            launches = {
+                "partial_gram (with gram_coef's sum)":
+                    _time_ms(lambda: pk.partial_gram(x)),
+                "gram_coef (one block)":
+                    _time_ms(lambda: pk.gram_coef(G[None], T, c0, c1)),
+                "mix_shard": _time_ms(lambda: pk.mix_shard(x, T, coef,
+                                                           out=out))}
+        torch.cuda.synchronize()
+    torch.distributed.barrier()
+    return {"rank": rank, "n_local": n_loc, "err_vs_single": err1,
+            "r_err_vs_single": r_err, "max_abs_err_vs_plain": perr,
+            "max_rel_err_vs_plain": perr / pscale, "r_err_vs_plain": prerr,
+            "ms_alone": alone_ms, "ms_both_ranks": both_ms,
+            "plain_ms_alone": plain_ms, "all_reduce_ms": ar_ms,
+            "bytes_staged_per_call": staged, "launch_ms": launches}
+
+
+def _row_absmax(x):
+    """(R,) largest |x| of each row, in column chunks."""
+    return torch.stack([c.abs().amax(dim=1)
+                        for c in x.split(1 << 24, dim=1)]).amax(dim=0)
+
+
+def _row_err(got, want):
+    """(R,) largest |got - want| of each row, in column chunks."""
+    return torch.stack([(g - w).abs().amax(dim=1) for g, w in zip(
+        got.split(1 << 24, dim=1), want.split(1 << 24, dim=1))]).amax(dim=0)
+
+
+def _block_sums(x):
+    """Per row: the sum and the sum of |x| in float64 (a round's trace)."""
+    return [float(v) for v in torch.cat([
+        x.double().sum(dim=1), x.double().abs().sum(dim=1)])] \
+        if x.numel() < (1 << 27) else [
+        float(v) for v in torch.stack([torch.cat([
+            c.double().sum(dim=1), c.double().abs().sum(dim=1)])
+            for c in x.split(1 << 24, dim=1)]).sum(dim=0)]
+
+
+def _host_mem():
+    """This process's resident host memory now, bytes (``VmRSS``; a
+    spawned rank's ``ru_maxrss`` would start from its parent's)."""
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+def _release_host_memory():
+    """Collect garbage and hand PyTorch's cached page-locked host blocks
+    (the earlier phases' pinned copies) back before the ranks start: the
+    ranks' staging shares the machine's host memory with this process."""
+    import gc
+    before = _host_mem()
+    gc.collect()
+    how = "no API here"
+    for name in ("_host_emptyCache", "_accelerator_emptyHostCache"):
+        fn = getattr(torch._C, name, None)
+        if fn is not None:
+            fn()
+            how = f"torch._C.{name}"
+            break
+    print(f"  host memory of this process: {before / 2 ** 30:.1f} GiB, "
+          f"{_host_mem() / 2 ** 30:.1f} GiB after releasing the "
+          f"cached page-locked blocks ({how})")
+
+
+class _TimedPending:
+    """A ``launch.mesh.Pending`` whose ``wait`` adds its host seconds to
+    ``acc[name]`` (a wrapper, so that no reference cycle keeps a landed
+    tensor alive)."""
+
+    def __init__(self, pending, acc, name):
+        self.pending, self.acc, self.name = pending, acc, name
+
+    def wait(self):
+        t0 = time.perf_counter()
+        v = self.pending.wait()
+        self.acc[self.name] += time.perf_counter() - t0
+        return v
+
+
+def _timed_collectives(mm, acc):
+    """Host seconds in ``launch.mesh.all_gather`` / ``all_reduce`` (after a
+    synchronize, so queued kernels are not counted), waits of the
+    asynchronous ones included. Returns the originals."""
+    orig = {"all_gather": mm.all_gather, "all_reduce": mm.all_reduce}
+
+    def wrap(name):
+        f = orig[name]
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = f(*a, **kw)
+            acc[name] += time.perf_counter() - t0
+            return _TimedPending(out, acc, name) if kw.get("async_op") \
+                else out
+        return timed
+    mm.all_gather, mm.all_reduce = wrap("all_gather"), wrap("all_reduce")
+    return orig
+
+
+def _trainer_rank(rank, world):
+    """(b) on a rank: for each overlap mode, the single-device rounds
+    (one rank at a time, this rank's blocks kept on the host), then the
+    sharded rounds on each mesh against them."""
+    import torch.distributed as dist
+    from repro_torch.configs import DPPFConfig, get_arch
+    from repro_torch.configs.base import MeshPlan
+    from repro_torch.data import TokenTask, make_round_batch
+    from repro_torch.kernels.pullpush import pullpush as pk
+    from repro_torch.launch import mesh as mm
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import (
+        RoundClock, init_train_state, make_round_step,
+        make_sharded_round_step, shard_train_state,
+    )
+    from repro_torch.train.trainer import _shard_of
+    cfg = dataclasses.replace(get_arch("yi-6b"), n_layers=SH_LAYERS)
+    model = build_model(cfg)
+    opt = make_optimizer("sgd", momentum=0.9, weight_decay=1e-3)
+    task = TokenTask(vocab_size=cfg.vocab_size, seq_len=SH_SEQ)
+    plan = MeshPlan(worker_axes=("data",), model_axes=("model",))
+    meshes = {f"{a}x{b}": mm.Mesh(mm.FLAT_AXES, (a, b), device=DEV)
+              for a, b in SH_MESHES}
+    steps = SH_ROUNDS * SH_TAU
+    batches = lambda clock: [make_round_batch(
+        task, 0, SH_M, s.tau, s.start, SH_BATCH, cfg, device="cpu")
+        for s in clock.rounds]
+    results = {}
+    for label, over in SH_OVERLAPS:
+        dcfg = DPPFConfig(alpha=0.1, lam=0.5, tau=SH_TAU,
+                          consensus="simple_avg", engine="flat", **over)
+        clock = RoundClock.from_config(dcfg, base_lr=LR, total_steps=steps)
+        data = batches(clock)
+        want, single_m, single_ms, scale = {}, [], [], None
+        for turn in range(world):
+            dist.barrier()
+            if turn == rank:
+                gen = torch.Generator(device=DEV).manual_seed(0)
+                st = init_train_state(model.init, opt, dcfg, SH_M, gen,
+                                      device=DEV)
+                step = make_round_step(model.loss, opt, dcfg, clock=clock)
+                trace = {name: [] for name in meshes}
+                strace = {name: [] for name in meshes}
+                for b in data:
+                    b = {k: v.to(DEV) for k, v in b.items()}
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    st, m = step(st, b)
+                    torch.cuda.synchronize()
+                    single_ms.append((time.perf_counter() - t0) * 1e3)
+                    single_m.append(float(m["consensus_dist"]))
+                    for name, mesh in meshes.items():
+                        sh = _shard_of(st.engine, mesh, plan)
+                        blk_of = lambda x: x[sh.r_off:sh.r_off + sh.m_loc,
+                                             sh.c_off:sh.c_off + sh.n_loc]
+                        trace[name].append(_block_sums(blk_of(st.params)))
+                        if st.snap is not None:
+                            strace[name].append(_block_sums(
+                                blk_of(st.snap["x"])))
+                scale = float(_row_absmax(st.params).max())
+                for name, mesh in meshes.items():
+                    sh = _shard_of(st.engine, mesh, plan)
+                    want[name] = st.params[sh.r_off:sh.r_off + sh.m_loc,
+                                           sh.c_off:sh.c_off + sh.n_loc] \
+                        .cpu()
+                del st, step
+                torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+        dist.barrier()
+        for name, mesh in meshes.items():
+            state = None
+            for turn in range(world):      # the whole state, in turns
+                dist.barrier()
+                if turn == rank:
+                    gen = torch.Generator(device=DEV).manual_seed(0)
+                    whole = init_train_state(model.init, opt, dcfg, SH_M,
+                                             gen, device=DEV)
+                    state = shard_train_state(whole, mesh, plan, dcfg=dcfg)
+                    del whole
+                    torch.cuda.empty_cache()
+                torch.cuda.synchronize()
+            dist.barrier()
+            acc = {"all_gather": 0.0, "all_reduce": 0.0}
+            orig = _timed_collectives(mm, acc)
+            try:
+                step = make_sharded_round_step(model.loss, opt, dcfg,
+                                               mesh=mesh, plan=plan,
+                                               clock=clock)
+                sh = _shard_of(state.engine, mesh, plan)
+                own = slice(sh.r_off, sh.r_off + sh.m_loc)
+                torch.cuda.reset_peak_memory_stats()
+                mm.reset_staged()
+                pk.reset_launches()        # the main path: counts from here
+                rounds = []
+                for i, b in enumerate(data):
+                    b = {k: v[:, own].to(DEV) for k, v in b.items()}
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, m = step(state, b)
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3
+                    got_s = _block_sums(state.params[:sh.m_loc])
+                    snap_d = None
+                    if state.snap is not None:
+                        g2 = _block_sums(state.snap["x"][
+                            sh.r_off:sh.r_off + sh.m_loc])
+                        snap_d = max(abs(g - w) / max(abs(w), 1e-30)
+                                     for g, w in zip(g2, strace[name][i]))
+                    rounds.append({
+                        "snap_row_sums_rel_diff": snap_d,
+                        "round_ms": ms,
+                        "consensus_dist": float(m["consensus_dist"]),
+                        "loss": float(m["train_loss"]),
+                        "row_sums_rel_diff": max(
+                            abs(g - w) / max(abs(w), 1e-30) for g, w in
+                            zip(got_s, trace[name][i]))})
+                launches = dict(pk.LAUNCHES)
+            finally:
+                mm.all_gather, mm.all_reduce = orig["all_gather"], \
+                    orig["all_reduce"]
+            peak = torch.cuda.max_memory_allocated()
+            mm.release_staging()
+            got = state.params[:sh.m_loc].cpu()
+            dp = float(_row_err(got, want[name]).max())
+            results[f"{label} {name}"] = {
+                "rank": rank, "peak_bytes": peak,
+                "rounds": rounds, "single_consensus_dist": single_m,
+                "single_round_ms": single_ms,
+                "gather_s": acc["all_gather"],
+                "all_reduce_s": acc["all_reduce"],
+                "bytes_staged": mm.STAGED["bytes"],
+                "staging_s": mm.STAGED["seconds"], "launches": launches,
+                "host_rss_bytes": _host_mem(),
+                "max_abs_diff": dp, "scale": scale,
+                "block": [sh.m_loc, sh.n_loc]}
+            sums = [x["row_sums_rel_diff"] for x in rounds] + [
+                x["snap_row_sums_rel_diff"] for x in rounds]
+            print(f"  (b) rank {rank}: {label} {name} rounds "
+                  f"{[round(x['round_ms']) for x in rounds]} ms, peak "
+                  f"{peak / 2 ** 30:.1f} GiB (host RSS "
+                  f"{_host_mem() / 2 ** 30:.1f}), max diff {dp:.3e}, "
+                  f"row sums by round (params, snapshot) "
+                  f"{[f'{v:.2e}' if v is not None else '-' for v in sums]}, "
+                  f"gathers "
+                  f"{acc['all_gather']:.2f} s (staging "
+                  f"{mm.STAGED['seconds']:.2f} s)", flush=True)
+            del state, step, got
+            torch.cuda.empty_cache()
+            dist.barrier()
+        del want
+    mm.release_staging()
+    return results
+
+
+def _hier_rank(rank, world):
+    """(d) on a rank of 8: the MLP (dim 16, width 8, 4 classes; 244
+    parameters), M = 8, tau 4, easgd in the precise mode, 3 rounds on the
+    2x2x2 hierarchical mesh against the single-device rounds (each rank
+    runs them too)."""
+    import dataclasses as dc
+    from repro_torch.benchmarks.common import mlp_init, mlp_loss
+    from repro_torch.configs import DPPFConfig
+    from repro_torch.launch import mesh as mm
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import (
+        init_train_state, make_round_step, make_sharded_round_step,
+        shard_train_state, unshard_params,
+    )
+    mesh, plan = mm.make_hier_engine_mesh(2, 2, 2, device=DEV)
+    M, tau = 8, 4
+    dcfg = DPPFConfig(alpha=0.2, lam=0.4, tau=tau, consensus="easgd",
+                      engine="flat")
+    opt = make_optimizer("sgd", momentum=0.9)
+    init = lambda gen, device: mlp_init(torch.Generator().manual_seed(0),
+                                        16, 4, 8, device=device)
+    states = []
+    for _ in range(2):
+        st = init_train_state(init, opt, dcfg, M, None, device=DEV)
+        st.engine = dc.replace(st.engine, precise=True, use_kernel=False)
+        states.append(st)
+    single, sharded = states[0], shard_train_state(states[1], mesh, plan,
+                                                   dcfg=dcfg)
+    f1 = make_round_step(mlp_loss, opt, dcfg, base_lr=0.05, total_steps=40)
+    f2 = make_sharded_round_step(mlp_loss, opt, dcfg, mesh=mesh, plan=plan,
+                                 base_lr=0.05, total_steps=40)
+    gen = np.random.default_rng(0)
+    r0 = mesh.lin_index(("data",)) * (M // 2)
+    mm.reset_staged()
+    dm = 0.0
+    for _ in range(3):
+        x = torch.tensor(gen.standard_normal((tau, M, 8, 16))
+                         .astype(np.float32), device=DEV)
+        y = torch.tensor(gen.integers(0, 4, size=(tau, M, 8)),
+                         device=DEV)
+        single, m1 = f1(single, {"x": x, "y": y})
+        sharded, m2 = f2(sharded, {"x": x[:, r0:r0 + M // 2],
+                                   "y": y[:, r0:r0 + M // 2]})
+        dm = max(dm, max(abs(float(m1[k]) - float(m2[k]))
+                         for k in ("consensus_dist", "pre_dist",
+                                   "pull_force")))
+    full = unshard_params(sharded, mesh, plan)
+    a, b = full.double(), single.params.double()
+    ulps = float(((a - b).abs() / (torch.finfo(torch.float32).eps
+                                   * torch.maximum(a.abs().maximum(b.abs()),
+                                                   torch.ones_like(a))))
+                 .max())
+    return {"rank": rank, "coords": dict(mesh.coords),
+            "col_axes": list(mm.flat_col_axes(mesh, single.engine.layout.n,
+                                              plan)),
+            "max_abs_diff": float((a - b).abs().max()), "ulps": ulps,
+            "metric_diff": dm, "bytes_staged": mm.STAGED["bytes"],
+            "transport": mm.transport(DEV)}
+
+
+def _launcher_sharded():
+    """(c): ``--sharded --arch yi-6b --smoke`` under torchrun with two
+    ranks against the same run unsharded; their per-round records."""
+    from repro_torch.launch.train import main as train_main
+    base = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(base, exist_ok=True)
+    argv = ["--arch", "yi-6b", "--smoke", "--workers", "4", "--tau", "4",
+            "--steps", "16", "--seq", "16", "--batch", "2"]
+    one, two = (os.path.join(base, f"launcher_{k}.jsonl")
+                for k in ("unsharded", "sharded"))
+    t0 = time.perf_counter()
+    want = train_main(argv + ["--log-every-round", one])
+    t_one = time.perf_counter() - t0
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+           *argv, "--sharded", "--log-every-round", two]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=600, cwd=ROOT)
+    t_two = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError("torchrun --sharded failed:\n"
+                             + proc.stdout[-3000:] + proc.stderr[-3000:])
+    lines = proc.stdout.splitlines()
+    mesh_line = [l for l in lines if l.startswith("sharded round on mesh")]
+    loss = [float(l.split()[2]) for l in lines if l.startswith("eval loss")]
+    rec = lambda p: [json.loads(l) for l in open(p)]
+    a, b = rec(one), rec(two)
+    d = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30) for x, y in zip(a, b)
+            for k in ("consensus_dist", "pull_force"))
+    print(f"  (c) launcher: {mesh_line}; eval loss sharded {loss} against "
+          f"unsharded {want:.6f}; {len(b)} round records, largest relative "
+          f"difference of consensus_dist / pull_force {d:.3e}; wall "
+          f"{t_one:.1f} s unsharded, {t_two:.1f} s under torchrun")
+    if len(mesh_line) != 1 or len(loss) != 1 or len(a) != len(b) \
+            or d > 1e-5 or abs(loss[0] - want) > 1e-3:
+        raise AssertionError("the sharded launcher disagrees with the "
+                             "unsharded one")
+    return {"rel_diff": d, "loss": loss[0], "want": want,
+            "seconds": [t_one, t_two]}
+
+
+def phase_sharded(pk, ref):
+    world = 2
+    secs = {}
+    _release_host_memory()
+    t0 = time.perf_counter()
+    single = _single_rank_round(pk, world)
+    n_loc = MAIN_N // world
+    view = 4 * SH_M * 697_316_352
+    print(f"  reckoning: (a) a rank's (4, {n_loc}) shard is "
+          f"{MAIN_R * n_loc * 4 / 1e9:.2f} GB, three buffers a rank; (b) a "
+          f"1-layer (4, n) view is {view / 1e9:.2f} GB: on 1x2 a rank "
+          f"holds half of it, its rows' momentum at full width, its rows "
+          f"gathered for the local steps and a snapshot (doublebuf): "
+          f"~{3 * view / 1e9:.1f} GB + the steps' temporaries")
+    out = _spawn_ranks(_phase15_pair, world, single, timeout=900)
+    secs["a+b"] = time.perf_counter() - t0
+    a = [o["a"] for o in out]
+    b = [o["b"] for o in out]
+    fails = []      # every part runs; the phase fails at its end
+    worst = max(res["err_vs_single"] for res in a)
+    r_worst = max(res["r_err_vs_single"] for res in a)
+    if not (worst <= SHARD_TOL and r_worst <= SHARD_TOL):
+        fails.append(f"(a) fused_round_sharded against fused_round: "
+                     f"{worst:.3e} / r {r_worst:.3e} > {SHARD_TOL}")
+    if max(res["max_rel_err_vs_plain"] for res in a) > TOL:
+        fails.append("(a) fused_round_sharded against its plain version")
+    totals = {}
+    for key in b[0]:
+        runs = [res[key] for res in b]
+        peak = [r["peak_bytes"] for r in runs]
+        summary = {
+            "round_ms_by_rank": [[x["round_ms"] for x in r["rounds"]]
+                                 for r in runs],
+            "gather_s_by_rank": [r["gather_s"] for r in runs],
+            "all_reduce_s_by_rank": [r["all_reduce_s"] for r in runs],
+            "bytes_staged_by_rank": [r["bytes_staged"] for r in runs],
+            "staging_s_by_rank": [r["staging_s"] for r in runs],
+            "host_rss_bytes_by_rank": [r["host_rss_bytes"] for r in runs],
+            "peak_bytes_by_rank": peak, "peak_bytes_sum": sum(peak),
+            "card_bytes": torch.cuda.get_device_properties(0).total_memory,
+            "consensus_dist": [x["consensus_dist"]
+                               for x in runs[0]["rounds"]],
+            "single_consensus_dist": runs[0]["single_consensus_dist"],
+            "single_round_ms_by_rank": [r["single_round_ms"] for r in runs],
+            "max_abs_diff": max(r["max_abs_diff"] for r in runs),
+            "bar": SH_BAR[key.split()[-1]] * runs[0]["scale"],
+            "launches_by_rank": [r["launches"] for r in runs]}
+        print(f"  (b) {key}: " + json.dumps(summary))
+        if not summary["max_abs_diff"] <= summary["bar"]:
+            fails.append(f"(b) {key}: sharded against single-device "
+                         f"{summary['max_abs_diff']:.3e} > "
+                         f"{summary['bar']:.3e}")
+        dist_err = max(abs(g - w) / abs(w) for g, w in zip(
+            summary["consensus_dist"], summary["single_consensus_dist"]))
+        summary["consensus_dist_rel_diff"] = dist_err
+        if not dist_err <= SH_METRIC_BAR:
+            fails.append(f"(b) {key}: consensus_dist {dist_err:.3e} > "
+                         f"{SH_METRIC_BAR}")
+        for r in runs:
+            for name, v in r["launches"].items():
+                totals[name] = totals.get(name, 0) + v
+    print("  (b) launches over the sharded runs, both ranks "
+          + json.dumps(totals))
+    for name in SHARDED_KERNELS:
+        if totals.get(name, 0) == 0:
+            fails.append(f"(b) {name} was not launched by the sharded "
+                         "rounds")
+    t0 = time.perf_counter()
+    try:
+        launcher = _launcher_sharded()
+    except AssertionError as e:
+        launcher = None
+        fails.append(str(e))
+    secs["launcher"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hier = _spawn_ranks(_hier_rank, 8, timeout=600)
+    secs["hier"] = time.perf_counter() - t0
+    ulps = max(h["ulps"] for h in hier)
+    print(f"  (d) 2x2x2, 8 ranks, easgd precise, 3 rounds: column axes "
+          f"{hier[0]['col_axes']}; largest difference against "
+          f"single-device {max(h['max_abs_diff'] for h in hier):.3e} "
+          f"({ulps:.2f} of eps32 * max(|x|, 1)); metrics "
+          f"{max(h['metric_diff'] for h in hier):.3e}")
+    if ulps > HIER_ULP or max(h["metric_diff"] for h in hier) > 1e-6:
+        fails.append("(d) the hierarchical round disagrees")
+    tr = hier[0]["transport"]
+    staged = sum(r["bytes_staged"] for res in b for r in res.values())
+    print(f"  transport: backend {tr['backend']}, {out[0]['transport']['ranks_per_card']} "
+          f"ranks a card in (a)-(c), {tr['ranks_per_card']} in (d), "
+          f"{tr['cards']} card(s); bytes staged through the host: (a) "
+          f"{a[0]['bytes_staged_per_call']} a call a rank, (b) {staged} "
+          f"over both ranks, (d) {sum(h['bytes_staged'] for h in hier)}; "
+          f"NCCL: not verified (one card)")
+    print("  phase 15 seconds " + json.dumps(secs))
+    if fails:
+        raise AssertionError("phase 15: " + "; ".join(fails))
+    r0 = a[0]
+    bound_bytes = 3 * MAIN_R * n_loc * 4
+    ops = 2 * (2 * MAIN_R * MAIN_R * n_loc)
+    t_bytes = bound_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS * 1e3
+    row = {
+        "name": "fused_round_sharded", "route": "cuda",
+        "source": SHARDED_SOURCE, "replaces": SHARDED_REPLACES,
+        "launches": totals["fused_round_sharded"],
+        "max_abs_err": max(res["max_abs_err_vs_plain"] for res in a),
+        "max_rel_err": max(res["max_rel_err_vs_plain"] for res in a),
+        "tol_rel": TOL, "ms": r0["ms_alone"],
+        "plain_ms": r0["plain_ms_alone"], "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "ms_both_ranks": r0["ms_both_ranks"],
+        "all_reduce_ms": r0["all_reduce_ms"], "launch_ms": r0["launch_ms"],
+        "shape": [MAIN_R, n_loc], "err_vs_fused_round": worst,
+        "transport": tr["backend"]}
+    return {"row": row, "launches": totals, "seconds": secs,
+            "launcher": launcher}
+
+
+def _phase15_pair(rank, world, single):
+    """The two ranks of (a) and (b), in one process group."""
+    from repro_torch.launch import mesh as mm
+    t0 = time.perf_counter()
+    a = _sharded_kernel_rank(rank, world, single)
+    print(f"  (a) rank {rank} in {time.perf_counter() - t0:.1f} s: "
+          + json.dumps(a), flush=True)
+    torch.cuda.empty_cache()
+    b = _trainer_rank(rank, world)
+    return {"a": a, "b": b, "transport": mm.transport(DEV)}
+
+
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description="the port's smoke run on one "
+                                 "card (all phases when run with no "
+                                 "arguments)")
+    ap.add_argument("--phases", default="",
+                    help="comma-separated phases to run after phase 1 "
+                         "(a partial run prints no kernels record)")
+    args = ap.parse_args(argv)
+    only = {int(p) for p in args.phases.split(",") if p}
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device — the port's smoke run "
@@ -2887,6 +3620,18 @@ def main():
                         if "registers" in line or "spill" in line))
 
     secs = {"card": time.perf_counter() - t_start}
+    if only:
+        for ph in sorted(only):
+            t0 = time.perf_counter()
+            print(f"phase {ph} (partial run)")
+            if ph == 15:
+                res = phase_sharded(pk, ref)
+                print("  fused_round_sharded " + json.dumps(res["row"]))
+            else:
+                raise SystemExit(f"--phases: phase {ph} does not run alone")
+            secs[ph] = time.perf_counter() - t0
+        print("partial run, phase seconds " + json.dumps(secs))
+        return
 
     print("phase 2: kernels against their plain versions")
     t0 = time.perf_counter()
@@ -2982,6 +3727,19 @@ def main():
                 "MLP harness: quickstart + --fast suites (phase 14)"] = n
             rows[name]["launches"] += n
     rows["fused_round"]["pullpush_fused"] = harness["fused"]["full"]
+
+    print("phase 15: the sharded round on torch.distributed ranks")
+    t0 = time.perf_counter()
+    sharded = phase_sharded(pk, ref)
+    secs["sharded"] = time.perf_counter() - t0
+    for name, n in sharded["launches"].items():
+        if n and name in rows:
+            rows[name].setdefault("launches_by_path", {})[
+                "yi-6b sharded rounds, 1 layer, 2 ranks (phase 15)"] = n
+            rows[name]["launches"] += n
+    rows["fused_round_sharded"] = dict(sharded["row"], launches_by_path={
+        "yi-6b sharded rounds, 1 layer, 2 ranks (phase 15)":
+            sharded["row"]["launches"]})
     secs["total"] = time.perf_counter() - t_start
     print("phase seconds " + json.dumps(secs))
 

@@ -28,7 +28,14 @@ reference:
 ``use_kernel`` defaults to True exactly when the tensors are on ``cuda``.
 fp32 matmuls run at full precision: TF32 would break the fast path's
 eps32-derived floor, so it is switched off when this module is imported.
-Multi-GPU execution (``shard``) is not ported yet and must stay ``None``.
+
+Sharded execution (``shard``, a ``ShardedLayout``): every method then
+receives the full-R rows of this rank's column shard, ``(R, n_local)``,
+and every column contraction — the Gram, the gap Gram, the distances and
+norms — is completed by one ``_colsum``, an all-reduce over the column
+group; the (R, R) coefficient math and the mix stay shard-local. The
+kernel mode runs ``fused_round_sharded`` there. The worker-row gather at
+the round boundary belongs to ``train.trainer.make_sharded_round_step``.
 """
 from __future__ import annotations
 
@@ -119,6 +126,20 @@ def tree_at(tree, i):
 
 
 @dataclass(frozen=True)
+class ShardedLayout:
+    """The mesh partition of the flat view on one rank: worker rows over
+    ``row_axes`` (``rows`` shards), columns over ``col_axes`` (``cols``
+    shards; several axes on a hierarchical mesh), and ``col_group``, this
+    rank's ``launch.mesh.Group`` over ``col_axes``, which completes every
+    column contraction."""
+    row_axes: Tuple[str, ...] = ()
+    col_axes: Tuple[str, ...] = ()
+    rows: int = 1
+    cols: int = 1
+    col_group: Any = None
+
+
+@dataclass(frozen=True)
 class FlatLayout:
     """Static description of the flat view (hashable)."""
     paths: Tuple[Tuple[str, ...], ...]   # leaf key paths, flatten order
@@ -149,11 +170,9 @@ class ConsensusEngine:
     precise: bool = False         # torch path: exact gap-space stages
     eps: float = 1e-12
     device: str = "cuda"          # where the flat view lives
-    shard: Optional[Any] = None   # multi-GPU layout: not ported yet
-
-    def __post_init__(self):
-        if self.shard is not None:
-            raise NotImplementedError("not yet ported: sharded engine")
+    # set (dataclasses.replace) by the sharded round: inputs are then
+    # (R, n_local) column shards; None = the whole (R, n) view
+    shard: Optional[ShardedLayout] = None
 
     # -- construction -------------------------------------------------------
 
@@ -242,11 +261,21 @@ class ConsensusEngine:
         return torch.eye(self.layout.R, dtype=torch.float32,
                          device=self.device)
 
+    def _colsum(self, partial, *, async_op=False):
+        """Complete a column contraction: the identity on the whole view,
+        the sum over the column group on a shard — the only collective the
+        engine issues. ``async_op`` returns a ``launch.mesh.Pending``."""
+        from repro_torch.launch import mesh as _mesh
+        if self.shard is not None and self.shard.cols > 1:
+            return _mesh.all_reduce(partial, self.shard.col_group,
+                                    async_op=async_op)
+        return _mesh.done(partial) if async_op else partial
+
     def gram(self, flat):
         """(R, R) uncentered Gram. Only zero-sum quadratic forms of it are
         meaningful; their fp32 noise floor is ~eps32 * max diag."""
         f = flat.to(torch.float32)
-        return f @ f.T
+        return self._colsum(f @ f.T)
 
     @staticmethod
     def sq_forms(G, V):
@@ -258,21 +287,24 @@ class ConsensusEngine:
         """x <- W @ x (one GEMM over the flat view)."""
         return W.to(torch.float32) @ flat
 
-    def stage_comm(self, chunk, T):
+    def stage_comm(self, chunk, T, *, async_op=False):
         """The stage's column contraction over a column chunk
         ``x[:, a:b]`` of the flat view — the piece the overlap modes
-        dispatch before the round boundary. Matched to ``stage``'s mode:
-        block-centered ``partial_gram`` read in place (kernel), gap Gram
-        (precise), ``f @ f.T`` (fast). Disjoint chunks add up to the
-        full-width contraction's zero-sum forms, so ``sum_j
-        stage_comm(x[:, j], T)`` feeds ``stage(x, T, c0, c1, gram=...)``."""
+        dispatch before the round boundary — completed by ``_colsum``.
+        Matched to ``stage``'s mode: block-centered ``partial_gram`` read
+        in place (kernel), gap Gram (precise), ``f @ f.T`` (fast).
+        Disjoint chunks add up to the full-width contraction's zero-sum
+        forms, so ``sum_j stage_comm(x[:, j], T)`` feeds ``stage(x, T, c0,
+        c1, gram=...)``. ``async_op`` returns the all-reduce's
+        ``Pending``."""
         if self.use_kernel:
-            return pk.partial_gram(chunk)
-        f = chunk.to(torch.float32)
-        if self.precise:
-            g = T.to(torch.float32) @ f - f
-            return g @ g.T
-        return f @ f.T
+            part = pk.partial_gram(chunk)
+        else:
+            f = chunk.to(torch.float32)
+            if self.precise:
+                f = T.to(torch.float32) @ f - f
+            part = f @ f.T
+        return self._colsum(part, async_op=async_op)
 
     def _gap_stage(self, flat, T, c0, c1, *, gram=None):
         """Exact (``precise=True``) stage in gap space: ``tx = T x``,
@@ -287,7 +319,7 @@ class ConsensusEngine:
         Gg = gram
         if Gg is None:
             g = tx - flat
-            Gg = g @ g.T
+            Gg = self._colsum(g @ g.T)
         r = torch.sqrt(torch.clamp(torch.diagonal(Gg), min=0.0))
         coef = c0 + c1 / torch.clamp(r, min=self.eps)
         new = tx + (1.0 - coef)[:, None] * (flat - tx)
@@ -319,7 +351,14 @@ class ConsensusEngine:
 
         if self.use_kernel:
             out = flat if out is None else out
-            if gram is None:
+            if gram is None and self.shard is not None \
+                    and self.shard.cols > 1:
+                # column shard: partial Gram, its all-reduce over the
+                # column group, coefficients and the mix
+                new, r, G = pk.fused_round_sharded(
+                    flat, T, c0, c1, group=self.shard.col_group,
+                    eps=self.eps, out=out, base=base)
+            elif gram is None:
                 new, r, G = pk.fused_round(flat, T, c0, c1, eps=self.eps,
                                            out=out, base=base)
             else:
@@ -360,7 +399,7 @@ class ConsensusEngine:
         if self.layout.aux:
             T = torch.cat([T[:M], eye[M:]], dim=0)
         g = T @ flat - flat                       # worker rows: mean - x_m
-        Gg = g @ g.T
+        Gg = self._colsum(g @ g.T)
         r = torch.sqrt(torch.clamp(torch.diagonal(Gg), min=0.0))
         inv = 1.0 / torch.clamp(r, min=self.eps)
         units = -g[:M] * inv[:M, None]            # (x_m - mean)/r_m
@@ -383,7 +422,8 @@ class ConsensusEngine:
         Returns ``(new_flat, r, pre_dist, post_dist)`` like ``stage``."""
         M = self.layout.M
         v = vec.to(torch.float32)
-        r = torch.sqrt(torch.clamp(torch.sum(v * v, dim=1), min=0.0))
+        r = torch.sqrt(torch.clamp(self._colsum(torch.sum(v * v, dim=1)),
+                                   min=0.0))
         upd = (cvec[:M] / torch.clamp(r, min=self.eps))[:, None] * v
         pre = torch.mean(self.dists_to_mean(flat))
         new = flat.clone()
@@ -396,5 +436,5 @@ class ConsensusEngine:
         M = self.layout.M
         w = flat[:M].to(torch.float32)
         g = torch.mean(w, dim=0, keepdim=True) - w
-        d2 = torch.sum(g * g, dim=1)
+        d2 = self._colsum(torch.sum(g * g, dim=1))
         return torch.sqrt(torch.clamp(d2, min=0.0))

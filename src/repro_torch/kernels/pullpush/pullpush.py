@@ -18,6 +18,14 @@ Replaces ``src/repro/kernels/pullpush/pullpush.py``:
   summed ``partial_gram`` chunks of the overlap modes): ``gram_coef`` on
   the Gram as a one-block workspace, then one ``mix_shard`` launch — or,
   with ``base``, one ``stale_mix`` launch.
+* ``fused_round_sharded`` ← ``fused_round_sharded`` (a composite over
+  ``partial_gram`` and ``mix_shard`` with a ``lax.psum`` between them):
+  the stage on one rank's (R, n_local) column shard — ``pp_partial_gram``
+  and ``gram_coef``'s fixed-order sum, the (R, R) Gram's all-reduce over
+  the column group (``launch.mesh.all_reduce``), then one ``gram_coef``
+  launch on the completed Gram and one ``mix_shard`` (or ``stale_mix``)
+  launch. Bound: memory, 3·R·n_local·4 bytes (x read for the Gram, read
+  and written by the mix).
 * ``stale_mix``: the overlap modes' stale epilogue ``q + (mix(s) − s)``
   (``src/repro/train/trainer.py:387, :449``, three (R, n) passes there)
   as one pass. Bound: memory, 3·R·n·4 bytes (s and q read, out written).
@@ -45,8 +53,8 @@ CUDA tensor it launches the kernel or raises — there is no fallback. The
 shared library is built from ``csrc/pullpush.cu`` with ``nvcc`` on first
 CUDA use (``build()``, through ``kernels/_build.py``), never at import.
 ``LAUNCHES`` counts kernel launches per kernel; ``fused_round``,
-``mix_from_gram`` and ``sq_dist`` count their calls (each is more than
-one launch).
+``fused_round_sharded``, ``mix_from_gram`` and ``sq_dist`` count their
+calls (each is more than one launch).
 """
 from __future__ import annotations
 
@@ -57,8 +65,9 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.pullpush.ref import (
-    apply_plain, fused_round_plain, gram_coef_plain, mix_from_gram_plain,
-    mix_shard_plain, partial_gram_plain, sq_dist_plain, stale_mix_plain,
+    apply_plain, fused_round_plain, fused_round_sharded_plain,
+    gram_coef_plain, mix_from_gram_plain, mix_shard_plain,
+    partial_gram_plain, sq_dist_plain, stale_mix_plain,
 )
 
 MAX_ROWS = 32          # the kernels keep one column of every row in registers
@@ -71,7 +80,7 @@ PAIR_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = {"fused_round": 0, "partial_gram": 0, "gram_coef": 0,
             "mix_shard": 0, "mix_from_gram": 0, "stale_mix": 0,
-            "sq_dist": 0, "apply_update": 0}
+            "fused_round_sharded": 0, "sq_dist": 0, "apply_update": 0}
 
 
 def _bind(lib):
@@ -312,6 +321,36 @@ def fused_round(flat, T, c0, c1, eps=1e-12, out=None, base=None):
     with torch.cuda.device(flat.device):
         ws = _launch_partial_gram(flat, _vec(flat))
         G, r, coef = _launch_gram_coef(ws, T, c0, c1, eps)
+        _launch_mix(flat, T, coef, out, base)
+    return out, r, G
+
+
+def fused_round_sharded(flat, T, c0, c1, *, group, eps=1e-12, out=None,
+                        base=None):
+    """One consensus stage on this rank's (R, n_local) column shard of the
+    flat view: the block-centered partial Gram, its sum over ``group``
+    (a ``launch.mesh.Group``, the column group), then ``r``, ``coef`` and
+    the mix of the shard (the stale epilogue with ``base``, as in
+    ``fused_round``). Every rank of the group gets the same Gram, ``r``
+    and coefficients. ``out`` may be ``flat`` (in place). Returns ``(out,
+    r, G)`` with the completed Gram."""
+    from repro_torch.launch.mesh import all_reduce
+    _check_flat(flat)
+    R = flat.shape[0]
+    T = _small(T, (R, R), flat)
+    c0 = _small(c0, (R,), flat)
+    c1 = _small(c1, (R,), flat)
+    base = _check_base(base, flat)
+    out = _check_out(out, flat, base)
+    reduce = lambda G: all_reduce(G, group)
+    if flat.device.type == "cpu":
+        return fused_round_sharded_plain(flat, T, c0, c1, reduce, eps,
+                                         out=out, base=base)
+    LAUNCHES["fused_round_sharded"] += 1
+    with torch.cuda.device(flat.device):
+        G, _, _ = _launch_gram_coef(_launch_partial_gram(flat, _vec(flat)))
+        G = reduce(G)
+        _, r, coef = _launch_gram_coef(G[None], T, c0, c1, eps)
         _launch_mix(flat, T, coef, out, base)
     return out, r, G
 

@@ -19,7 +19,11 @@ holds each kernel against. They mirror the phases of the reference
   - s)`` (``src/repro/train/trainer.py:387``), in the same rounding;
 * ``mix_from_gram_plain`` — a stage from a given Gram
   (``pullpush.py::mix_from_gram``): ``gram_coef_plain``, then the mix or
-  the stale epilogue.
+  the stale epilogue;
+* ``fused_round_sharded_plain`` — a stage on one column shard
+  (``pullpush.py::fused_round_sharded``): ``partial_gram_plain``, the
+  Gram completed over the column group by ``reduce``, then
+  ``mix_from_gram_plain``.
 
 and the tree path's pair, twins of the reference's ``ref.py::sq_dist_ref``
 and ``apply_ref``:
@@ -108,6 +112,16 @@ def mix_from_gram_plain(flat, T, c0, c1, G, eps=1e-12, out=None, base=None):
     if base is None:
         return mix_shard_plain(flat, T, coef, out=out), r, G
     return stale_mix_plain(flat, T, coef, base, out=out), r, G
+
+
+def fused_round_sharded_plain(flat, T, c0, c1, reduce, eps=1e-12, out=None,
+                              base=None):
+    """One consensus stage on a (R, n_local) column shard: the partial
+    Gram, ``reduce(G)`` (the sum over the column group, in place), then
+    the coefficients and the mix (the stale epilogue with ``base``).
+    Returns ``(out, r, G)`` with the completed Gram."""
+    G = reduce(partial_gram_plain(flat))
+    return mix_from_gram_plain(flat, T, c0, c1, G, eps, out=out, base=base)
 
 
 def fused_round_plain(flat, T, c0, c1, eps=1e-12, out=None):

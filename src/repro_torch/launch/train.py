@@ -14,15 +14,28 @@ tests do; it never falls back to the CPU.
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \
       --workers 4 --tau 4 --alpha 0.1 --lam 0.5 --steps 16 --seq 16 --batch 2
 
+``--sharded`` (the flat worker-rows x columns mesh of all ranks) and
+``--mesh W,F,M`` (hierarchical) run the sharded round
+(``train.trainer.make_sharded_round_step``) with one process per rank:
+
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+      --sharded --arch yi-6b --smoke --workers 4 --steps 16 --seq 16
+
+Each rank builds the same state from ``--seed``, keeps its shard, and
+draws the whole ``(tau, M, B, S)`` batch of a round from the same
+generator, keeping its own worker rows, so it sees the single-device
+run's data bit for bit. The transport is nccl with a card a rank, gloo
+when ranks share a card (``launch/mesh.py``). Rank 0 alone prints.
+
 The round loop is the plain ``for spec in clock.rounds`` — the reference's
-supervisor with no membership and no chaos plan, bit for bit. The sharded
-rounds, the supervisor (``--elastic-drop``, ``--quorum``, ``--chaos``),
-autotune and checkpoints are not ported yet: their flags exit with "not
-yet ported".
+supervisor with no membership and no chaos plan, bit for bit. The
+supervisor (``--elastic-drop``, ``--quorum``, ``--chaos``), autotune and
+checkpoints are not ported yet: their flags exit with "not yet ported".
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
@@ -37,6 +50,7 @@ from repro_torch.optim import make_optimizer
 from repro_torch.train import (
     RoundClock, RoundMetricsLogger, TrainState, average_params,
     init_train_state, make_ddp_step, make_round_step,
+    make_sharded_round_step, shard_train_state, sharded_average_params,
 )
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -119,21 +133,39 @@ def _parser():
     ap.add_argument("--legacy-metrics", action="store_true",
                     help="also write the boolean 'stale' next to "
                          "'staleness' in --log-every-round records")
+    ap.add_argument("--sharded", action="store_true",
+                    help="run the round on a (worker rows x columns) mesh "
+                         "of all ranks (launch.mesh.make_flat_engine_mesh; "
+                         "flat engine only); start one process a rank with "
+                         "torchrun")
+    ap.add_argument("--mesh", default="", metavar="W,F,M",
+                    help="workers,fsdp,model: the round on a hierarchical "
+                         "mesh of W*F*M ranks (launch.mesh.make_hier_"
+                         "engine_mesh; flat engine only): worker rows over "
+                         "the first axis, flat-view columns over fsdp x "
+                         "model")
     # reference flags whose paths are not ported yet
-    for flag in ("--sharded", "--autotune"):
-        ap.add_argument(flag, action="store_true", help=NOT_PORTED)
-    for flag in ("--mesh", "--chaos", "--tune-plan", "--ckpt",
-                 "--elastic-drop"):
+    ap.add_argument("--autotune", action="store_true", help=NOT_PORTED)
+    for flag in ("--chaos", "--tune-plan", "--ckpt", "--elastic-drop"):
         ap.add_argument(flag, default="", help=NOT_PORTED)
     ap.add_argument("--quorum", type=int, default=0, help=NOT_PORTED)
     return ap
 
 
+def _can_start():
+    """Whether this process can join a process group: one exists, or the
+    environment names this rank, the world and the rendezvous, as
+    torchrun's does."""
+    import torch.distributed as dist
+    return dist.is_initialized() or all(
+        k in os.environ
+        for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"))
+
+
 def main(argv=None, *, device="cuda"):
     ap = _parser()
     args = ap.parse_args(argv)
-    for flag, used in (("--sharded", args.sharded), ("--mesh", args.mesh),
-                       ("--chaos", args.chaos),
+    for flag, used in (("--chaos", args.chaos),
                        ("--elastic-drop", args.elastic_drop),
                        ("--quorum", args.quorum),
                        ("--autotune", args.autotune),
@@ -141,9 +173,49 @@ def main(argv=None, *, device="cuda"):
         if used:
             ap.error(f"{flag}: {NOT_PORTED}")
     mspec = method_registry.get_method(args.consensus)
+    if (args.sharded or args.mesh) and (args.engine != "flat"
+                                        or not mspec.communicates):
+        ap.error("--sharded/--mesh require --engine flat and a "
+                 "communicating consensus method (the sharded round runs "
+                 "on the flat engine's (R, n) view)")
+    if args.sharded and args.mesh:
+        ap.error("--sharded and --mesh are mutually exclusive (--mesh IS "
+                 "a sharded run on an explicit workers,fsdp,model shape)")
+    mesh_shape = ()
+    if args.mesh:
+        try:
+            mesh_shape = tuple(int(x) for x in args.mesh.split(","))
+            if len(mesh_shape) != 3:
+                raise ValueError
+        except ValueError:
+            ap.error("--mesh expects three comma-separated ints: "
+                     "workers,fsdp,model (e.g. --mesh 2,2,2)")
+    sharded = args.sharded or bool(mesh_shape)
+    if sharded and (args.overlap == "staleness_k" or args.elastic):
+        ap.error("--sharded/--mesh with --overlap staleness_k or "
+                 f"--elastic: {NOT_PORTED} (it comes with ring_gather)")
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run the "
                            "launcher on the CPU")
+    mesh = plan = None
+    started = False
+    if sharded:
+        import torch.distributed as dist
+
+        from repro_torch.launch import mesh as mesh_mod
+        if not _can_start():
+            ap.error("--sharded/--mesh: no process group to join: "
+                     + mesh_mod.HOW_TO_START)
+        started = not dist.is_initialized()
+        device = mesh_mod.start(device)
+        if mesh_shape:
+            mesh, plan = mesh_mod.make_hier_engine_mesh(*mesh_shape,
+                                                        device=device)
+        else:
+            mesh, plan = mesh_mod.make_flat_engine_mesh(args.workers,
+                                                        device=device)
+    rank0 = mesh is None or mesh.rank == 0
+    say = print if rank0 else (lambda *a, **k: None)
 
     cfg = get_arch(args.arch)
     if args.smoke:
@@ -158,8 +230,8 @@ def main(argv=None, *, device="cuda"):
     model = build_model(cfg)
     n_params = sum(leaf.numel()
                    for _, leaf in tree_items(model.init(None, "meta")))
-    print(f"arch={cfg.name} params={n_params/1e6:.1f}M workers={args.workers} "
-          f"tau={args.tau} alpha={args.alpha} lam={args.lam} device={device}")
+    say(f"arch={cfg.name} params={n_params/1e6:.1f}M workers={args.workers} "
+        f"tau={args.tau} alpha={args.alpha} lam={args.lam} device={device}")
 
     task = TokenTask(vocab_size=cfg.vocab_size, seq_len=args.seq)
     dcfg = DPPFConfig(alpha=args.alpha, lam=args.lam, tau=args.tau,
@@ -176,7 +248,7 @@ def main(argv=None, *, device="cuda"):
                                    total_steps=args.steps, warmup=args.warmup)
     logger = RoundMetricsLogger(args.log_every_round,
                                 legacy=args.legacy_metrics) \
-        if args.log_every_round else None
+        if args.log_every_round and rank0 else None
 
     t0 = time.time()
     launches0 = dict(LAUNCHES)
@@ -198,28 +270,44 @@ def main(argv=None, *, device="cuda"):
     else:
         state = init_train_state(model.init, opt, dcfg, args.workers, gen,
                                  device=device)
-        step = make_round_step(model.loss, opt, dcfg, clock=clock,
-                               sam_rho=args.sam_rho)
+        own = slice(None)
+        if mesh is not None:
+            from repro_torch.launch.mesh import transport
+            say(f"sharded round on mesh {mesh.shape} "
+                f"(transport {transport(device)['backend']})")
+            state = shard_train_state(state, mesh, plan, dcfg=dcfg)
+            step = make_sharded_round_step(model.loss, opt, dcfg, mesh=mesh,
+                                           plan=plan, clock=clock,
+                                           sam_rho=args.sam_rho)
+            m_loc = args.workers // mesh.axis_size(plan.worker_axes)
+            first = mesh.lin_index(plan.worker_axes) * m_loc
+            own = slice(first, first + m_loc)
+        else:
+            step = make_round_step(model.loss, opt, dcfg, clock=clock,
+                                   sam_rho=args.sam_rho)
         for spec in clock.rounds:
+            # every rank draws the whole round batch and keeps its rows
             batch = make_round_batch(task, args.seed, args.workers, spec.tau,
                                      spec.start, args.batch, cfg,
-                                     device=device)
+                                     device="cpu")
+            batch = {k: v[:, own].to(device) for k, v in batch.items()}
             state, m = step(state, batch)
             if spec.index % args.log_every == 0:
-                print(f"round {spec.index:4d} "
+                say(f"round {spec.index:4d} "
                       f"(step {spec.start + spec.tau:5d} tau {spec.tau:3d}) "
                       f"loss {float(m['train_loss']):.4f} "
                       f"consensus_dist {float(m['consensus_dist']):.3f} "
                       f"lam_t {float(m['lam_t']):.3f}")
             if logger is not None:
                 logger(spec, m)
-        print(f"comm rounds {clock.total_rounds} "
+        say(f"comm rounds {clock.total_rounds} "
               f"(fixed tau={args.tau} would take {clock.fixed_rounds}; "
               f"all-reduces saved {clock.fixed_rounds - clock.total_rounds})"
               " kernel launches " + " ".join(
                   f"{k}={v - launches0[k]}" for k, v in LAUNCHES.items()
                   if v > launches0[k]))
-        final = average_params(state)
+        final = average_params(state) if mesh is None \
+            else sharded_average_params(state, mesh, plan)
 
     # held-out eval
     eval_batch = make_lm_batch(task, args.seed + 999, 0, 10 ** 6,
@@ -228,8 +316,11 @@ def main(argv=None, *, device="cuda"):
         loss, _ = model.loss(final, eval_batch)
     if logger is not None:
         logger.close()
-        print(f"round metrics -> {args.log_every_round}")
-    print(f"eval loss {float(loss):.4f}  wall {time.time() - t0:.1f}s")
+        say(f"round metrics -> {args.log_every_round}")
+    say(f"eval loss {float(loss):.4f}  wall {time.time() - t0:.1f}s")
+    if started:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return float(loss)
 
 

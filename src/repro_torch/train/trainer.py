@@ -56,7 +56,19 @@ optimizer-state rows kept in page-locked host memory (allocated once,
 reused every round): no device memory, four row copies over PCIe a
 frozen row a round.
 
-The sharded round is not ported yet.
+``make_sharded_round_step`` runs the same round on a mesh of
+``torch.distributed`` ranks (``launch/mesh.py``), with the reference's
+collective placement: each rank holds its worker rows' column shard of the
+view (``shard_train_state``), the tau local steps run on its own rows'
+column-gathered parameters with no worker-axis collective, and at the
+boundary the rows are gathered per column shard into the full (R, n_local)
+view, whose column contractions the engine completes over the column
+group. ``staleness1`` reads the row-replicated snapshot; ``doublebuf``
+keeps only its own rows valid (in their place of an (R, n_local) buffer,
+whose other rows each chunk's row gather fills) and issues each chunk's
+gather and partial-Gram all-reduce before a segment of the local steps,
+waiting at the boundary. Sharded ``staleness_k`` and elastic rounds are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -69,7 +81,7 @@ import torch
 from repro_torch.configs.base import DPPFConfig
 from repro_torch.core import consensus
 from repro_torch.core.engine import (
-    ConsensusEngine, tree_at, tree_from_items, tree_items,
+    ConsensusEngine, ShardedLayout, tree_at, tree_from_items, tree_items,
 )
 from repro_torch.core.methods import get_method
 from repro_torch.core.pullpush import tree_mean0
@@ -213,6 +225,37 @@ def _tau_of(batch):
     return next(iter(batch.values())).shape[0]
 
 
+def _round_clock(clock, dcfg, base_lr, total_steps, warmup, who):
+    if clock is not None:
+        return clock
+    if base_lr is None or total_steps is None:
+        raise ValueError(f"{who} needs a RoundClock (clock=...) or the "
+                         "legacy base_lr/total_steps pair")
+    return RoundClock.from_config(dcfg, base_lr=base_lr,
+                                  total_steps=total_steps, warmup=warmup)
+
+
+def _local_steps(loss, opt, worker, opt_state, batch, t0, steps, clock,
+                 sam_rho, losses, gns):
+    """The round's local steps ``steps`` (indices into the batch's leading
+    dim) for every worker row ``worker(m)``, m < ``losses.shape[1]``: each
+    row and its optimizer state step in place; losses and gradient norms
+    land in ``losses[s, m]`` / ``gns[s, m]``."""
+    for s in steps:
+        lr = clock.lr_at(t0 + s)
+        for m in range(losses.shape[1]):
+            p_m = worker(m)
+            b = {k: v[s, m] for k, v in batch.items()}
+            if sam_rho > 0:
+                (loss_v, _), g = sam_gradient(loss, p_m, b, sam_rho)
+            else:
+                (loss_v, _), g = value_and_grad(loss, p_m, b)
+            losses[s, m] = loss_v
+            gns[s, m] = grad_norm(g)
+            opt.step(p_m, g, worker_state(opt_state, m), lr)
+            del g
+
+
 def make_round_step(loss_fn, opt: Optimizer, dcfg: DPPFConfig, *,
                     clock: Optional[RoundClock] = None,
                     base_lr: Optional[float] = None,
@@ -224,12 +267,8 @@ def make_round_step(loss_fn, opt: Optimizer, dcfg: DPPFConfig, *,
     ``tau_r`` this round's length. Returns ``round_step(state, batch) ->
     (state, metrics)``; the state's flat view and optimizer state are
     updated in place."""
-    if clock is None:
-        if base_lr is None or total_steps is None:
-            raise ValueError("make_round_step needs a RoundClock (clock=...) "
-                             "or the legacy base_lr/total_steps pair")
-        clock = RoundClock.from_config(dcfg, base_lr=base_lr,
-                                       total_steps=total_steps, warmup=warmup)
+    clock = _round_clock(clock, dcfg, base_lr, total_steps, warmup,
+                         "make_round_step")
     mode = dcfg.overlap
     spec = get_method(dcfg.consensus)
     lpf = spec.push_source == "filtered_grad"
@@ -285,19 +324,8 @@ def make_round_step(loss_fn, opt: Optimizer, dcfg: DPPFConfig, *,
         kept = {m: [keep((i, j), t) for j, t in enumerate(
                     [params[m]] + leaves(worker_state(state.opt, m)))]
                 for i, m in enumerate(frozen)}
-        for s in range(tau):
-            lr = clock.lr_at(state.t + s)
-            for m in range(M):
-                p_m = worker(m)
-                b = {k_: v[s, m] for k_, v in batch.items()}
-                if sam_rho > 0:
-                    (loss_v, _), g = sam_gradient(loss, p_m, b, sam_rho)
-                else:
-                    (loss_v, _), g = value_and_grad(loss, p_m, b)
-                losses[s, m] = loss_v
-                gns[s, m] = grad_norm(g)
-                opt.step(p_m, g, worker_state(state.opt, m), lr)
-                del g
+        _local_steps(loss, opt, worker, state.opt, batch, state.t,
+                     range(tau), clock, sam_rho, losses, gns)
         for m, rows in kept.items():
             for dst, src in zip([params[m]]
                                 + leaves(worker_state(state.opt, m)), rows):
@@ -445,6 +473,375 @@ def _elastic_gates(engine, dcfg, new, q, eff, snap):
                 cols[m] += (mean - cols[m]) * dcfg.elastic_catchup
     if float(snap["sync"]) == 0:
         new.copy_(q)
+
+
+# ---------------------------------------------------------------------------
+# the sharded round (torch.distributed)
+# ---------------------------------------------------------------------------
+
+SHARDED_NOT_PORTED = ("not yet ported: sharded staleness_k and elastic "
+                      "rounds (they come with launch.mesh.ring_gather)")
+
+
+@dataclass(frozen=True)
+class _Shard:
+    """This rank's block of the flat view on a mesh: rows
+    ``[r_off, r_off + m_loc)`` of the M worker rows (plus all aux rows),
+    columns ``[c_off, c_off + n_loc)``."""
+    layout: ShardedLayout
+    m_loc: int
+    n_loc: int
+    r_off: int
+    c_off: int
+    row_group: Any
+
+
+def _shard_of(engine, mesh, plan) -> _Shard:
+    from repro_torch.launch.mesh import flat_col_axes
+    L = engine.layout
+    row_axes = tuple(plan.worker_axes)
+    rows = mesh.axis_size(row_axes)
+    if L.M % rows:
+        raise ValueError(f"workers ({L.M}) not divisible over worker axes "
+                         f"{row_axes} (size {rows})")
+    col_axes = flat_col_axes(mesh, L.n, plan)
+    cols = mesh.axis_size(col_axes)
+    m_loc, n_loc = L.M // rows, L.n // cols
+    return _Shard(ShardedLayout(row_axes=row_axes, col_axes=col_axes,
+                                rows=rows, cols=cols,
+                                col_group=mesh.group(col_axes)),
+                  m_loc, n_loc, mesh.lin_index(row_axes) * m_loc,
+                  mesh.lin_index(col_axes) * n_loc, mesh.group(row_axes))
+
+
+def _refuse_unported(dcfg):
+    if dcfg is not None and (dcfg.overlap == "staleness_k"
+                             or dcfg.elastic):
+        raise NotImplementedError(
+            f"{SHARDED_NOT_PORTED}: overlap={dcfg.overlap!r}, "
+            f"elastic={dcfg.elastic}")
+
+
+def make_sharded_round_step(loss_fn, opt: Optimizer, dcfg: DPPFConfig, *,
+                            mesh, plan, clock: Optional[RoundClock] = None,
+                            base_lr: Optional[float] = None,
+                            total_steps: Optional[int] = None,
+                            warmup: int = 0, sam_rho: float = 0.0):
+    """Build the DPPF round on a mesh of ranks (flat engine only): worker
+    rows of the (R, n) view over ``plan.worker_axes``, columns over
+    ``plan.fsdp_axes + plan.model_axes`` (``launch.mesh.flat_col_axes``).
+
+    The state is this rank's shard (``shard_train_state``); the batch
+    holds this rank's worker rows, ``(tau_r, M / rows, ...)``. Collective
+    placement, as in the reference: the local steps run on this rank's
+    rows gathered over the column group (no worker-axis collective); the
+    boundary gathers the rows per column shard (the paper's one consensus
+    all-reduce), and the engine completes its Gram over the column group;
+    the (R, R) coefficient math and the mix stay shard-local, and this
+    rank's rows are copied back out. ``staleness1`` mixes the
+    row-replicated snapshot. ``doublebuf`` carries the snapshot
+    row-sharded — this rank's rows and the aux rows are valid, in their
+    place of an (R, n_local) buffer — and before each of its segments of
+    the local steps it issues one column chunk's row gather into that
+    buffer, and once that has landed the chunk's partial-Gram all-reduce,
+    both asynchronous; the boundary waits for them and runs only the
+    coefficients and the mix; round 0 is an exact consensus of the fresh
+    view. The snapshot is gathered in place, not beside a row-sharded
+    copy: two ranks on one card hold one (R, n_local) buffer each, not
+    two. Returns ``round_step(state, batch) ->
+    (state, metrics)``; the shard and optimizer state are updated in
+    place."""
+    from repro_torch.launch.mesh import all_gather, all_reduce
+    _refuse_unported(dcfg)
+    clock = _round_clock(clock, dcfg, base_lr, total_steps, warmup,
+                         "make_sharded_round_step")
+    mode = dcfg.overlap
+    spec = get_method(dcfg.consensus)
+    lpf = spec.push_source == "filtered_grad"
+
+    def round_step(state: TrainState, batch):
+        engine = state.engine
+        if engine is None:
+            raise ValueError("make_sharded_round_step requires the flat "
+                             "engine (DPPFConfig.engine='flat')")
+        L = engine.layout
+        M, aux = L.M, L.aux
+        sh = _shard_of(engine, mesh, plan)
+        m_loc, n_loc = sh.m_loc, sh.n_loc
+        s_engine = dataclasses.replace(engine, shard=sh.layout)
+        blk, snap = state.params, state.snap
+        if tuple(blk.shape) != (m_loc + aux, n_loc):
+            raise ValueError(f"state.params {tuple(blk.shape)} is not this "
+                             f"rank's ({m_loc + aux}, {n_loc}) shard: "
+                             "place the state with shard_train_state")
+        if mode in ("staleness1", "doublebuf") and \
+                tuple(snap["x"].shape) != (L.R, n_loc):
+            raise ValueError(f"{mode}'s snapshot is an (R, n_local) "
+                             "buffer: place it with shard_train_state")
+        tau = _tau_of(batch)
+        if next(iter(batch.values())).shape[1] != m_loc:
+            raise ValueError(f"the batch holds {m_loc} worker rows a rank "
+                             "(this rank's rows of the (tau, M, ...) batch)")
+        round_idx = state.round
+        lam_t = clock.lam_at(round_idx)
+        ps = clock.pull_scale_at(round_idx)
+        stale = state.t > 0
+        losses = torch.empty((tau, m_loc), dtype=torch.float32,
+                             device=blk.device)
+        gns = torch.empty_like(losses)
+        p0 = blk[:m_loc].clone() if lpf else None
+        # this rank's rows at full width: a view of blk with one column
+        # shard, else a gathered buffer whose own columns are the block's
+        # rows; the block's storage is then released for the local steps
+        # (the round consumes its state, as the reference's donated
+        # buffers) and refilled after them
+        w_full = all_gather(blk[:m_loc], sh.layout.col_group, dim=1)
+        released = None
+        if sh.layout.cols > 1:
+            released = (blk[m_loc:].clone(), blk.untyped_storage().nbytes())
+            blk.untyped_storage().resize_(0)
+        loss = lambda row, b: loss_fn(engine.unflatten_row(row), b)
+        worker = lambda m: w_full[m]
+        step = lambda r: _local_steps(loss, opt, worker, state.opt, batch,
+                                      state.t, r, clock, sam_rho, losses,
+                                      gns)
+        if mode == "doublebuf" and stale:
+            s_full, gram = _doublebuf_steps(s_engine, sh, dcfg, lam_t, ps,
+                                            snap, tau, step)
+        else:
+            step(range(tau))
+
+        with torch.no_grad():
+            if released is not None:
+                aux_rows, nbytes = released
+                blk.untyped_storage().resize_(nbytes)
+                blk[:m_loc].copy_(w_full[:, sh.c_off:sh.c_off + n_loc])
+                blk[m_loc:].copy_(aux_rows)
+                del aux_rows, released
+            del w_full
+            l_last = all_gather(losses[-1], sh.row_group)
+            g_last = all_gather(gns[-1], sh.row_group)
+            push_vec, cstate = None, state.cstate
+            if lpf:
+                delta = all_gather(p0.sub_(blk[:m_loc]), sh.row_group)
+                push_vec = spec.filter_mu * state.cstate["g_ema"] \
+                    + (1.0 - spec.filter_mu) * delta
+                cstate = {"g_ema": push_vec}
+            run = dict(dcfg=dcfg, lam_t=lam_t, state=cstate,
+                       engine=s_engine, push_vec=push_vec, pull_scale=ps)
+            if mode == "doublebuf" and stale and sh.layout.rows == 1:
+                # one row shard: the shard is the whole (R, n_local) view,
+                # so the stale epilogue runs over the snapshot as on one
+                # card and the buffers swap
+                params, _, metrics = consensus.apply_round(
+                    s_full, losses=snap["losses"], grad_norms=snap["gns"],
+                    first_gram=gram, base=blk, **run)
+                new_snap = {"x": blk, "losses": l_last, "gns": g_last}
+            elif mode == "doublebuf" and stale:
+                # C(s) beside s; this rank's rows of the delta C(s) - s go
+                # onto q, and q becomes the snapshot's valid rows
+                out = torch.empty_like(s_full) if engine.use_kernel \
+                    else None
+                c_out, _, metrics = consensus.apply_round(
+                    s_full, losses=snap["losses"], grad_norms=snap["gns"],
+                    first_gram=gram, out=out, **run)
+                own = slice(sh.r_off, sh.r_off + m_loc)
+                d_own = c_out[own].sub_(s_full[own])
+                d_aux = c_out[M:].sub_(s_full[M:])
+                _put_q(sh, s_full, blk, M)
+                blk[:m_loc].add_(d_own)
+                blk[m_loc:].add_(d_aux)
+                del c_out, d_own, d_aux, out
+                params = blk
+                new_snap = {"x": s_full, "losses": l_last, "gns": g_last}
+            elif mode == "doublebuf":
+                # round 0: the snapshot takes q, then the exact consensus
+                _put_q(sh, snap["x"], blk, M)
+                X, metrics = _exact_round(sh, blk, M, aux, l_last, g_last,
+                                          run)
+                params = _own_rows(sh, blk, X, M, aux)
+                new_snap = {"x": snap["x"], "losses": l_last,
+                            "gns": g_last}
+            elif mode == "staleness1":
+                X = _gather_rows(sh, blk, aux)
+                full, new_snap, metrics = _staleness1(
+                    s_engine, dcfg, lam_t, cstate, X, snap, l_last[None],
+                    g_last[None], push_vec, ps, stale)
+                params = _own_rows(sh, blk, full, M, aux)
+            else:
+                X, metrics = _exact_round(sh, blk, M, aux, l_last, g_last,
+                                          run)
+                params = _own_rows(sh, blk, X, M, aux)
+                new_snap = snap
+            metrics = dict(metrics)
+            train_loss = all_reduce(losses.mean().reshape(1),
+                                    sh.row_group)[0] / sh.layout.rows
+        metrics["train_loss"] = train_loss
+        metrics["lam_t"] = lam_t
+        metrics["staleness"] = int(stale) if mode != "none" else 0
+        new_state = TrainState(params=params, opt=state.opt, cstate=cstate,
+                               t=state.t + tau, snap=new_snap,
+                               round=round_idx + 1, engine=engine)
+        return new_state, metrics
+
+    return round_step
+
+
+def _put_q(sh, S, blk, M):
+    """This rank's block (its worker rows and the aux rows) into their
+    place of the (R, n_local) snapshot ``S``."""
+    S[sh.r_off:sh.r_off + sh.m_loc].copy_(blk[:sh.m_loc])
+    S[M:].copy_(blk[sh.m_loc:])
+
+
+def _gather_rows(sh, blk, aux):
+    """This rank's worker rows gathered over the row group, with the aux
+    rows: the full (R, n_local) view of its column shard. With one row
+    shard that is ``blk`` itself."""
+    from repro_torch.launch.mesh import all_gather
+    if sh.layout.rows == 1:
+        return blk
+    rows = all_gather(blk[:sh.m_loc], sh.row_group)
+    return torch.cat([rows, blk[sh.m_loc:]]) if aux else rows
+
+
+def _own_rows(sh, blk, full, M, aux):
+    """The shard's rows of a full (R, n_local) view, copied into ``blk``
+    (or ``full`` itself when it is the shard)."""
+    if sh.layout.rows == 1:
+        return full
+    blk[:sh.m_loc].copy_(full[sh.r_off:sh.r_off + sh.m_loc])
+    if aux:
+        blk[sh.m_loc:].copy_(full[M:])
+    return blk
+
+
+def _exact_round(sh, blk, M, aux, l_last, g_last, run):
+    """The consensus of the fresh rows: gather, the engine's stages on the
+    (R, n_local) view (in place on the kernel route)."""
+    X = _gather_rows(sh, blk, aux)
+    X, _, metrics = consensus.apply_round(X, losses=l_last,
+                                          grad_norms=g_last, **run)
+    return X, metrics
+
+
+def _doublebuf_steps(s_engine, sh, dcfg, lam_t, ps, snap, tau, step):
+    """doublebuf's local steps in ``n_eff`` segments. Before segment j the
+    row gather of the snapshot's column chunk j is issued; once it has
+    landed in its place (before segment j + 1, or at the boundary for the
+    last), the chunk's stage-1 partial Gram is formed in place and its
+    all-reduce issued. Returns the gathered (R, n_local) snapshot and the
+    summed Gram."""
+    from repro_torch.launch.mesh import all_gather
+    stages, _ = consensus.lower_stages(
+        s_engine, dcfg, lam_t, losses=snap["losses"],
+        grad_norms=snap["gns"], pull_scale=ps)
+    T1 = stages[0][1]
+    S, m_loc, rows = snap["x"], sh.m_loc, sh.layout.rows
+    M = m_loc * rows
+    own = slice(sh.r_off, sh.r_off + m_loc)
+    n_eff = max(1, min(dcfg.overlap_chunks, tau, sh.n_loc))
+    parts = []
+
+    def land(pending, a, b):
+        if pending is not None:
+            S[:M, a:b].copy_(pending.wait())
+        with torch.no_grad():
+            parts.append(s_engine.stage_comm(S[:, a:b], T1, async_op=True))
+
+    prev = None
+    for (a, b), (sa, sz) in zip(_chunk_bounds(sh.n_loc, n_eff),
+                                _chunk_bounds(tau, n_eff)):
+        nxt = (all_gather(S[own, a:b], sh.row_group, async_op=True)
+               if rows > 1 else None, a, b)
+        if prev is not None:
+            land(*prev)
+        prev = nxt
+        step(range(sa, sz))
+    land(*prev)
+    gram = None
+    for p in parts:
+        g = p.wait()
+        gram = g if gram is None else gram + g
+    return S, gram
+
+
+def shard_train_state(state: TrainState, mesh, plan, *, dcfg=None):
+    """This rank's shard of a whole flat-engine ``TrainState`` for
+    ``make_sharded_round_step``, on ``mesh.device``. Every rank builds
+    the same whole state (the same seed) and keeps its block: the (R, n)
+    view's worker rows of this rank plus the aux rows, at its columns; the
+    optimizer state of its worker rows at full width (the local steps run
+    there); LPF-SGD's filtered field at its columns; the overlap
+    snapshot's (R, n_local) columns (``staleness1`` mixes them whole,
+    ``doublebuf`` keeps this rank's rows and gathers the rest). A block
+    that is all of a tensor on its device is that tensor (the whole state
+    is meant to be dropped), any other block a copy."""
+    if state.engine is None:
+        raise ValueError("shard_train_state requires a flat-engine "
+                         "TrainState (DPPFConfig.engine='flat')")
+    snap = state.snap
+    _refuse_unported(dcfg)
+    if snap is not None and (isinstance(snap["x"], list) or "act" in snap):
+        raise NotImplementedError(SHARDED_NOT_PORTED)
+    L = state.engine.layout
+    sh = _shard_of(state.engine, mesh, plan)
+    dev = mesh.device
+    cols = slice(sh.c_off, sh.c_off + sh.n_loc)
+
+    def take(v, part):
+        """``part`` of v on ``dev``: v itself when that is all of it, else
+        a copy (a view would keep the whole storage alive)."""
+        if tuple(part.shape) == tuple(v.shape):
+            return v.to(dev).contiguous()
+        return part.to(dev, copy=True).contiguous()
+
+    def block(x):
+        own = x[sh.r_off:sh.r_off + sh.m_loc, cols]
+        if L.aux:
+            own = torch.cat([own, x[L.M:, cols]])
+        return take(x, own)
+
+    def rows(v):
+        if v.dim() and v.shape[0] == L.M:
+            return take(v, v[sh.r_off:sh.r_off + sh.m_loc])
+        return v.to(dev, copy=True)
+
+    new_snap = None
+    if snap is not None:
+        new_snap = {k: v.to(dev, copy=True) for k, v in snap.items()
+                    if k != "x"}
+        new_snap["x"] = take(snap["x"], snap["x"][:, cols])
+    cstate = {k: take(v, v[:, cols]) if v.dim() == 2
+              else v.to(dev, copy=True) for k, v in state.cstate.items()}
+    return TrainState(params=block(state.params),
+                      opt={k: tree_like(v, [rows(leaf) for leaf in leaves(v)])
+                           for k, v in state.opt.items()},
+                      cstate=cstate, t=state.t, snap=new_snap,
+                      round=state.round, engine=state.engine)
+
+
+def unshard_params(state: TrainState, mesh, plan):
+    """The whole (R, n) view of a sharded state, on every rank (for checks
+    at small sizes: it gathers the view)."""
+    from repro_torch.launch.mesh import all_gather
+    L = state.engine.layout
+    sh = _shard_of(state.engine, mesh, plan)
+    blk = state.params
+    X = _gather_rows(sh, blk, L.aux)
+    return all_gather(X, sh.layout.col_group, dim=1)
+
+
+def sharded_average_params(state: TrainState, mesh, plan):
+    """Alg. 1's returned model on a mesh: the worker mean (fp32 leaves),
+    summed over the row group, gathered over the column group."""
+    from repro_torch.launch.mesh import all_gather, all_reduce
+    L = state.engine.layout
+    sh = _shard_of(state.engine, mesh, plan)
+    part = torch.sum(state.params[:sh.m_loc], dim=0)
+    mean = all_reduce(part, sh.row_group) / L.M
+    return state.engine.unflatten_row(
+        all_gather(mean, sh.layout.col_group, dim=0), cast=False)
 
 
 def make_ddp_step(loss_fn, opt: Optimizer, *,

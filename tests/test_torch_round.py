@@ -141,11 +141,20 @@ def test_launcher_smoke_on_cpu():
 @pytest.mark.parametrize("flags", [["--elastic-drop", "2,3,5"],
                                    ["--mesh", "2,2,2"], ["--sharded"],
                                    ["--autotune"]])
-def test_launcher_refuses_unported_paths(flags, capsys):
+def test_launcher_refuses_unported_paths(flags, capsys, monkeypatch):
+    """The unported paths exit "not yet ported"; the sharded ones (ported
+    since) exit with how to start their ranks when there is no process
+    group to join."""
     from repro_torch.launch.train import main
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
     with pytest.raises(SystemExit):
         main(["--smoke", *flags], device="cpu")
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if flags[0] in ("--mesh", "--sharded"):
+        assert "no process group" in err and "torchrun" in err
+    else:
+        assert "not yet ported" in err
 
 
 def test_launcher_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
