@@ -49,7 +49,8 @@ Phases (any failure raises, and the script exits non-zero):
    share of the traced prefill taken by the ``swa*`` kernels);
    (b) one prompt through ``make_state`` +
    ``prefill_chunk`` in chunks of 512; (c) the continuous-batching
-   launcher ``repro_torch.launch.serve.main`` at full size.
+   launcher ``repro_torch.launch.serve.main`` at full width, depth cut
+   to 8 layers (``SERVE_LAYERS``: the run's time limit).
 7. SSD kernel: ptxas's registers and spills and a ``cuobjdump -sass``
    census of every ``ssd_kernel`` instance (highest register, HMMA and
    HGMMA counts: the phase fails unless each instance runs its products
@@ -78,8 +79,9 @@ Phases (any failure raises, and the script exits non-zero):
    traced (8 new tokens) with CUDA events around each SSD scan and its
    kernel, and the share of the traced prefill taken by the ``swa*``
    kernels; (b) one prompt in chunks of 512 (carried ssm and conv states);
-   (c) the serving launcher: 5 requests of 256 / 512 / 1024 / 256 / 512
-   tokens, 4 slots, chunk 64, 16 new tokens.
+   (c) the serving launcher at 27 layers (``SERVE_LAYERS``): 5 requests
+   of 256 / 512 / 1024 / 256 / 512 tokens, 4 slots, chunk 64, 16 new
+   tokens.
 9. sLSTM kernel: its launch geometry at every head dim (blocks per
    cluster, batch group, rows of R in registers and in shared memory,
    shared bytes) with ``cudaOccupancyMaxActiveClusters``' count, and
@@ -121,8 +123,9 @@ Phases (any failure raises, and the script exits non-zero):
    prefill taken by its 6 ``slstm`` kernels; (b) one prompt in chunks of
    512 (and, for information, one-shot against chunked in fp32 at 1024
    and 4096 tokens); (c) the serving launcher on the published config
-   (``xlstm_chunk = 0``): 5 requests of 256 / 512 / 1024 / 256 / 512
-   tokens, 4 slots, chunk 64, 16 new tokens.
+   (``xlstm_chunk = 0``) at 8 layers (``SERVE_LAYERS``): 5 requests of
+   256 / 512 / 1024 / 256 / 512 tokens, 4 slots, chunk 64, 16 new
+   tokens.
 
 11. The tree path's pair: ``sq_dist`` and ``apply_update`` against their
    plain versions on the cases of ``tests/test_kernels.py`` (n = 128 to
@@ -204,12 +207,19 @@ Phases (any failure raises, and the script exits non-zero):
    all-reduces) and on both at once, of the all-reduce, and of each
    launch alone; bound 3 R n_local 4 bytes / 3.35 TB/s. (b) The trainer:
    yi-6b at full width cut to 1 layer (n = 697,316,352), M = 4, tau 4,
-   simple_avg, 3 rounds, on the kernel route, meshes 2x1 and 1x2, overlap
-   ``none`` and ``doublebuf`` (4 chunks), each rank's block within 2e-5
-   of the single-device run's parameter scale on 2x1 and 1e-3 on 1x2
-   (``SH_BAR`` says why), each round's consensus_dist within 1e-5
-   relative (each rank runs the single-device rounds alone first and
-   keeps its blocks on the host);
+   simple_avg, 2 rounds, on the kernel route, meshes 2x1 and 1x2, overlap
+   ``none``, ``doublebuf`` (4 chunks) and ``staleness_k`` k = 1 elastic
+   under 16(b)'s membership (row 2 out of round 1, which the quorum of 4
+   degrades; 16(b)'s clock: its ring slot gathered over ``ring_gather``
+   on 2x1), each rank's block within 2e-5 of the single-device run's
+   parameter scale on 2x1 and 1e-3 on 1x2 (``SH_BAR`` says why), each
+   round's consensus_dist within 1e-5 relative (each rank runs the
+   single-device rounds alone first and keeps its blocks on the host).
+   After its two rounds the staleness_k 2x1 shard saves its resume point
+   (``RESUME_POINT``: each leaf gathered, rank 0 writing the one ~33.5 GB
+   file), each rank's shard is overwritten and read back from its blocks
+   of the file in place, and every tensor's bits must come back (sums of
+   the bit patterns per row and 2^24 columns); 16(b) resumes from it;
    per rank: round times, host seconds in gathers and all-reduces, bytes
    staged, peak memory (their sum beside the card's); the counters are
    zeroed just before each sharded run. (c) The launcher: ``--sharded
@@ -221,6 +231,32 @@ Phases (any failure raises, and the script exits non-zero):
    transport line: backend, ranks a card, bytes staged; NCCL is not
    verified on one card. ``python3 chip_smoke.py --phases 15`` runs
    phase 1 and this phase alone.
+16. The fault-tolerant round loop (``train.Supervisor``, checkpoints,
+   chaos plans). (a) The committed chaos plan
+   ``results/chaos/plan_ci.json`` replayed through the launcher on 8
+   ranks sharing the card over gloo, as (15d) spawns them, with the
+   pinned command of ``results/chaos/events_ci.json`` (reduced yi-6b at
+   d_model 32, 1 layer, ``--sharded`` staleness_k k = 2, quorum 7): rank
+   0's ``supervisor events`` / ``counters`` lines must equal the file.
+   (b) The supervised path at full width: yi-6b at full width cut to 1
+   layer (n = 697,316,352; the launcher's config patched, ``_cut_depth``),
+   one device, M = 4, tau 4, 16 steps, seq 64, batch 8, ``--overlap
+   staleness_k --staleness 1 --elastic-drop 2,1,3 --quorum 4``: a
+   straight run against one resumed with ``--ckpt`` from phase 15(b)'s
+   sharded resume point after round 2 (a resume across meshes, 2x1 ->
+   one device), their final parameters equal bit for bit and their eval
+   loss within 1e-5 relative; the supervisor's events equal the same
+   flags' run on the CPU (the smoke config), and the resumed run's those
+   of rounds 2-3; the rounds' ms in the supervised loop
+   (CUDA-synchronised host clock around each step) beside the plain
+   ``for spec in clock.rounds`` loop's; the resume point's bytes and its
+   load seconds. The machine takes at most 45 GiB of disk writes a call,
+   so (b) writes nothing: the runs' final parameters are compared in
+   memory. Counters are zeroed just before the straight run and read
+   just after. (c) ``launch.train --smoke --ckpt`` on the card, then
+   ``launch.serve --smoke --ckpt`` on the same file. ``python3
+   chip_smoke.py --phases 15,16`` runs phase 1 and phases 15 and 16
+   alone (16 resumes from 15's resume point).
 
 It prints a ``kernels`` line, the ``{"kernels": [...]}`` record and, last,
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -276,6 +312,37 @@ ATTN_CASES = (
 # the serving shapes: gemma2-2b's local and global layers at S = 8160,
 # and the cap 0 / window 0 case one PyTorch call computes
 SERVE_S = 8160
+# the serving launchers of phases 6(c), 8(c) and 10(c) at a cut depth: their
+# host-bound decode costs time in proportion to the layers, and the whole
+# run must end within its limit (the models' (a) and (b) parts stay at
+# full depth). gemma2-2b 8 of 26 layers (4 local + 4 global), zamba2-7b
+# 27 of 81 (23 Mamba2 + 4 shared attention), xlstm-350m 8 of 24 (6 mLSTM
+# + 2 sLSTM)
+SERVE_LAYERS = {"gemma2-2b": 8, "zamba2-7b": 27, "xlstm-350m": 8}
+
+
+@contextlib.contextmanager
+def _cut_depth(launcher, layers):
+    """A launcher module whose ``get_arch`` returns the full config cut to
+    ``layers`` layers, widths unchanged (the launchers themselves cut
+    only the smoke config)."""
+    orig = launcher.get_arch
+    launcher.get_arch = lambda name: dataclasses.replace(orig(name),
+                                                         n_layers=layers)
+    try:
+        yield
+    finally:
+        launcher.get_arch = orig
+
+
+def _serve_cut(argv):
+    """``launch.serve.main(argv)`` on the card with ``--arch``'s config at
+    its ``SERVE_LAYERS`` depth."""
+    from repro_torch.launch import serve
+    with _cut_depth(serve, SERVE_LAYERS[argv[argv.index("--arch") + 1]]):
+        return serve.main(argv)
+
+
 ATTN_SLICE = {
     "local": (4, 8, 4, SERVE_S, SERVE_S, 256, 4096, 50.0, True),
     "global": (4, 8, 4, SERVE_S, SERVE_S, 256, 0, 50.0, True),
@@ -953,7 +1020,6 @@ def _profile_generate(generate, model, params, prompts, buf, new,
 def phase_serving(swa):
     from repro_torch.configs import get_arch
     from repro_torch.core.engine import tree_items
-    from repro_torch.launch.serve import main as serve_main
     from repro_torch.models import build_model
     from repro_torch.serving import generate
 
@@ -1039,7 +1105,7 @@ def phase_serving(swa):
 
     # (c) the continuous-batching launcher at full size
     swa.reset_launches()
-    report = serve_main(["--arch", "gemma2-2b", "--requests", "8",
+    report = _serve_cut(["--arch", "gemma2-2b", "--requests", "8",
                          "--max-slots", "4", "--prompt-len", "512",
                          "--new-tokens", "32", "--chunk", "64"])
     c = {"steps": report.steps, "generated": report.generated,
@@ -1287,7 +1353,6 @@ def _scan_events():
 def phase_zamba2(swa, mk):
     from repro_torch.configs import get_arch
     from repro_torch.core.engine import tree_items
-    from repro_torch.launch.serve import main as serve_main
     from repro_torch.models import build_model
     from repro_torch.serving import generate
 
@@ -1405,7 +1470,7 @@ def phase_zamba2(swa, mk):
     # 64-token tail fed one token per decode step, as the reference's
     # scheduler does; 5 requests (cut from 8 for time) so that one is
     # admitted mid-stream
-    report = serve_main(["--arch", "zamba2-7b", "--requests", "5",
+    report = _serve_cut(["--arch", "zamba2-7b", "--requests", "5",
                          "--max-slots", "4", "--prompt-len", "512",
                          "--new-tokens", "16", "--chunk", "64"])
     c = {"steps": report.steps, "generated": report.generated,
@@ -1738,7 +1803,6 @@ def _count_launches(model, names, counter):
 def phase_xlstm(sk):
     from repro_torch.configs import get_arch
     from repro_torch.core.engine import tree_items
-    from repro_torch.launch.serve import main as serve_main
     from repro_torch.models import build_model
     from repro_torch.serving import generate
 
@@ -1880,7 +1944,7 @@ def phase_xlstm(sk):
     # mid-stream, and no more: a 64-token chunk of the per-step mLSTM
     # makes about 15 launches per token and layer
     sk.reset_launches()
-    report = serve_main(["--arch", "xlstm-350m", "--requests", "5",
+    report = _serve_cut(["--arch", "xlstm-350m", "--requests", "5",
                          "--max-slots", "4", "--prompt-len", "512",
                          "--new-tokens", "16", "--chunk", "64"])
     c = {"steps": report.steps, "generated": report.generated,
@@ -2894,11 +2958,28 @@ SHARD_SEED = 15                # x's column shard j is drawn with seed 15 + j
 SHARD_TOL = 1e-6               # of each row's scale, against fused_round
 SHARDED_SOURCE = SOURCE
 SHARDED_REPLACES = "src/repro/kernels/pullpush/pullpush.py:367"
-# (b): yi-6b at full width cut to 1 layer, M = 4, tau 4, 3 rounds
-SH_LAYERS, SH_ROUNDS, SH_M, SH_TAU, SH_SEQ, SH_BATCH = 1, 3, 4, 4, 64, 8
+# (b): yi-6b at full width cut to 1 layer, M = 4, tau 4, 2 rounds
+# (doublebuf's round 0 and one stale round, within the run's time limit)
+SH_LAYERS, SH_ROUNDS, SH_M, SH_TAU, SH_SEQ, SH_BATCH = 1, 2, 4, 4, 64, 8
 SH_MESHES = ((2, 1), (1, 2))
+# phase 16(b)'s configuration, the launcher's defaults (lr 0.3, sgd with
+# momentum 0.9 and weight decay 1e-3, simple_avg, 4 chunks) at --workers 4
+# --tau 4 --steps 16 --seq 64 --batch 8 --overlap staleness_k --staleness 1
+# --elastic-drop 2,1,3 --quorum 4: (b)'s staleness_k case runs its first
+# two rounds (row 2 out of round 1, which degrades below the quorum), and
+# its 2x1 run writes the resume point from which 16(b) resumes
+SUP_LR, SUP_STEPS, SUP_DROP, SUP_QUORUM = 0.3, 16, (2, 1, 3), 4
+SUP_DCFG = dict(overlap="staleness_k", staleness=1, overlap_chunks=4,
+                elastic=True)
 SH_OVERLAPS = (("none", dict(overlap="none")),
-               ("doublebuf", dict(overlap="doublebuf", overlap_chunks=4)))
+               ("doublebuf", dict(overlap="doublebuf", overlap_chunks=4)),
+               ("staleness_k", SUP_DCFG))
+# where (b)'s 2x1 staleness_k run writes its resume point (one file, ~33.5
+# GB: the machine takes at most 45 GiB of disk writes a call, so phase 16
+# resumes from it instead of writing one of its own)
+RESUME_POINT = os.path.join(ROOT, "build", "chip_smoke", "ckpt16",
+                            "sharded.state.npz")
+SUP_DISK = 40e9                # free disk the resume point needs
 # each rank's block against the single-device run, of its parameter scale:
 # 2e-5 (the CPU tests' fast-mode bar) where the mesh splits no column (the
 # ranks run the single-device operations); 1e-3 where it does. There the
@@ -2913,6 +2994,9 @@ SH_METRIC_BAR = 1e-5           # relative, each round's consensus_dist
 # the kernels the sharded rounds of (b) must launch
 SHARDED_KERNELS = ("fused_round_sharded", "partial_gram", "gram_coef",
                    "mix_shard", "fused_round", "mix_from_gram", "stale_mix")
+# those the staleness_k case must launch: its fill round's consensus, the
+# stale round's chunk Grams and coefficients
+RING_KERNELS = ("partial_gram", "gram_coef")
 HIER_ULP = 1.0                 # (d): eps32 * max(|x|, 1) an entry
 
 
@@ -2970,7 +3054,7 @@ def _spawn_ranks(fn, world, *args, timeout=600):
             errs.append(f"rank {r}: exit code {p.exitcode}")
     if errs:
         shutil.rmtree(tmp, ignore_errors=True)
-        raise AssertionError("phase 15 ranks failed:\n" + "\n".join(errs))
+        raise AssertionError("ranks failed:\n" + "\n".join(errs))
     out = []
     for r in range(world):
         with open(os.path.join(tmp, f"{r}.pkl"), "rb") as fh:
@@ -3168,10 +3252,11 @@ class _TimedPending:
 
 
 def _timed_collectives(mm, acc):
-    """Host seconds in ``launch.mesh.all_gather`` / ``all_reduce`` (after a
-    synchronize, so queued kernels are not counted), waits of the
-    asynchronous ones included. Returns the originals."""
-    orig = {"all_gather": mm.all_gather, "all_reduce": mm.all_reduce}
+    """Host seconds in ``launch.mesh.all_gather`` / ``all_reduce`` /
+    ``ring_gather`` (after a synchronize, so queued kernels are not
+    counted), waits of the asynchronous ones included. Returns the
+    originals."""
+    orig = {k: getattr(mm, k) for k in acc}
 
     def wrap(name):
         f = orig[name]
@@ -3184,14 +3269,96 @@ def _timed_collectives(mm, acc):
             return _TimedPending(out, acc, name) if kw.get("async_op") \
                 else out
         return timed
-    mm.all_gather, mm.all_reduce = wrap("all_gather"), wrap("all_reduce")
+    for k in acc:
+        setattr(mm, k, wrap(k))
     return orig
 
 
-def _trainer_rank(rank, world):
+def _newest(snap):
+    """The newest snapshot: the snapshot, or a ring's last slot."""
+    x = snap["x"]
+    return x[-1] if isinstance(x, list) else x
+
+
+def _sup_membership(r):
+    """(mask, sync) of round r under 16(b)'s ``--elastic-drop`` and
+    ``--quorum``, as the supervisor sets them."""
+    from repro_torch.train import ScheduleMembership
+    mask, _ = ScheduleMembership(SH_M, [SUP_DROP]).mask_for(r)
+    return mask, 0.0 if int(mask.sum()) < SUP_QUORUM else 1.0
+
+
+def _state_tensors(state):
+    """A train state's tensors by name (a ring's slots apart)."""
+    from repro_torch.optim.optimizers import leaves
+    out = {"params": state.params}
+    for k, v in state.opt.items():
+        for i, t in enumerate(leaves(v)):
+            out[f"opt {k} {i}"] = t
+    out.update({f"cstate {k}": v for k, v in state.cstate.items()})
+    for k, v in (state.snap or {}).items():
+        for i, t in enumerate(v if isinstance(v, list) else [v]):
+            out[f"snap {k} {i}"] = t
+    return out
+
+
+def _bit_sums(t):
+    """int64 sums of ``t``'s bit patterns, per row and 2^24-column chunk
+    (a change of any element's bits changes its sum)."""
+    bits = t.detach().reshape(t.shape[0] if t.dim() > 1 else 1, -1).view(
+        {8: torch.int64, 4: torch.int32, 2: torch.int16,
+         1: torch.uint8}[t.element_size()])
+    return torch.stack([c.long().sum(dim=1)
+                        for c in bits.split(1 << 24, dim=1)]).tolist()
+
+
+def _sharded_resume_point(state, mesh, plan, path, rows):
+    """(b)'s 2x1 staleness_k shard after its rounds: the resume point
+    saved (every rank gathers each leaf, rank 0 writes), this rank's
+    shard overwritten (NaN, -1), its blocks read back in place; the
+    tensors whose bits did not come back (of a ring slot, its valid
+    ``rows``: this rank's and the aux rows; the others are the peers',
+    gathered before use), with the file's bytes and the save and load
+    seconds."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint import load_train_state, save_train_state
+
+    def sums(st):
+        out = {}
+        for k, t in _state_tensors(st).items():
+            v = _bit_sums(t)
+            out[k] = [[c[i] for i in rows] for c in v] \
+                if k.startswith("snap x") else v
+        return out
+    before = sums(state)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    t0 = time.perf_counter()
+    save_train_state(path, state, mesh=mesh, plan=plan)
+    save_s = time.perf_counter() - t0
+    for t in _state_tensors(state).values():
+        t.fill_(float("nan") if t.is_floating_point() else -1)
+    dist.barrier()
+    t0 = time.perf_counter()
+    back = load_train_state(path, state, mesh=mesh, plan=plan, in_place=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    after = sums(back)
+    return {"bytes": os.path.getsize(path), "save_s": save_s,
+            "load_s": load_s, "tensors": len(before),
+            "differ": sorted(k for k in before if before[k] != after.get(k)),
+            "bits_equal": before == after,
+            "in_place": back.params.data_ptr() == state.params.data_ptr(),
+            "t": back.t, "round": back.round}
+
+
+def _trainer_rank(rank, world, resume_path=None):
     """(b) on a rank: for each overlap mode, the single-device rounds
     (one rank at a time, this rank's blocks kept on the host), then the
-    sharded rounds on each mesh against them."""
+    sharded rounds on each mesh against them; the staleness_k case under
+    16(b)'s membership, its 2x1 run's resume point written to
+    ``resume_path`` and read back. Returns (runs, resume point)."""
     import torch.distributed as dist
     from repro_torch.configs import DPPFConfig, get_arch
     from repro_torch.configs.base import MeshPlan
@@ -3202,7 +3369,7 @@ def _trainer_rank(rank, world):
     from repro_torch.optim import make_optimizer
     from repro_torch.train import (
         RoundClock, init_train_state, make_round_step,
-        make_sharded_round_step, shard_train_state,
+        make_sharded_round_step, set_participation, shard_train_state,
     )
     from repro_torch.train.trainer import _shard_of
     cfg = dataclasses.replace(get_arch("yi-6b"), n_layers=SH_LAYERS)
@@ -3215,13 +3382,22 @@ def _trainer_rank(rank, world):
     steps = SH_ROUNDS * SH_TAU
     batches = lambda clock: [make_round_batch(
         task, 0, SH_M, s.tau, s.start, SH_BATCH, cfg, device="cpu")
-        for s in clock.rounds]
-    results = {}
+        for s in clock.rounds[:SH_ROUNDS]]
+    results, resume = {}, None
     for label, over in SH_OVERLAPS:
         dcfg = DPPFConfig(alpha=0.1, lam=0.5, tau=SH_TAU,
                           consensus="simple_avg", engine="flat", **over)
-        clock = RoundClock.from_config(dcfg, base_lr=LR, total_steps=steps)
+        ring = over is SUP_DCFG
+        clock = RoundClock.from_config(
+            dcfg, base_lr=SUP_LR if ring else LR,
+            total_steps=SUP_STEPS if ring else steps)
         data = batches(clock)
+
+        def member(st, r):
+            if not ring:
+                return st
+            mask, sync = _sup_membership(r)
+            return set_participation(st, mask, sync=sync)
         want, single_m, single_ms, scale = {}, [], [], None
         for turn in range(world):
             dist.barrier()
@@ -3232,8 +3408,9 @@ def _trainer_rank(rank, world):
                 step = make_round_step(model.loss, opt, dcfg, clock=clock)
                 trace = {name: [] for name in meshes}
                 strace = {name: [] for name in meshes}
-                for b in data:
+                for r, b in enumerate(data):
                     b = {k: v.to(DEV) for k, v in b.items()}
+                    st = member(st, r)
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     st, m = step(st, b)
@@ -3247,7 +3424,7 @@ def _trainer_rank(rank, world):
                         trace[name].append(_block_sums(blk_of(st.params)))
                         if st.snap is not None:
                             strace[name].append(_block_sums(
-                                blk_of(st.snap["x"])))
+                                blk_of(_newest(st.snap))))
                 scale = float(_row_absmax(st.params).max())
                 for name, mesh in meshes.items():
                     sh = _shard_of(st.engine, mesh, plan)
@@ -3271,7 +3448,8 @@ def _trainer_rank(rank, world):
                     torch.cuda.empty_cache()
                 torch.cuda.synchronize()
             dist.barrier()
-            acc = {"all_gather": 0.0, "all_reduce": 0.0}
+            acc = {"all_gather": 0.0, "all_reduce": 0.0,
+                   "ring_gather": 0.0}
             orig = _timed_collectives(mm, acc)
             try:
                 step = make_sharded_round_step(model.loss, opt, dcfg,
@@ -3285,6 +3463,7 @@ def _trainer_rank(rank, world):
                 rounds = []
                 for i, b in enumerate(data):
                     b = {k: v[:, own].to(DEV) for k, v in b.items()}
+                    state = member(state, i)
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     state, m = step(state, b)
@@ -3293,7 +3472,7 @@ def _trainer_rank(rank, world):
                     got_s = _block_sums(state.params[:sh.m_loc])
                     snap_d = None
                     if state.snap is not None:
-                        g2 = _block_sums(state.snap["x"][
+                        g2 = _block_sums(_newest(state.snap)[
                             sh.r_off:sh.r_off + sh.m_loc])
                         snap_d = max(abs(g - w) / max(abs(w), 1e-30)
                                      for g, w in zip(g2, strace[name][i]))
@@ -3307,8 +3486,8 @@ def _trainer_rank(rank, world):
                             zip(got_s, trace[name][i]))})
                 launches = dict(pk.LAUNCHES)
             finally:
-                mm.all_gather, mm.all_reduce = orig["all_gather"], \
-                    orig["all_reduce"]
+                for k, f in orig.items():
+                    setattr(mm, k, f)
             peak = torch.cuda.max_memory_allocated()
             mm.release_staging()
             got = state.params[:sh.m_loc].cpu()
@@ -3318,6 +3497,7 @@ def _trainer_rank(rank, world):
                 "rounds": rounds, "single_consensus_dist": single_m,
                 "single_round_ms": single_ms,
                 "gather_s": acc["all_gather"],
+                "ring_gather_s": acc["ring_gather"],
                 "all_reduce_s": acc["all_reduce"],
                 "bytes_staged": mm.STAGED["bytes"],
                 "staging_s": mm.STAGED["seconds"], "launches": launches,
@@ -3333,14 +3513,23 @@ def _trainer_rank(rank, world):
                   f"row sums by round (params, snapshot) "
                   f"{[f'{v:.2e}' if v is not None else '-' for v in sums]}, "
                   f"gathers "
-                  f"{acc['all_gather']:.2f} s (staging "
+                  f"{acc['all_gather']:.2f} s, ring "
+                  f"{acc['ring_gather']:.2f} s (staging "
                   f"{mm.STAGED['seconds']:.2f} s)", flush=True)
+            if ring and name == "2x1" and resume_path:
+                resume = _sharded_resume_point(
+                    state, mesh, plan, resume_path,
+                    list(range(sh.r_off, sh.r_off + sh.m_loc))
+                    + list(range(SH_M, state.engine.layout.R)))
+                mm.release_staging()
+                print(f"  (b) rank {rank}: resume point " + json.dumps(
+                    resume), flush=True)
             del state, step, got
             torch.cuda.empty_cache()
             dist.barrier()
         del want
     mm.release_staging()
-    return results
+    return results, resume
 
 
 def _hier_rank(rank, world):
@@ -3446,9 +3635,20 @@ def _launcher_sharded():
             "seconds": [t_one, t_two]}
 
 
-def phase_sharded(pk, ref):
+def phase_sharded(pk, ref, resume_path=None):
+    """Phase 15; with ``resume_path`` (b)'s 2x1 staleness_k run leaves its
+    resume point there, for phase 16(b)."""
     world = 2
     secs = {}
+    if resume_path:
+        os.makedirs(os.path.dirname(resume_path), exist_ok=True)
+        free = shutil.disk_usage(os.path.dirname(resume_path)).free
+        print(f"  free disk for (b)'s resume point: {free / 1e9:.1f} GB "
+              f"(need {SUP_DISK / 1e9:.0f})")
+        if free < SUP_DISK:
+            raise AssertionError(f"phase 15: {free / 1e9:.1f} GB free disk, "
+                                 f"the resume point needs "
+                                 f"{SUP_DISK / 1e9:.0f}")
     _release_host_memory()
     t0 = time.perf_counter()
     single = _single_rank_round(pk, world)
@@ -3460,7 +3660,8 @@ def phase_sharded(pk, ref):
           f"holds half of it, its rows' momentum at full width, its rows "
           f"gathered for the local steps and a snapshot (doublebuf): "
           f"~{3 * view / 1e9:.1f} GB + the steps' temporaries")
-    out = _spawn_ranks(_phase15_pair, world, single, timeout=900)
+    out = _spawn_ranks(_phase15_pair, world, single, resume_path,
+                       timeout=900)
     secs["a+b"] = time.perf_counter() - t0
     a = [o["a"] for o in out]
     b = [o["b"] for o in out]
@@ -3472,7 +3673,7 @@ def phase_sharded(pk, ref):
                      f"{worst:.3e} / r {r_worst:.3e} > {SHARD_TOL}")
     if max(res["max_rel_err_vs_plain"] for res in a) > TOL:
         fails.append("(a) fused_round_sharded against its plain version")
-    totals = {}
+    totals, by_overlap = {}, {}
     for key in b[0]:
         runs = [res[key] for res in b]
         peak = [r["peak_bytes"] for r in runs]
@@ -3480,6 +3681,7 @@ def phase_sharded(pk, ref):
             "round_ms_by_rank": [[x["round_ms"] for x in r["rounds"]]
                                  for r in runs],
             "gather_s_by_rank": [r["gather_s"] for r in runs],
+            "ring_gather_s_by_rank": [r["ring_gather_s"] for r in runs],
             "all_reduce_s_by_rank": [r["all_reduce_s"] for r in runs],
             "bytes_staged_by_rank": [r["bytes_staged"] for r in runs],
             "staging_s_by_rank": [r["staging_s"] for r in runs],
@@ -3504,15 +3706,32 @@ def phase_sharded(pk, ref):
         if not dist_err <= SH_METRIC_BAR:
             fails.append(f"(b) {key}: consensus_dist {dist_err:.3e} > "
                          f"{SH_METRIC_BAR}")
+        mode = by_overlap.setdefault(key.split()[0], {})
         for r in runs:
             for name, v in r["launches"].items():
                 totals[name] = totals.get(name, 0) + v
+                mode[name] = mode.get(name, 0) + v
     print("  (b) launches over the sharded runs, both ranks "
-          + json.dumps(totals))
+          + json.dumps(totals) + "; by overlap mode "
+          + json.dumps(by_overlap))
     for name in SHARDED_KERNELS:
         if totals.get(name, 0) == 0:
             fails.append(f"(b) {name} was not launched by the sharded "
                          "rounds")
+    for name in RING_KERNELS:
+        if by_overlap["staleness_k"].get(name, 0) == 0:
+            fails.append(f"(b) {name} was not launched by the sharded "
+                         "staleness_k rounds")
+    resume = [o["resume"] for o in out]
+    if resume_path:
+        print("  (b) resume point of 2x1 staleness_k after round 2, by rank "
+              + json.dumps(resume))
+        if not all(r and r["bits_equal"] and r["in_place"]
+                   and (r["round"], r["t"]) == (SH_ROUNDS,
+                                                SH_ROUNDS * SH_TAU)
+                   for r in resume):
+            fails.append("(b) the sharded resume point did not read back "
+                         "bit for bit")
     t0 = time.perf_counter()
     try:
         launcher = _launcher_sharded()
@@ -3560,11 +3779,289 @@ def phase_sharded(pk, ref):
         "all_reduce_ms": r0["all_reduce_ms"], "launch_ms": r0["launch_ms"],
         "shape": [MAIN_R, n_loc], "err_vs_fused_round": worst,
         "transport": tr["backend"]}
-    return {"row": row, "launches": totals, "seconds": secs,
-            "launcher": launcher}
+    return {"row": row, "launches": totals, "by_overlap": by_overlap,
+            "seconds": secs, "launcher": launcher, "resume": resume}
 
 
-def _phase15_pair(rank, world, single):
+# ---------------------------------------------------------------------------
+# phase 16: the fault-tolerant round loop
+# ---------------------------------------------------------------------------
+
+CHAOS_PLAN = os.path.join("results", "chaos", "plan_ci.json")
+CHAOS_EVENTS = os.path.join("results", "chaos", "events_ci.json")
+CHAOS_ARGV = ["--arch", "yi-6b", "--smoke", "--d-model", "32", "--layers",
+              "1", "--seq", "16", "--workers", "8", "--tau", "2", "--steps",
+              "16", "--batch", "2", "--overlap", "staleness_k",
+              "--staleness", "2", "--sharded", "--chaos",
+              os.path.join(ROOT, CHAOS_PLAN),
+              "--quorum", "7", "--heartbeat-timeout", "0.9"]
+# (b): yi-6b at full width cut to 1 layer (``_cut_depth``), one device,
+# 4 rounds, the configuration of phase 15(b)'s staleness_k case
+SUP_FLAGS = ["--workers", str(SH_M), "--tau", str(SH_TAU), "--steps",
+             str(SUP_STEPS), "--seq", str(SH_SEQ), "--batch", str(SH_BATCH),
+             "--overlap", "staleness_k", "--staleness", "1",
+             "--elastic-drop", ",".join(map(str, SUP_DROP)), "--quorum",
+             str(SUP_QUORUM), "--log-every", "1"]
+SUP_ARGV = ["--arch", "yi-6b"] + SUP_FLAGS
+SUP_STOP = SH_ROUNDS
+# straight against resumed, exactly: the same kernels on the same inputs
+# in the same order (bits equal in every earlier reading), and phase
+# 15(b)'s 2x1 run, which wrote the resume point, runs the single-device
+# operations (its rows equal the single-device run's bit for bit). A
+# resume that restored the ring slot or the momentum wrongly moves the
+# parameters by less than a loose bar would notice.
+# The machine takes at most 45 GiB of disk writes a call, deleted files
+# included: phase 15 writes the one resume point (~33.5 GB); the straight
+# and resumed runs write nothing (their final parameters are compared in
+# memory).
+
+
+def _chaos_rank(rank, world):
+    """(a) on a rank: the launcher with the pinned chaos command on the
+    card; what it printed, its eval loss, and this rank's launches."""
+    import io
+    from repro_torch.kernels.pullpush import pullpush as pk
+    from repro_torch.launch.train import main as train_main
+    pk.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        loss = train_main(CHAOS_ARGV)
+    return {"text": buf.getvalue(), "loss": loss,
+            "seconds": time.perf_counter() - t0,
+            "launches": dict(pk.LAUNCHES)}
+
+
+def _supervisor_lines(text):
+    ev = [l for l in text.splitlines() if l.startswith("supervisor events: ")]
+    ct = [l for l in text.splitlines()
+          if l.startswith("supervisor counters: ")]
+    if len(ev) != 1 or len(ct) != 1:
+        raise AssertionError("no supervisor lines in:\n" + text[-3000:])
+    counters = dict(kv.split("=") for kv in ct[0].split(": ", 1)[1].split())
+    return ev[0].split(": ", 1)[1].split(), \
+        {k: int(v) for k, v in counters.items()}
+
+
+class _Timed:
+    """Wraps a function of ``launch.train``'s namespace; each call's host
+    seconds (after a synchronize, CUDA-synchronised at its end) land in
+    ``secs``."""
+
+    def __init__(self, fn, secs):
+        self.fn, self.secs = fn, secs
+
+    def __call__(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*a, **kw)
+        torch.cuda.synchronize()
+        self.secs.append(time.perf_counter() - t0)
+        return out
+
+
+def _timed_launcher(argv):
+    """``launch.train.main(argv)`` on the card at 1 layer, with its round
+    steps and its resume point's load timed and its final parameters
+    kept (a host copy of ``average_params``' tree); it writes nothing.
+    Returns (eval loss, printed text, {"round_ms", "load_s", "final"})."""
+    import io
+    from repro_torch.core.engine import tree_items
+    from repro_torch.launch import train as lt
+    secs = {"round": [], "load": []}
+    final = {}
+    names = ("make_round_step", "save_train_state", "load_train_state",
+             "average_params", "save_pytree")
+    orig = {k: getattr(lt, k) for k in names}
+
+    def step_maker(*a, **kw):
+        return _Timed(orig["make_round_step"](*a, **kw), secs["round"])
+
+    def keep_final(state):
+        tree = orig["average_params"](state)
+        final.update({p: leaf.detach().cpu() for p, leaf in tree_items(tree)})
+        return tree
+    lt.make_round_step = step_maker
+    lt.load_train_state = _Timed(orig["load_train_state"], secs["load"])
+    lt.average_params = keep_final
+    lt.save_pytree = lt.save_train_state = lambda *a, **kw: None
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf), _cut_depth(lt, SH_LAYERS):
+            loss = lt.main(argv)
+    finally:
+        for k, v in orig.items():
+            setattr(lt, k, v)
+    torch.cuda.empty_cache()
+    text = buf.getvalue()
+    print("\n".join("    " + l for l in text.splitlines()
+                    if not l.startswith("round ")))
+    return loss, text, {"round_ms": [x * 1e3 for x in secs["round"]],
+                        "load_s": secs["load"], "final": final}
+
+
+def _plain_loop_ms():
+    """The plain ``for spec in clock.rounds`` loop of (b)'s configuration
+    (the same masks through ``set_participation``, no supervisor):
+    each round's ms."""
+    from repro_torch.configs import DPPFConfig, get_arch
+    from repro_torch.data import TokenTask, make_round_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import (
+        RoundClock, init_train_state, make_round_step, set_participation,
+    )
+    cfg = dataclasses.replace(get_arch("yi-6b"), n_layers=SH_LAYERS)
+    model = build_model(cfg)
+    dcfg = DPPFConfig(alpha=0.1, lam=0.5, tau=SH_TAU,
+                      consensus="simple_avg", engine="flat", **SUP_DCFG)
+    opt = make_optimizer("sgd", momentum=0.9, weight_decay=1e-3)
+    clock = RoundClock.from_config(dcfg, base_lr=SUP_LR,
+                                   total_steps=SUP_STEPS)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    st = init_train_state(model.init, opt, dcfg, SH_M, gen, device=DEV)
+    step = make_round_step(model.loss, opt, dcfg, clock=clock)
+    task = TokenTask(vocab_size=cfg.vocab_size, seq_len=SH_SEQ)
+    out = []
+    for spec in clock.rounds:
+        b = make_round_batch(task, 0, SH_M, spec.tau, spec.start, SH_BATCH,
+                             cfg, device="cpu")
+        b = {k: v.to(DEV) for k, v in b.items()}
+        mask, sync = _sup_membership(spec.index)
+        st = set_participation(st, mask, sync=sync)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _ = step(st, b)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    del st, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _params_diff(a, b):
+    """Largest difference between two parameter trees ({path: tensor}),
+    and the scale (largest |x|) of the first."""
+    if set(a) != set(b):
+        raise AssertionError("the final parameter trees differ in leaves")
+    worst = scale = 0.0
+    for p, x in a.items():
+        worst = max(worst, float((x.double() - b[p].double()).abs().max()))
+        scale = max(scale, float(x.abs().max()))
+    return worst, scale
+
+
+def phase_supervised(pk, resume_point):
+    """Phase 16; (b) resumes from ``resume_point``, the sharded resume
+    point phase 15(b) wrote."""
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.train import main as train_main
+    secs, fails = {}, []
+    # (a) the chaos replay on 8 ranks
+    t0 = time.perf_counter()
+    with open(os.path.join(ROOT, CHAOS_EVENTS)) as fh:
+        pinned = json.load(fh)
+    _release_host_memory()
+    ranks = _spawn_ranks(_chaos_rank, 8, timeout=600)
+    secs["a"] = time.perf_counter() - t0
+    seq, counters = _supervisor_lines(ranks[0]["text"])
+    final_batch = counters.pop("final_batch")
+    a_launch = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            a_launch[k] = a_launch.get(k, 0) + v
+    print(f"  (a) 8 ranks on the card, gloo: supervisor events "
+          f"{' '.join(seq)}; counters {counters}; final batch "
+          f"{final_batch}; eval loss {ranks[0]['loss']:.4f} on every rank: "
+          f"{len({r['loss'] for r in ranks}) == 1}; launcher seconds "
+          f"{[round(r['seconds'], 1) for r in ranks]}; launches (all "
+          f"ranks) {json.dumps(a_launch)}")
+    if seq != pinned["event_seq"] or counters != pinned["counters"] \
+            or final_batch != pinned["final_batch"]:
+        fails.append("(a) the chaos replay differs from "
+                     f"{CHAOS_EVENTS}: {seq} {counters} {final_batch}")
+    if any(r["text"] for r in ranks[1:]):
+        fails.append("(a) a rank other than 0 printed")
+    # (b) the supervised path at full width
+    t0 = time.perf_counter()
+    base = os.path.dirname(RESUME_POINT)
+    os.makedirs(base, exist_ok=True)
+    buf_cpu = __import__("io").StringIO()
+    with contextlib.redirect_stdout(buf_cpu):     # the same flags, smoke
+        train_main(["--arch", "yi-6b", "--smoke"] + SUP_FLAGS[:6]
+                   + ["--seq", "16"] + SUP_FLAGS[8:], device="cpu")
+    cpu_seq, cpu_counters = _supervisor_lines(buf_cpu.getvalue())
+    pk.reset_launches()        # the main path: counts from here
+    loss_a, text_a, t_a = _timed_launcher(SUP_ARGV)
+    b_launch = dict(pk.LAUNCHES)
+    seq_a, cnt_a = _supervisor_lines(text_a)
+    state_bytes = os.path.getsize(resume_point)
+    loss_b, text_b, t_b = _timed_launcher(
+        SUP_ARGV + ["--ckpt", resume_point[:-len(".state.npz")]])
+    diff, scale = _params_diff(t_a["final"], t_b["final"])
+    del t_a["final"], t_b["final"]
+    plain = _plain_loop_ms()
+    seq_b, _ = _supervisor_lines(text_b)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+    summary = {
+        "card": card, "events_straight": seq_a, "events_cpu_smoke": cpu_seq,
+        "events_resumed": seq_b,
+        "counters": cnt_a, "round_ms_supervised": t_a["round_ms"],
+        "round_ms_plain_loop": plain, "round_ms_resumed": t_b["round_ms"],
+        "resume_point_bytes": state_bytes,
+        "load_s": t_b["load_s"], "final_params_max_abs_diff": diff,
+        "scale": scale, "bar": 0.0,
+        "eval_loss": [loss_a, loss_b], "launches": b_launch}
+    print("  (b) " + json.dumps(summary))
+    if seq_a != cpu_seq or cnt_a != cpu_counters:
+        fails.append(f"(b) supervisor events {seq_a} {cnt_a} differ from "
+                     f"the CPU run's {cpu_seq} {cpu_counters}")
+    if seq_b != [e for e in seq_a if int(e.split(":")[0][1:]) >= SUP_STOP]:
+        fails.append("(b) the resumed run's events are not the straight "
+                     f"run's from round {SUP_STOP}")
+    if diff != 0.0:
+        fails.append(f"(b) resumed against straight {diff:.3e}: not bit "
+                     "for bit")
+    if abs(loss_b - loss_a) > 1e-5 * abs(loss_a):
+        fails.append(f"(b) eval loss {loss_b} against {loss_a}")
+    if f"(round {SUP_STOP})" not in text_b or not t_b["load_s"]:
+        fails.append(f"(b) the second half did not resume at round "
+                     f"{SUP_STOP}")
+    for name in ("fused_round", "partial_gram", "gram_coef", "stale_mix"):
+        if b_launch.get(name, 0) == 0:
+            fails.append(f"(b) {name} was not launched")
+    secs["b"] = time.perf_counter() - t0
+    # (c) train, then serve the trained checkpoint
+    t0 = time.perf_counter()
+    small = os.path.join(base, "smoke.npz")
+    loss_c = train_main(["--arch", "yi-6b", "--smoke", "--workers", "4",
+                         "--tau", "4", "--steps", "8", "--seq", "16",
+                         "--batch", "2", "--ckpt", small])
+    report = serve_main(["--arch", "yi-6b", "--smoke", "--requests", "4",
+                         "--max-slots", "2", "--prompt-len", "12",
+                         "--new-tokens", "4", "--ckpt", small])
+    served = sorted(report.results)
+    print(f"  (c) trained (eval loss {loss_c:.4f}) and served from "
+          f"{os.path.basename(small)}: requests {served}, "
+          f"{report.generated} tokens, {report.tok_s:.1f} tokens/s")
+    if served != list(range(4)) or report.generated != 16:
+        fails.append("(c) the served checkpoint did not answer every "
+                     "request")
+    secs["c"] = time.perf_counter() - t0
+    shutil.rmtree(base, ignore_errors=True)
+    print("  phase 16 seconds " + json.dumps(secs))
+    if fails:
+        raise AssertionError("phase 16: " + "; ".join(fails))
+    launches = dict(b_launch)
+    for k, v in a_launch.items():
+        launches[k] = launches.get(k, 0) + v
+    return {"launches": launches, "a": a_launch, "b": b_launch,
+            "seconds": secs, "summary": summary}
+
+
+def _phase15_pair(rank, world, single, resume_path):
     """The two ranks of (a) and (b), in one process group."""
     from repro_torch.launch import mesh as mm
     t0 = time.perf_counter()
@@ -3572,8 +4069,9 @@ def _phase15_pair(rank, world, single):
     print(f"  (a) rank {rank} in {time.perf_counter() - t0:.1f} s: "
           + json.dumps(a), flush=True)
     torch.cuda.empty_cache()
-    b = _trainer_rank(rank, world)
-    return {"a": a, "b": b, "transport": mm.transport(DEV)}
+    b, resume = _trainer_rank(rank, world, resume_path)
+    return {"a": a, "b": b, "resume": resume,
+            "transport": mm.transport(DEV)}
 
 
 def main(argv=None):
@@ -3620,19 +4118,37 @@ def main(argv=None):
                         if "registers" in line or "spill" in line))
 
     secs = {"card": time.perf_counter() - t_start}
-    if only:
-        for ph in sorted(only):
-            t0 = time.perf_counter()
-            print(f"phase {ph} (partial run)")
-            if ph == 15:
-                res = phase_sharded(pk, ref)
-                print("  fused_round_sharded " + json.dumps(res["row"]))
-            else:
-                raise SystemExit(f"--phases: phase {ph} does not run alone")
-            secs[ph] = time.perf_counter() - t0
-        print("partial run, phase seconds " + json.dumps(secs))
-        return
+    try:
+        if only:
+            _partial(only, pk, ref, secs)
+        else:
+            _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk,
+                   slstm_ref, secs, t_start)
+    finally:       # the resume point (~33.5 GB) never outlives the run
+        shutil.rmtree(os.path.dirname(RESUME_POINT), ignore_errors=True)
 
+
+def _partial(only, pk, ref, secs):
+    """``--phases``: phase 1, then the phases named, alone."""
+    if only not in ({15}, {15, 16}):
+        raise SystemExit("--phases: 15 or 15,16 (phase 16 resumes from "
+                         "phase 15's resume point)")
+    for ph in sorted(only):
+        t0 = time.perf_counter()
+        print(f"phase {ph} (partial run)")
+        if ph == 15:
+            res = phase_sharded(pk, ref, RESUME_POINT if 16 in only
+                                else None)
+            print("  fused_round_sharded " + json.dumps(res["row"]))
+        else:
+            phase_supervised(pk, RESUME_POINT)
+        secs[ph] = time.perf_counter() - t0
+    print("partial run, phase seconds " + json.dumps(secs))
+
+
+def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
+           secs, t_start):
+    """Phases 2-16, the kernels record and the contract's last line."""
     print("phase 2: kernels against their plain versions")
     t0 = time.perf_counter()
     rows = phase_kernels(pk, ref)
@@ -3730,16 +4246,32 @@ def main(argv=None):
 
     print("phase 15: the sharded round on torch.distributed ranks")
     t0 = time.perf_counter()
-    sharded = phase_sharded(pk, ref)
+    sharded = phase_sharded(pk, ref, RESUME_POINT)
     secs["sharded"] = time.perf_counter() - t0
-    for name, n in sharded["launches"].items():
-        if n and name in rows:
-            rows[name].setdefault("launches_by_path", {})[
-                "yi-6b sharded rounds, 1 layer, 2 ranks (phase 15)"] = n
-            rows[name]["launches"] += n
-    rows["fused_round_sharded"] = dict(sharded["row"], launches_by_path={
-        "yi-6b sharded rounds, 1 layer, 2 ranks (phase 15)":
-            sharded["row"]["launches"]})
+    rows["fused_round_sharded"] = dict(sharded["row"], launches_by_path={})
+    for mode, counts in sharded["by_overlap"].items():
+        label = ("yi-6b sharded staleness_k, elastic, 1 layer, 2 ranks "
+                 "(phase 15)" if mode == "staleness_k" else
+                 f"yi-6b sharded rounds, {mode}, 1 layer, 2 ranks "
+                 "(phase 15)")
+        for name, n in counts.items():
+            if n and name in rows:
+                rows[name].setdefault("launches_by_path", {})[label] = n
+                if name != "fused_round_sharded":
+                    rows[name]["launches"] += n
+
+    print("phase 16: the fault-tolerant round loop")
+    t0 = time.perf_counter()
+    sup = phase_supervised(pk, RESUME_POINT)
+    secs["supervised"] = time.perf_counter() - t0
+    for label, counts in (
+            ("chaos replay, 8 ranks, reduced yi-6b (phase 16a)", sup["a"]),
+            ("yi-6b supervised staleness_k, 1 layer (phase 16b)",
+             sup["b"])):
+        for name, n in counts.items():
+            if n and name in rows:
+                rows[name].setdefault("launches_by_path", {})[label] = n
+                rows[name]["launches"] += n
     secs["total"] = time.perf_counter() - t_start
     print("phase seconds " + json.dumps(secs))
 

@@ -21,11 +21,15 @@ counts those bytes and the seconds the copies take. The all-gather is one
 broadcast from each member straight into its part, so no gathered copy
 is made on the host beside the parts. A collective that fails raises.
 
+``ring_gather`` is the reference's ppermute ring for sharded
+``staleness_k``: R - 1 neighbour hops of one block each
+(``batch_isend_irecv``), the all-gather's result bit for bit.
+
 The column rule (``flat_col_axes``, ``flat_col_entry``,
 ``flat_view_spec``) is the reference's, as pure functions of the mesh
 shape. Not here, as in the reference they serve only GSPMD or the TPU:
-``ring_gather`` (sharded ``staleness_k``), ``param_shardings``,
-``batch_shardings``, ``serve_shardings`` and ``make_production_mesh``.
+``param_shardings``, ``batch_shardings``, ``serve_shardings`` and
+``make_production_mesh``.
 
 All builders are functions: importing this module starts nothing.
 """
@@ -265,6 +269,66 @@ def _gather_in_pieces(x, group, dim):
             else:
                 out[:, i * b + c:i * b + c + w].copy_(rows)
     return out
+
+
+def ring_gather(x, group: Group, dim: int = 0, *, axes=("data",),
+                async_op: bool = False):
+    """The worker-row gather as a ring (the reference's ``ring_gather``):
+    ``group.size - 1`` hops, in each of which every member sends the block
+    it last received to the next member and receives one from the
+    previous (``batch_isend_irecv``), so that after hop h a member holds
+    the block of member ``index - h - 1``. The result is bit for bit
+    ``all_gather(x, group, dim)``: blocks move verbatim into their places
+    of the concatenation order. A group of one returns ``x``; a group
+    over several mesh ``axes`` falls back to ``all_gather``, as the
+    reference does (a ring needs one linear axis). On gloo a CUDA block
+    goes through pooled host buffers. With ``async_op`` a ``Pending``:
+    the first hop is issued now, the rest run in ``wait()``."""
+    if group.size == 1:
+        return done(x) if async_op else x
+    if len(tuple(axes)) != 1:
+        return all_gather(x, group, dim, async_op=async_op)
+    w, idx, ranks = group.size, group.index, group.ranks
+    staged = _staging(group, x)
+    step = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = w * step
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    out.narrow(dim, idx * step, step).copy_(x)
+    send = _to_host(x) if staged else x.contiguous()
+    nxt, prv = ranks[(idx + 1) % w], ranks[(idx - 1) % w]
+
+    def hop(buf):
+        recv = _host(tuple(buf.shape), buf.dtype) if staged \
+            else torch.empty_like(buf)
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, buf, nxt, group=group.pg),
+            dist.P2POp(dist.irecv, recv, prv, group=group.pg)])
+        return recv, reqs
+
+    pending = [hop(send)]
+
+    def finish():
+        nonlocal send
+        for h in range(w - 1):
+            recv, reqs = pending.pop()
+            for r in reqs:
+                r.wait()
+            if staged:
+                _give_back(send)
+            send = recv
+            if h + 1 < w - 1:
+                pending.append(hop(send))
+            dst = out.narrow(dim, ((idx - h - 1) % w) * step, step)
+            if staged:
+                _to_card(dst, recv)
+            else:
+                dst.copy_(recv)
+        if staged:
+            _give_back(send)
+        return out
+    pend = Pending(None, finish)
+    return pend if async_op else pend.wait()
 
 
 def all_reduce(t, group: Group, *, async_op: bool = False):

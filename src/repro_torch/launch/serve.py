@@ -7,7 +7,9 @@
 
 Runs on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``, as the tests do; it never falls back to the CPU. The
-weights are random, drawn from ``--seed``; ``--ckpt`` is not ported yet.
+weights are random, drawn from ``--seed``, unless ``--ckpt`` names a
+final-params checkpoint (``launch.train --ckpt``, of either package),
+which is loaded into the model's tree in its dtypes.
 The stream mixes prompt lengths (p/2, p, 2p cycling) so admissions and
 evictions interleave mid-decode. A short warm-up stream runs first, so
 that first-call costs (the kernel build, allocator growth) are reported
@@ -21,12 +23,11 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import load_pytree
 from repro_torch.configs import ARCHS, get_arch, reduced
 from repro_torch.models import build_model
 from repro_torch.serving import GREEDY, Request, SamplingParams, SlotEngine, serve
 from repro_torch.serving.sampling import fold_in
-
-NOT_PORTED = "not yet ported"
 
 
 def mixed_lengths(base: int, n: int):
@@ -62,15 +63,15 @@ def _parser():
     ap.add_argument("--topp", type=float, default=1.0)
     ap.add_argument("--static", action="store_true",
                     help="static batching baseline (admission barrier)")
-    ap.add_argument("--ckpt", default="", help=NOT_PORTED)
+    ap.add_argument("--ckpt", default="",
+                    help="final-params checkpoint to serve (launch.train "
+                         "--ckpt)")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
 
 def main(argv=None, *, device="cuda"):
     args = _parser().parse_args(argv)
-    if args.ckpt:
-        raise NotImplementedError(f"--ckpt: {NOT_PORTED} (checkpoints)")
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run the "
                            "launcher on the CPU")
@@ -81,6 +82,8 @@ def main(argv=None, *, device="cuda"):
     model = build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(gen, device)
+    if args.ckpt:
+        params, _ = load_pytree(args.ckpt, params)
     key = args.seed
 
     sampling = (GREEDY if args.temp == 0.0 else SamplingParams(

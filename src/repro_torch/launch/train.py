@@ -27,19 +27,38 @@ generator, keeping its own worker rows, so it sees the single-device
 run's data bit for bit. The transport is nccl with a card a rank, gloo
 when ranks share a card (``launch/mesh.py``). Rank 0 alone prints.
 
-The round loop is the plain ``for spec in clock.rounds`` — the reference's
-supervisor with no membership and no chaos plan, bit for bit. The
-supervisor (``--elastic-drop``, ``--quorum``, ``--chaos``), autotune and
-checkpoints are not ported yet: their flags exit with "not yet ported".
+Every DPPF round runs through the fault-tolerant ``train.Supervisor``, as
+in the reference: with no membership and no chaos plan it is the plain
+``for spec in clock.rounds`` loop, bit for bit. ``--elastic-drop W,A,B``
+(a schedule) or ``--chaos PLAN.json`` (scripted kill / stall / netdrop
+windows through the heartbeat table, injected OOMs, torn checkpoints)
+drive the participation mask; ``--quorum`` degrades a round below it to
+local steps; ``--heartbeat-timeout`` and ``--retry-budget`` set the
+supervisor's policy; membership rides the elastic ``staleness_k`` carry.
+``--ckpt PATH`` writes the final (serving) parameters to PATH, which
+``launch.serve --ckpt`` loads, and keeps a resume point at
+``<stem>.state.npz`` (one file whatever the mesh, written by rank 0),
+from which a later run with the same flags resumes; a chaos run's
+rotation checkpoints live in ``<stem>.sup``; on a mesh each rank reads
+only its blocks of the resume point. Rank 0 alone prints the supervisor's
+``supervisor events: ...`` and ``supervisor counters: ...`` lines.
+``--autotune`` and ``--tune-plan`` are not ported yet: they exit with
+"not yet ported".
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
+import shutil
+import tempfile
 import time
 
 import torch
 
+from repro_torch.checkpoint import (
+    load_train_state, save_pytree, save_train_state,
+)
 from repro_torch.configs import ARCHS, DPPFConfig, get_arch, reduced
 from repro_torch.core import methods as method_registry
 from repro_torch.core.engine import tree_items
@@ -48,8 +67,9 @@ from repro_torch.kernels.pullpush import LAUNCHES
 from repro_torch.models import build_model
 from repro_torch.optim import make_optimizer
 from repro_torch.train import (
-    RoundClock, RoundMetricsLogger, TrainState, average_params,
-    init_train_state, make_ddp_step, make_round_step,
+    ChaosMembership, ChaosPlan, FaultInjector, RoundClock,
+    RoundMetricsLogger, ScheduleMembership, Supervisor, TrainState,
+    average_params, init_train_state, make_ddp_step, make_round_step,
     make_sharded_round_step, shard_train_state, sharded_average_params,
 )
 
@@ -144,11 +164,45 @@ def _parser():
                          "engine_mesh; flat engine only): worker rows over "
                          "the first axis, flat-view columns over fsdp x "
                          "model")
+    ap.add_argument("--elastic-drop", default="", metavar="W,A,B",
+                    help="elastic demo: worker row W sits out rounds "
+                         "[A, B) (train.set_participation; the bounded-"
+                         "staleness clamp still forces a rejoin after k "
+                         "missed rounds), through the supervisor as the "
+                         "ScheduleMembership provider")
+    ap.add_argument("--chaos", default="", metavar="PLAN.json",
+                    help="run under the fault-tolerant supervisor with a "
+                         "replayable ChaosPlan (train.chaos): kill / stall "
+                         "/ netdrop windows drive the heartbeat membership "
+                         "table, oom events raise RESOURCE_EXHAUSTED at the "
+                         "trainer boundary (the batch shrinks and the round "
+                         "replays from the last good checkpoint), "
+                         "corrupt_ckpt events tear a written checkpoint "
+                         "(the restore ladder falls back to the previous "
+                         "copy). The same plan replays to the same "
+                         "recovery-event sequence")
+    ap.add_argument("--quorum", type=int, default=0,
+                    help="minimum active worker rows for a consensus round; "
+                         "below it the round degrades to local-only steps "
+                         "(consensus skipped bit-exactly, logged, backed "
+                         "off). 0 = disabled; needs a membership source "
+                         "(--chaos or --elastic-drop)")
+    ap.add_argument("--heartbeat-timeout", type=float, default=0.9,
+                    help="seconds of heartbeat silence before a membership "
+                         "poll counts a missed deadline (the chaos clock is "
+                         "virtual: one round = 1 s); must be > 0")
+    ap.add_argument("--retry-budget", type=int, default=3,
+                    help="supervisor: max consecutive failed rounds "
+                         "(restore + replay each) before the failure "
+                         "propagates")
+    ap.add_argument("--ckpt", default="",
+                    help="checkpoint path: the final (serving) params are "
+                         "written here; DPPF runs also keep a resume point "
+                         "at <ckpt>.state.npz and resume from it when it "
+                         "exists")
     # reference flags whose paths are not ported yet
     ap.add_argument("--autotune", action="store_true", help=NOT_PORTED)
-    for flag in ("--chaos", "--tune-plan", "--ckpt", "--elastic-drop"):
-        ap.add_argument(flag, default="", help=NOT_PORTED)
-    ap.add_argument("--quorum", type=int, default=0, help=NOT_PORTED)
+    ap.add_argument("--tune-plan", default="", help=NOT_PORTED)
     return ap
 
 
@@ -162,14 +216,44 @@ def _can_start():
         for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"))
 
 
+def _resume(state_file, state, clock, mesh=None, plan=None):
+    """The run's state from its resume point, in place. The saved round
+    index belongs to the plan that wrote the checkpoint; if this run's plan
+    differs (changed --steps / --lr / tau schedule), the position is
+    re-derived from the step counter — a silent mismatch would replay or
+    skip data."""
+    state = load_train_state(state_file, state, clock=clock, in_place=True,
+                             mesh=mesh, plan=plan)
+    t_res, rnd = int(state.t), int(state.round)
+    if rnd >= clock.total_rounds or clock.rounds[rnd].start != t_res:
+        rnd = clock.round_of_step(t_res)   # raises if t > steps
+        if rnd < clock.total_rounds and clock.rounds[rnd].start != t_res:
+            raise ValueError(
+                f"checkpoint step {t_res} is mid-round in this run's plan "
+                f"(round {rnd} starts at {clock.rounds[rnd].start}) — "
+                "resume with the original --steps/--lr/--tau-schedule/"
+                "--qsr-beta")
+        state = dataclasses.replace(state, round=rnd)
+    return state
+
+
+def _run_dir(mesh):
+    """A directory for this run's rotation checkpoints, made by rank 0 and
+    named to every rank."""
+    path = tempfile.mkdtemp(prefix="dppf-sup-") \
+        if mesh is None or mesh.rank == 0 else ""
+    if mesh is not None and torch.distributed.get_world_size() > 1:
+        box = [path]
+        torch.distributed.broadcast_object_list(box, src=0)
+        path = box[0]
+    return path
+
+
 def main(argv=None, *, device="cuda"):
     ap = _parser()
     args = ap.parse_args(argv)
-    for flag, used in (("--chaos", args.chaos),
-                       ("--elastic-drop", args.elastic_drop),
-                       ("--quorum", args.quorum),
-                       ("--autotune", args.autotune),
-                       ("--tune-plan", args.tune_plan), ("--ckpt", args.ckpt)):
+    for flag, used in (("--autotune", args.autotune),
+                       ("--tune-plan", args.tune_plan)):
         if used:
             ap.error(f"{flag}: {NOT_PORTED}")
     mspec = method_registry.get_method(args.consensus)
@@ -191,9 +275,51 @@ def main(argv=None, *, device="cuda"):
             ap.error("--mesh expects three comma-separated ints: "
                      "workers,fsdp,model (e.g. --mesh 2,2,2)")
     sharded = args.sharded or bool(mesh_shape)
-    if sharded and (args.overlap == "staleness_k" or args.elastic):
-        ap.error("--sharded/--mesh with --overlap staleness_k or "
-                 f"--elastic: {NOT_PORTED} (it comes with ring_gather)")
+    # supervisor / membership flag validation — all before any model work
+    drop_spec = ()
+    if args.elastic_drop:
+        try:
+            drop_spec = tuple(int(x) for x in args.elastic_drop.split(","))
+            if len(drop_spec) != 3 or not 0 <= drop_spec[0] < args.workers:
+                raise ValueError
+        except ValueError:
+            ap.error("--elastic-drop expects W,A,B with worker row "
+                     "0 <= W < --workers (e.g. --elastic-drop 2,3,5)")
+        if not 0 <= drop_spec[1] < drop_spec[2]:
+            ap.error(f"--elastic-drop window [{drop_spec[1]}, "
+                     f"{drop_spec[2]}) is empty or negative — need "
+                     "0 <= A < B (e.g. --elastic-drop 2,3,5)")
+    if args.chaos and drop_spec:
+        ap.error("--chaos and --elastic-drop are mutually exclusive (the "
+                 "plan's kill/stall/netdrop events already script the "
+                 "membership windows)")
+    if args.heartbeat_timeout <= 0:
+        ap.error("--heartbeat-timeout must be > 0 seconds")
+    if args.retry_budget < 0:
+        ap.error("--retry-budget must be >= 0")
+    if not 0 <= args.quorum <= args.workers:
+        ap.error(f"--quorum {args.quorum} must be in [0, --workers] "
+                 f"({args.workers})")
+    chaos_plan = None
+    if args.chaos:
+        try:
+            chaos_plan = ChaosPlan.load(args.chaos)
+        except ValueError as e:
+            ap.error(f"--chaos {args.chaos}: {e}")
+    if args.quorum and chaos_plan is None and not drop_spec:
+        ap.error("--quorum needs a membership source: a --chaos plan or "
+                 "an --elastic-drop window")
+    needs_membership = bool(drop_spec) or args.quorum > 0 or (
+        chaos_plan is not None and bool(chaos_plan.membership_events()))
+    if needs_membership and args.overlap != "staleness_k":
+        ap.error("membership-driven rounds (--elastic-drop / --quorum / "
+                 "a --chaos plan with kill|stall|netdrop events) ride the "
+                 "elastic staleness_k carry — add --overlap staleness_k "
+                 "(with --staleness K)")
+    if needs_membership and not mspec.communicates:
+        ap.error("membership/quorum supervision needs a communicating "
+                 "consensus method (a local-only method never syncs, so "
+                 "there is nothing to degrade or rejoin)")
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run the "
                            "launcher on the CPU")
@@ -238,7 +364,8 @@ def main(argv=None, *, device="cuda"):
                       consensus=args.consensus, engine=args.engine,
                       overlap=args.overlap,
                       overlap_chunks=args.overlap_chunks,
-                      staleness=args.staleness, elastic=args.elastic,
+                      staleness=args.staleness,
+                      elastic=args.elastic or needs_membership,
                       elastic_catchup=args.elastic_catchup,
                       lam_schedule=args.lam_schedule,
                       tau_schedule=args.tau_schedule, qsr_beta=args.qsr_beta)
@@ -270,6 +397,12 @@ def main(argv=None, *, device="cuda"):
     else:
         state = init_train_state(model.init, opt, dcfg, args.workers, gen,
                                  device=device)
+        # the resume point lives next to the final-params checkpoint
+        # (which keeps its serving format at args.ckpt, see launch/serve.py)
+        state_file = stem = ""
+        if args.ckpt:
+            stem = args.ckpt[:-4] if args.ckpt.endswith(".npz") else args.ckpt
+            state_file = stem + ".state.npz"
         own = slice(None)
         if mesh is not None:
             from repro_torch.launch.mesh import transport
@@ -285,27 +418,72 @@ def main(argv=None, *, device="cuda"):
         else:
             step = make_round_step(model.loss, opt, dcfg, clock=clock,
                                    sam_rho=args.sam_rho)
-        for spec in clock.rounds:
-            # every rank draws the whole round batch and keeps its rows
-            batch = make_round_batch(task, args.seed, args.workers, spec.tau,
-                                     spec.start, args.batch, cfg,
-                                     device="cpu")
-            batch = {k: v[:, own].to(device) for k, v in batch.items()}
-            state, m = step(state, batch)
+        if state_file and os.path.exists(state_file):
+            # a resume point written under any mesh (or none): each rank
+            # reads its own blocks into its shard
+            state = _resume(state_file, state, clock, mesh, plan)
+            say(f"resumed from {state_file} at step {state.t} "
+                f"(round {state.round})")
+        # the fault-tolerant supervisor owns the round iteration
+        # (train/supervisor.py); with no membership and no chaos it is the
+        # plain `for spec in clock.rounds` loop
+        membership = injector = None
+        if chaos_plan is not None:
+            injector = FaultInjector(chaos_plan)
+            if needs_membership:
+                membership = ChaosMembership(chaos_plan, args.workers,
+                                             timeout=args.heartbeat_timeout)
+        elif drop_spec:
+            membership = ScheduleMembership(args.workers, [drop_spec])
+        sup_dir, scratch = "", False
+        if chaos_plan is not None:
+            # recovery checkpoints (the sup_last / sup_prev rotation pair)
+            # live next to the resume point when --ckpt names one, else in
+            # a directory for this run only, the same on every rank
+            sup_dir = stem + ".sup" if stem else _run_dir(mesh)
+            scratch = not stem
+
+        def on_round(spec, m):
             if spec.index % args.log_every == 0:
                 say(f"round {spec.index:4d} "
-                      f"(step {spec.start + spec.tau:5d} tau {spec.tau:3d}) "
-                      f"loss {float(m['train_loss']):.4f} "
-                      f"consensus_dist {float(m['consensus_dist']):.3f} "
-                      f"lam_t {float(m['lam_t']):.3f}")
-            if logger is not None:
-                logger(spec, m)
+                    f"(step {spec.start + spec.tau:5d} tau {spec.tau:3d}) "
+                    f"loss {float(m['train_loss']):.4f} "
+                    f"consensus_dist {float(m['consensus_dist']):.3f} "
+                    f"lam_t {float(m['lam_t']):.3f}")
+
+        def batch_fn(spec, bs):
+            # every rank draws the whole round batch and keeps its rows
+            batch = make_round_batch(task, args.seed, args.workers,
+                                     spec.tau, spec.start, bs, cfg,
+                                     device="cpu")
+            return {k: v[:, own].to(device) for k, v in batch.items()}
+
+        sup = Supervisor(clock, workers=args.workers, membership=membership,
+                         quorum=args.quorum, retry_budget=args.retry_budget,
+                         chaos=injector, ckpt_dir=sup_dir,
+                         batch_size=args.batch, logger=logger,
+                         on_round=on_round, mesh=mesh,
+                         plan=plan, seed=args.seed)
+        try:
+            state = sup.run(state, step, batch_fn, start_round=state.round)
+        finally:
+            if scratch and rank0:
+                shutil.rmtree(sup_dir, ignore_errors=True)
+        if sup.events:
+            sm = sup.summary()
+            say("supervisor events: " + " ".join(sm["event_seq"]))
+            say("supervisor counters: " + " ".join(
+                f"{k}={v}" for k, v in sm["counters"].items())
+                + f" final_batch={sm['final_batch']}")
         say(f"comm rounds {clock.total_rounds} "
-              f"(fixed tau={args.tau} would take {clock.fixed_rounds}; "
-              f"all-reduces saved {clock.fixed_rounds - clock.total_rounds})"
-              " kernel launches " + " ".join(
-                  f"{k}={v - launches0[k]}" for k, v in LAUNCHES.items()
-                  if v > launches0[k]))
+            f"(fixed tau={args.tau} would take {clock.fixed_rounds}; "
+            f"all-reduces saved {clock.fixed_rounds - clock.total_rounds})"
+            " kernel launches " + " ".join(
+                f"{k}={v - launches0[k]}" for k, v in LAUNCHES.items()
+                if v > launches0[k]))
+        if state_file:
+            save_train_state(state_file, state, mesh=mesh, plan=plan)
+            say(f"train-state resume point -> {state_file}")
         final = average_params(state) if mesh is None \
             else sharded_average_params(state, mesh, plan)
 
@@ -318,6 +496,12 @@ def main(argv=None, *, device="cuda"):
         logger.close()
         say(f"round metrics -> {args.log_every_round}")
     say(f"eval loss {float(loss):.4f}  wall {time.time() - t0:.1f}s")
+    if args.ckpt:
+        if rank0:
+            save_pytree(args.ckpt, final, extra={"steps": args.steps})
+        say(f"checkpoint -> {args.ckpt}")
+        if mesh is not None:
+            torch.distributed.barrier()
     if started:
         import torch.distributed as dist
         dist.destroy_process_group()

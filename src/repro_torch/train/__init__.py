@@ -1,16 +1,26 @@
+from repro_torch.train.autotune import OOM_TOKENS, is_oom
+from repro_torch.train.chaos import (
+    ChaosEvent, ChaosPlan, FaultInjector, InjectedOOM,
+)
 from repro_torch.train.clock import (
     OVERLAP_MODES, TAU_SCHEDULES, RoundClock, RoundMetricsLogger, RoundSpec,
+)
+from repro_torch.train.supervisor import (
+    ChaosMembership, HeartbeatMembership, ScheduleMembership, Supervisor,
 )
 from repro_torch.train.trainer import (
     TrainState, average_params, init_train_state, make_ddp_step,
     make_round_step, make_sharded_round_step, set_participation,
     shard_train_state, sharded_average_params, stacked_params,
-    unshard_params,
+    state_template, unshard_params, whole_leaves,
 )
 
-__all__ = ["OVERLAP_MODES", "TAU_SCHEDULES", "RoundClock",
-           "RoundMetricsLogger", "RoundSpec", "TrainState", "average_params",
-           "init_train_state", "make_ddp_step", "make_round_step",
+__all__ = ["ChaosEvent", "ChaosMembership", "ChaosPlan", "FaultInjector",
+           "HeartbeatMembership", "InjectedOOM", "OOM_TOKENS",
+           "OVERLAP_MODES", "TAU_SCHEDULES", "RoundClock",
+           "RoundMetricsLogger", "RoundSpec", "ScheduleMembership",
+           "Supervisor", "TrainState", "average_params", "init_train_state",
+           "is_oom", "make_ddp_step", "make_round_step",
            "make_sharded_round_step", "set_participation",
            "shard_train_state", "sharded_average_params", "stacked_params",
-           "unshard_params"]
+           "state_template", "unshard_params", "whole_leaves"]

@@ -67,12 +67,20 @@ group. ``staleness1`` reads the row-replicated snapshot; ``doublebuf``
 keeps only its own rows valid (in their place of an (R, n_local) buffer,
 whose other rows each chunk's row gather fills) and issues each chunk's
 gather and partial-Gram all-reduce before a segment of the local steps,
-waiting at the boundary. Sharded ``staleness_k`` and elastic rounds are
-not ported yet.
+waiting at the boundary. ``staleness_k`` keeps a ring of such buffers
+and gathers its oldest slot's rows over ``launch.mesh.ring_gather``
+(R - 1 neighbour hops, the all-gather's order); the elastic gates run on
+this rank's rows, the catch-up mean over the rows gathered column chunk
+by column chunk, as the single-device round forms it.
+
+``whole_leaves`` and ``state_template`` give the checkpoint module the
+whole state of a shard (gathered leaf by leaf), where the shard's blocks
+lie in it, and the shapes a restore allocates.
 """
 from __future__ import annotations
 
 import dataclasses
+import traceback
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -216,6 +224,11 @@ def set_participation(state: TrainState, active, *,
         active, state.snap["active"].shape[0], device=dev)
     new_snap = dict(state.snap, active=act)
     if sync is not None:
+        if "sync" not in state.snap:
+            raise ValueError(
+                "sync gating requires a state whose elastic carry has the "
+                "sync gate (DPPFConfig.elastic; checkpoints from before the "
+                "gate are backfilled by checkpoint.load_train_state)")
         new_snap["sync"] = torch.as_tensor(
             sync, dtype=torch.float32, device=dev).reshape(())
     return dataclasses.replace(state, snap=new_snap)
@@ -223,6 +236,46 @@ def set_participation(state: TrainState, active, *,
 
 def _tau_of(batch):
     return next(iter(batch.values())).shape[0]
+
+
+def _round_index(state, dcfg):
+    """The index of the round about to run: the state's clock position,
+    or, for a state restored from a checkpoint that carried only its step
+    counter, the pre-scan ``t // tau`` (right for the fixed-tau runs that
+    wrote such checkpoints)."""
+    return state.round if state.round is not None \
+        else state.t // dcfg.tau
+
+
+def _host_keeper():
+    """``keep(key, t)``: a copy of ``t`` in a host buffer kept under
+    ``key`` and reused (page-locked for a card tensor)."""
+    host = {}
+
+    def keep(key, t):
+        buf = host.get(key)
+        if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+            buf = host[key] = torch.empty(t.shape, dtype=t.dtype,
+                                          pin_memory=t.is_cuda)
+        return buf.copy_(t)
+    return keep
+
+
+def _freeze(keep, worker, opt_state, rows):
+    """Keep worker rows ``rows`` (their parameters and optimizer state)
+    in host memory; the returned function puts them back (an elastic row
+    that sits out steps as the reference's scan does, then reverts)."""
+    def tensors(m):
+        return [worker(m)] + leaves(worker_state(opt_state, m))
+    kept = {m: [keep((i, j), t) for j, t in enumerate(tensors(m))]
+            for i, m in enumerate(rows)}
+
+    def restore():
+        for m, saved in kept.items():
+            for dst, src in zip(tensors(m), saved):
+                dst.copy_(src)
+        kept.clear()
+    return restore
 
 
 def _round_clock(clock, dcfg, base_lr, total_steps, warmup, who):
@@ -272,14 +325,7 @@ def make_round_step(loss_fn, opt: Optimizer, dcfg: DPPFConfig, *,
     mode = dcfg.overlap
     spec = get_method(dcfg.consensus)
     lpf = spec.push_source == "filtered_grad"
-    host = {}       # frozen rows' copies in host memory, reused
-
-    def keep(key, t):
-        buf = host.get(key)
-        if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
-            buf = host[key] = torch.empty(t.shape, dtype=t.dtype,
-                                          pin_memory=t.is_cuda)
-        return buf.copy_(t)
+    keep = _host_keeper()       # frozen rows' copies in host memory
 
     def round_step(state: TrainState, batch):
         engine = state.engine
@@ -293,7 +339,7 @@ def make_round_step(loss_fn, opt: Optimizer, dcfg: DPPFConfig, *,
             M = engine.layout.M
             loss = lambda row, b: loss_fn(engine.unflatten_row(row), b)
             worker = lambda m: params[m]
-        round_idx = state.round
+        round_idx = _round_index(state, dcfg)
         lam_t = clock.lam_at(round_idx)
         ps = clock.pull_scale_at(round_idx)
         snap = state.snap
@@ -321,16 +367,10 @@ def make_round_step(loss_fn, opt: Optimizer, dcfg: DPPFConfig, *,
         p0 = engine.workers(params).clone() if lpf else None
         # a frozen elastic row steps as the reference's scan does, then
         # reverts: its rows are kept in host memory meanwhile
-        kept = {m: [keep((i, j), t) for j, t in enumerate(
-                    [params[m]] + leaves(worker_state(state.opt, m)))]
-                for i, m in enumerate(frozen)}
+        restore = _freeze(keep, worker, state.opt, frozen)
         _local_steps(loss, opt, worker, state.opt, batch, state.t,
                      range(tau), clock, sam_rho, losses, gns)
-        for m, rows in kept.items():
-            for dst, src in zip([params[m]]
-                                + leaves(worker_state(state.opt, m)), rows):
-                dst.copy_(src)
-        del kept
+        restore()
 
         push_vec, cstate = None, state.cstate
         if lpf:
@@ -479,10 +519,6 @@ def _elastic_gates(engine, dcfg, new, q, eff, snap):
 # the sharded round (torch.distributed)
 # ---------------------------------------------------------------------------
 
-SHARDED_NOT_PORTED = ("not yet ported: sharded staleness_k and elastic "
-                      "rounds (they come with launch.mesh.ring_gather)")
-
-
 @dataclass(frozen=True)
 class _Shard:
     """This rank's block of the flat view on a mesh: rows
@@ -514,14 +550,6 @@ def _shard_of(engine, mesh, plan) -> _Shard:
                   mesh.lin_index(col_axes) * n_loc, mesh.group(row_axes))
 
 
-def _refuse_unported(dcfg):
-    if dcfg is not None and (dcfg.overlap == "staleness_k"
-                             or dcfg.elastic):
-        raise NotImplementedError(
-            f"{SHARDED_NOT_PORTED}: overlap={dcfg.overlap!r}, "
-            f"elastic={dcfg.elastic}")
-
-
 def make_sharded_round_step(loss_fn, opt: Optimizer, dcfg: DPPFConfig, *,
                             mesh, plan, clock: Optional[RoundClock] = None,
                             base_lr: Optional[float] = None,
@@ -548,16 +576,26 @@ def make_sharded_round_step(loss_fn, opt: Optimizer, dcfg: DPPFConfig, *,
     coefficients and the mix; round 0 is an exact consensus of the fresh
     view. The snapshot is gathered in place, not beside a row-sharded
     copy: two ranks on one card hold one (R, n_local) buffer each, not
-    two. Returns ``round_step(state, batch) ->
-    (state, metrics)``; the shard and optimizer state are updated in
-    place."""
+    two. ``staleness_k`` carries a ring of k such buffers, oldest ->
+    newest: a stale round (r >= k) gathers the oldest slot chunk by chunk
+    as doublebuf does, its row gathers over ``launch.mesh.ring_gather``;
+    a fill round (r < k) runs the exact consensus of the fresh rows; the
+    consumed slot's buffer takes this round's rows as the newest. With
+    ``dcfg.elastic`` this rank's dropped rows sit out (their steps
+    revert), the reception gate, the catch-up toward the active-row mean
+    (over the rows gathered in column chunks: the single-device round's
+    sum) and the ``sync`` gate run on its rows. Returns
+    ``round_step(state, batch) -> (state, metrics)``; the shard and
+    optimizer state are updated in place."""
     from repro_torch.launch.mesh import all_gather, all_reduce
-    _refuse_unported(dcfg)
     clock = _round_clock(clock, dcfg, base_lr, total_steps, warmup,
                          "make_sharded_round_step")
     mode = dcfg.overlap
+    sk = mode == "staleness_k"
+    k = dcfg.staleness if sk else 1
     spec = get_method(dcfg.consensus)
     lpf = spec.push_source == "filtered_grad"
+    keep = _host_keeper()       # frozen rows' copies in host memory
 
     def round_step(state: TrainState, batch):
         engine = state.engine
@@ -574,18 +612,29 @@ def make_sharded_round_step(loss_fn, opt: Optimizer, dcfg: DPPFConfig, *,
             raise ValueError(f"state.params {tuple(blk.shape)} is not this "
                              f"rank's ({m_loc + aux}, {n_loc}) shard: "
                              "place the state with shard_train_state")
-        if mode in ("staleness1", "doublebuf") and \
-                tuple(snap["x"].shape) != (L.R, n_loc):
-            raise ValueError(f"{mode}'s snapshot is an (R, n_local) "
-                             "buffer: place it with shard_train_state")
+        slots = snap["x"] if sk else [snap["x"]] if snap else []
+        if mode != "none" and (sk != isinstance(snap["x"], list) or any(
+                tuple(x.shape) != (L.R, n_loc) for x in slots)):
+            raise ValueError(f"{mode}'s snapshot is (a ring of) (R, "
+                             "n_local) buffers: place it with "
+                             "shard_train_state")
         tau = _tau_of(batch)
         if next(iter(batch.values())).shape[1] != m_loc:
             raise ValueError(f"the batch holds {m_loc} worker rows a rank "
                              "(this rank's rows of the (tau, M, ...) batch)")
-        round_idx = state.round
+        round_idx = _round_index(state, dcfg)
         lam_t = clock.lam_at(round_idx)
         ps = clock.pull_scale_at(round_idx)
-        stale = state.t > 0
+        stale = round_idx >= k if sk else state.t > 0
+        eff, frozen = None, []
+        if dcfg.elastic:
+            # bounded staleness: a row that already missed k rounds is
+            # forced back in; this rank's dropped rows sit out
+            eff = torch.where(snap["missed"] >= k,
+                              torch.ones_like(snap["active"]),
+                              snap["active"])
+            effs = eff.tolist()
+            frozen = [i for i in range(m_loc) if effs[sh.r_off + i] == 0]
         losses = torch.empty((tau, m_loc), dtype=torch.float32,
                              device=blk.device)
         gns = torch.empty_like(losses)
@@ -602,14 +651,30 @@ def make_sharded_round_step(loss_fn, opt: Optimizer, dcfg: DPPFConfig, *,
             blk.untyped_storage().resize_(0)
         loss = lambda row, b: loss_fn(engine.unflatten_row(row), b)
         worker = lambda m: w_full[m]
-        step = lambda r: _local_steps(loss, opt, worker, state.opt, batch,
-                                      state.t, r, clock, sam_rho, losses,
-                                      gns)
-        if mode == "doublebuf" and stale:
+        fault = []
+
+        def step(r):
+            # a fault in this rank's local steps is held, its remaining
+            # steps skipped, and the round's collectives issued as on
+            # every rank until the ranks agree on it below
+            if fault:
+                return
+            try:
+                _local_steps(loss, opt, worker, state.opt, batch, state.t,
+                             r, clock, sam_rho, losses, gns)
+            except Exception as e:  # noqa: BLE001 — agreed, then re-raised
+                e.add_note("".join(traceback.format_exception(e)))
+                fault.append(e.with_traceback(None))  # frees its frames
+
+        restore = _freeze(keep, worker, state.opt, frozen)
+        gram = None
+        if mode in ("doublebuf", "staleness_k") and stale:
             s_full, gram = _doublebuf_steps(s_engine, sh, dcfg, lam_t, ps,
                                             snap, tau, step)
         else:
             step(range(tau))
+        restore()
+        _agree_local_steps(mesh, fault, blk.device)
 
         with torch.no_grad():
             if released is not None:
@@ -629,7 +694,11 @@ def make_sharded_round_step(loss_fn, opt: Optimizer, dcfg: DPPFConfig, *,
                 cstate = {"g_ema": push_vec}
             run = dict(dcfg=dcfg, lam_t=lam_t, state=cstate,
                        engine=s_engine, push_vec=push_vec, pull_scale=ps)
-            if mode == "doublebuf" and stale and sh.layout.rows == 1:
+            if sk:
+                params, new_snap, metrics = _sharded_ring_round(
+                    sh, s_engine, dcfg, run, blk, snap, stale, gram, eff,
+                    l_last, g_last)
+            elif mode == "doublebuf" and stale and sh.layout.rows == 1:
                 # one row shard: the shard is the whole (R, n_local) view,
                 # so the stale epilogue runs over the snapshot as on one
                 # card and the buffers swap
@@ -678,13 +747,133 @@ def make_sharded_round_step(loss_fn, opt: Optimizer, dcfg: DPPFConfig, *,
                                     sh.row_group)[0] / sh.layout.rows
         metrics["train_loss"] = train_loss
         metrics["lam_t"] = lam_t
-        metrics["staleness"] = int(stale) if mode != "none" else 0
+        metrics["staleness"] = (k if stale else 0) if mode != "none" \
+            else 0
         new_state = TrainState(params=params, opt=state.opt, cstate=cstate,
                                t=state.t + tau, snap=new_snap,
                                round=round_idx + 1, engine=engine)
         return new_state, metrics
 
     return round_step
+
+
+def _agree_local_steps(mesh, fault, device):
+    """Every rank learns whether any rank's local steps failed, through an
+    all-reduce of ``[failed, oom]`` over the whole mesh (before the
+    boundary's collectives, in which the others would wait for it): the
+    failed rank raises its own exception, the others a RuntimeError, and
+    a ``train.Supervisor`` around the step agrees on the OOM flag again.
+    A fault inside a collective is not caught here: the process group's
+    timeout (``launch.mesh.start``) ends such a wait in an error."""
+    from repro_torch.launch.mesh import all_reduce
+    from repro_torch.train.autotune import is_oom
+    if mesh.size == 1:
+        if fault:
+            raise fault[0]
+        return
+    flag = torch.tensor([float(bool(fault)),
+                         float(bool(fault) and is_oom(fault[0]))],
+                        device=device)
+    all_reduce(flag, mesh.group(mesh.axis_names))
+    if fault:
+        raise fault[0]
+    if float(flag[0]) > 0:
+        raise RuntimeError("the round's local steps failed on another rank"
+                           + (" (out of memory)" if float(flag[1]) > 0
+                              else ""))
+
+
+def _sharded_ring_round(sh, s_engine, dcfg, run, blk, snap, stale, gram,
+                        eff, l_last, g_last):
+    """staleness_k's boundary on a shard. Stale: the oldest slot S, now
+    gathered, takes the consensus delta onto this rank's rows (with one
+    row shard, the stale epilogue over S as on one card). Fill: the exact
+    consensus of the fresh rows. The consumed slot's buffer (or, with one
+    row shard, ``blk`` itself) holds this round's rows q and becomes the
+    newest slot; then the elastic gates."""
+    M, m_loc = s_engine.layout.M, sh.m_loc
+    aux = s_engine.layout.aux
+    S = snap["x"][0]
+    act0 = snap["act"][0] if eff is not None else None
+    one = sh.layout.rows == 1
+    if stale and one:
+        params, _, metrics = consensus.apply_round(
+            S, losses=snap["losses"][0], grad_norms=snap["gns"][0],
+            first_gram=gram, mask=act0, base=blk, **run)
+        newest = blk
+    elif stale:
+        out = torch.empty_like(S) if s_engine.use_kernel else None
+        c_out, _, metrics = consensus.apply_round(
+            S, losses=snap["losses"][0], grad_norms=snap["gns"][0],
+            first_gram=gram, mask=act0, out=out, **run)
+        own = slice(sh.r_off, sh.r_off + m_loc)
+        d_own = c_out[own].sub_(S[own])
+        d_aux = c_out[M:].sub_(S[M:])
+        _put_q(sh, S, blk, M)
+        blk[:m_loc].add_(d_own)
+        blk[m_loc:].add_(d_aux)
+        del c_out, d_own, d_aux, out
+        params, newest = blk, S
+    elif one:
+        params, _, metrics = consensus.apply_round(
+            blk, losses=l_last, grad_norms=g_last, mask=eff, out=S, **run)
+        newest = blk
+    else:
+        _put_q(sh, S, blk, M)
+        X = _gather_rows(sh, blk, aux, ring=True)
+        X, _, metrics = consensus.apply_round(
+            X, losses=l_last, grad_norms=g_last, mask=eff, **run)
+        params, newest = _own_rows(sh, blk, X, M, aux), S
+        del X
+    new_snap = {
+        "x": snap["x"][1:] + [newest],
+        "losses": torch.cat([snap["losses"][1:], l_last[None]]),
+        "gns": torch.cat([snap["gns"][1:], g_last[None]])}
+    if eff is not None:
+        if one:
+            _elastic_gates(s_engine, dcfg, params, newest, eff, snap)
+        else:
+            _sharded_gates(sh, dcfg, params, newest, eff, snap, M)
+        missed = snap["missed"]
+        new_snap.update(
+            act=torch.cat([snap["act"][1:], eff[None]]),
+            active=snap["active"],
+            missed=torch.where(eff > 0, torch.zeros_like(missed),
+                               missed + 1))
+        if "sync" in snap:
+            new_snap["sync"] = snap["sync"]
+    return params, new_snap, metrics
+
+
+def _sharded_gates(sh, dcfg, blk, Q, eff, snap, M):
+    """``_elastic_gates`` on this rank's rows ``blk`` (its worker rows,
+    then the aux rows), ``Q`` an (R, n_local) buffer whose rows of this
+    rank and aux rows hold q. The catch-up mean is formed over the worker
+    rows gathered over the row group, a column chunk at a time, by the
+    single-device round's sum."""
+    from repro_torch.launch.mesh import all_gather
+    m_loc, r_off = sh.m_loc, sh.r_off
+    effs = eff.tolist()
+    for i in range(m_loc):
+        if effs[r_off + i] == 0:
+            blk[i].copy_(Q[r_off + i])
+    rejoin = [m for m in range(M)
+              if effs[m] > 0 and int(snap["missed"][m]) > 0]
+    if rejoin:
+        w = eff[:, None]
+        denom = torch.clamp(torch.sum(eff), min=1.0)
+        for a in range(0, sh.n_loc, _CATCHUP_CHUNK):
+            cols = all_gather(blk[:m_loc, a:a + _CATCHUP_CHUNK],
+                              sh.row_group)
+            mean = torch.sum(w * cols, dim=0) / denom
+            for m in rejoin:
+                if r_off <= m < r_off + m_loc:
+                    row = blk[m - r_off, a:a + _CATCHUP_CHUNK]
+                    row += (mean - row) * dcfg.elastic_catchup
+            del cols, mean
+    if "sync" in snap and float(snap["sync"]) == 0:
+        blk[:m_loc].copy_(Q[r_off:r_off + m_loc])
+        blk[m_loc:].copy_(Q[M:])
 
 
 def _put_q(sh, S, blk, M):
@@ -694,14 +883,17 @@ def _put_q(sh, S, blk, M):
     S[M:].copy_(blk[sh.m_loc:])
 
 
-def _gather_rows(sh, blk, aux):
+def _gather_rows(sh, blk, aux, *, ring=False):
     """This rank's worker rows gathered over the row group, with the aux
-    rows: the full (R, n_local) view of its column shard. With one row
-    shard that is ``blk`` itself."""
-    from repro_torch.launch.mesh import all_gather
+    rows: the full (R, n_local) view of its column shard (``ring``: over
+    ``ring_gather``, the same bits). With one row shard that is ``blk``
+    itself."""
+    from repro_torch.launch.mesh import all_gather, ring_gather
     if sh.layout.rows == 1:
         return blk
-    rows = all_gather(blk[:sh.m_loc], sh.row_group)
+    rows = ring_gather(blk[:sh.m_loc], sh.row_group,
+                       axes=sh.layout.row_axes) if ring \
+        else all_gather(blk[:sh.m_loc], sh.row_group)
     return torch.cat([rows, blk[sh.m_loc:]]) if aux else rows
 
 
@@ -726,18 +918,24 @@ def _exact_round(sh, blk, M, aux, l_last, g_last, run):
 
 
 def _doublebuf_steps(s_engine, sh, dcfg, lam_t, ps, snap, tau, step):
-    """doublebuf's local steps in ``n_eff`` segments. Before segment j the
-    row gather of the snapshot's column chunk j is issued; once it has
+    """doublebuf's (and staleness_k's) local steps in ``n_eff`` segments.
+    Before segment j the row gather of the oldest snapshot's column chunk
+    j is issued (``ring_gather`` for a staleness_k ring); once it has
     landed in its place (before segment j + 1, or at the boundary for the
     last), the chunk's stage-1 partial Gram is formed in place and its
     all-reduce issued. Returns the gathered (R, n_local) snapshot and the
     summed Gram."""
-    from repro_torch.launch.mesh import all_gather
+    from repro_torch.launch.mesh import all_gather, ring_gather
+    ring = isinstance(snap["x"], list)
     stages, _ = consensus.lower_stages(
-        s_engine, dcfg, lam_t, losses=snap["losses"],
-        grad_norms=snap["gns"], pull_scale=ps)
+        s_engine, dcfg, lam_t, losses=_oldest(snap, "losses"),
+        grad_norms=_oldest(snap, "gns"),
+        mask=_oldest(snap, "act") if "act" in snap else None, pull_scale=ps)
     T1 = stages[0][1]
-    S, m_loc, rows = snap["x"], sh.m_loc, sh.layout.rows
+    S, m_loc, rows = _oldest(snap, "x"), sh.m_loc, sh.layout.rows
+    gather = (lambda x: ring_gather(x, sh.row_group,
+                                    axes=sh.layout.row_axes, async_op=True)) \
+        if ring else (lambda x: all_gather(x, sh.row_group, async_op=True))
     M = m_loc * rows
     own = slice(sh.r_off, sh.r_off + m_loc)
     n_eff = max(1, min(dcfg.overlap_chunks, tau, sh.n_loc))
@@ -752,8 +950,7 @@ def _doublebuf_steps(s_engine, sh, dcfg, lam_t, ps, snap, tau, step):
     prev = None
     for (a, b), (sa, sz) in zip(_chunk_bounds(sh.n_loc, n_eff),
                                 _chunk_bounds(tau, n_eff)):
-        nxt = (all_gather(S[own, a:b], sh.row_group, async_op=True)
-               if rows > 1 else None, a, b)
+        nxt = (gather(S[own, a:b]) if rows > 1 else None, a, b)
         if prev is not None:
             land(*prev)
         prev = nxt
@@ -774,16 +971,14 @@ def shard_train_state(state: TrainState, mesh, plan, *, dcfg=None):
     optimizer state of its worker rows at full width (the local steps run
     there); LPF-SGD's filtered field at its columns; the overlap
     snapshot's (R, n_local) columns (``staleness1`` mixes them whole,
-    ``doublebuf`` keeps this rank's rows and gathers the rest). A block
+    ``doublebuf`` keeps this rank's rows and gathers the rest), each slot
+    of a ``staleness_k`` ring alike; the elastic carry whole. A block
     that is all of a tensor on its device is that tensor (the whole state
     is meant to be dropped), any other block a copy."""
     if state.engine is None:
         raise ValueError("shard_train_state requires a flat-engine "
                          "TrainState (DPPFConfig.engine='flat')")
     snap = state.snap
-    _refuse_unported(dcfg)
-    if snap is not None and (isinstance(snap["x"], list) or "act" in snap):
-        raise NotImplementedError(SHARDED_NOT_PORTED)
     L = state.engine.layout
     sh = _shard_of(state.engine, mesh, plan)
     dev = mesh.device
@@ -811,7 +1006,9 @@ def shard_train_state(state: TrainState, mesh, plan, *, dcfg=None):
     if snap is not None:
         new_snap = {k: v.to(dev, copy=True) for k, v in snap.items()
                     if k != "x"}
-        new_snap["x"] = take(snap["x"], snap["x"][:, cols])
+        x = snap["x"]
+        new_snap["x"] = [take(s, s[:, cols]) for s in x] \
+            if isinstance(x, list) else take(x, x[:, cols])
     cstate = {k: take(v, v[:, cols]) if v.dim() == 2
               else v.to(dev, copy=True) for k, v in state.cstate.items()}
     return TrainState(params=block(state.params),
@@ -842,6 +1039,100 @@ def sharded_average_params(state: TrainState, mesh, plan):
     mean = all_reduce(part, sh.row_group) / L.M
     return state.engine.unflatten_row(
         all_gather(mean, sh.layout.col_group, dim=0), cast=False)
+
+
+def whole_leaves(state: TrainState, mesh, plan):
+    """The whole state of a shard, for the checkpoint module:
+    ``[(key, shape, dtype, parts, local, rows, cols)]``, one entry a leaf
+    in checkpoint order: its whole shape, ``parts`` callables that gather
+    its slices along dim 0 (one slice, or a ring's slots one by one), this
+    rank's tensor of it (a ring's first slot), and where that tensor lies
+    in the whole (in each slot of a ring): ``rows`` the indices along dim
+    0 (None: all) and ``cols`` the ``(start, stop)`` of the last dim of a
+    2-D leaf (None: all), as ``shard_train_state`` takes them. Every rank
+    must call every part in this order: each gathers over the mesh; the
+    rest needs no collective (a template of meta tensors will do)."""
+    from repro_torch.launch.mesh import all_gather
+    L = state.engine.layout
+    sh = _shard_of(state.engine, mesh, plan)
+    cg = sh.layout.col_group
+    cols = (sh.c_off, sh.c_off + sh.n_loc)
+    own = list(range(sh.r_off, sh.r_off + sh.m_loc))
+    out = []
+
+    def rows_of(x):
+        # this rank's worker rows of an (R, n_local) buffer, with the aux
+        # rows, gathered over the mesh into the whole (R, n) (a view of
+        # the rows where there are no aux rows: no copy beside them)
+        blk = x[sh.r_off:sh.r_off + sh.m_loc]
+        if L.aux:
+            blk = torch.cat([blk, x[L.M:]])
+        return unshard_params(dataclasses.replace(state, params=blk), mesh,
+                              plan)
+
+    def add(key, shape, v, parts, rows=None, cols=None):
+        out.append((key, tuple(shape), v.dtype, parts, v, rows, cols))
+
+    for k in sorted(state.cstate):
+        v = state.cstate[k]
+        if v.dim() == 2:
+            add(f"cstate::{k}", (v.shape[0], L.n), v,
+                [lambda v=v: all_gather(v, cg, dim=1)], cols=cols)
+        else:
+            add(f"cstate::{k}", v.shape, v, [lambda v=v: v])
+    for path, v in tree_items(state.opt):
+        key = "::".join(("opt",) + tuple(str(p) for p in path))
+        if v.dim() and v.shape[0] == sh.m_loc and sh.layout.rows > 1:
+            add(key, (L.M,) + tuple(v.shape[1:]), v,
+                [lambda v=v: all_gather(v, sh.row_group)], rows=own)
+        else:
+            add(key, v.shape, v, [lambda v=v: v])
+    add("params", (L.R, L.n), state.params,
+        [lambda: unshard_params(state, mesh, plan)],
+        rows=own + list(range(L.M, L.R)), cols=cols)
+    if state.snap is not None:
+        for k in sorted(state.snap):
+            v = state.snap[k]
+            if k != "x":
+                add(f"snap::{k}", v.shape, v, [lambda v=v: v])
+            elif isinstance(v, list):
+                add("snap::x", (len(v), L.R, L.n), v[0],
+                    [lambda s=s: rows_of(s) for s in v], cols=cols)
+            else:
+                add("snap::x", (L.R, L.n), v, [lambda v=v: rows_of(v)],
+                    cols=cols)
+    return out
+
+
+_SMALL = 1 << 20
+
+
+def state_template(state: TrainState):
+    """A ``TrainState`` of ``state``'s shapes and dtypes, what a restore
+    needs of its template: meta tensors, but for small leaves (the
+    snapshot's scalars and vectors), which are kept as CPU copies. For a
+    shard it is the shard's template (``checkpoint.load_train_state``
+    with ``mesh`` reads this rank's blocks into it). The engine is
+    kept."""
+    def whole(t):
+        if t.numel() * t.element_size() <= _SMALL:
+            return t.detach().to("cpu", copy=True)
+        return torch.empty(tuple(t.shape), dtype=t.dtype, device="meta")
+
+    def tree(x):
+        if x is None:
+            return None
+        if isinstance(x, list):
+            return [whole(v) for v in x]
+        if isinstance(x, torch.Tensor):
+            return whole(x)
+        return tree_from_items([(p, whole(v)) for p, v in tree_items(x)])
+    snap = None if state.snap is None else \
+        {k: tree(v) for k, v in state.snap.items()}
+    return dataclasses.replace(
+        state, params=tree(state.params),
+        opt={k: tree(v) for k, v in state.opt.items()},
+        cstate={k: tree(v) for k, v in state.cstate.items()}, snap=snap)
 
 
 def make_ddp_step(loss_fn, opt: Optimizer, *,

@@ -49,3 +49,29 @@ def test_entry_points_default_to_the_card():
     assert sig.parameters["device"].default == "cuda"
     data = classification_task(n_train=16, n_test=8, device="cpu")
     assert data["x_train"].device.type == "cpu"
+
+
+def test_fault_tolerance_modules_are_walked_and_launchers_use_the_card():
+    """The checkpoint, chaos, supervisor and OOM-contract modules are among
+    the walked ones; both launchers default to the card; ``chip_smoke.py``
+    imports neither JAX nor the JAX package."""
+    import ast
+
+    from repro_torch.launch import serve, train
+    for rel in ("checkpoint/__init__.py", "checkpoint/io.py",
+                "train/chaos.py", "train/supervisor.py",
+                "train/autotune.py", "launch/mesh.py"):
+        assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
+    for mod in (train, serve):
+        assert inspect.signature(mod.main).parameters["device"].default \
+            == "cuda"
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    bad = sorted(n for n in names
+                 if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+    assert not bad, bad

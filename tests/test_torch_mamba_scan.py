@@ -30,6 +30,8 @@ from repro_torch.kernels.mamba_scan import (
     LAUNCHES, chunk_ref, ops, ssd_chunks, ssd_chunks_seq, ssd_scan,
 )
 from repro_torch.models import ssm
+from _torch_dist import _one_torch_thread  # noqa: F401 (autouse)
+
 
 # the wrapper's module (the package exports its function of the same name)
 ssd_mod = importlib.import_module(

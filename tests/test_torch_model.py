@@ -29,6 +29,8 @@ from repro_torch.core.engine import (
 from repro_torch.models import attention as attn
 from repro_torch.models import build_model, params_from_numpy
 from repro_torch.models import transformer as lm
+from _torch_dist import _one_torch_thread  # noqa: F401 (autouse)
+
 
 # "name@L": the reduced config cut to L layers; "/chunkN": xlstm_chunk N
 ARCHS = ("yi-6b", "gemma2-2b", "zamba2-7b", "zamba2-7b@9", "xlstm-350m",

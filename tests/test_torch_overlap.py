@@ -45,6 +45,8 @@ from repro_torch.train import (
     init_train_state, make_round_step, set_participation,
 )
 from repro_torch.train.trainer import _chunk_bounds
+from _torch_dist import _one_torch_thread  # noqa: F401 (autouse)
+
 
 M, TAU, DIM, NCLS, WIDTH = 4, 2, 16, 4, 8
 MODES = ("fast", "precise", "kernel")

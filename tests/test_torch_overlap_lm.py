@@ -33,6 +33,8 @@ from repro_torch.optim import make_optimizer
 from repro_torch.train import (
     RoundClock, init_train_state, make_round_step, set_participation,
 )
+from _torch_dist import _one_torch_thread  # noqa: F401 (autouse)
+
 
 M, TAU, B, S = 4, 2, 2, 16
 TOL = dict(rtol=1e-4, atol=1e-4)

@@ -28,6 +28,7 @@ from repro_torch.data import classification_task
 from repro_torch.models import build_model, params_from_numpy
 from repro_torch.optim import make_optimizer
 from repro_torch.train import RoundClock, init_train_state, make_round_step
+from _torch_dist import _one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_one_round_matches_reference_on_the_kernel_path():
@@ -138,13 +139,14 @@ def test_launcher_smoke_on_cpu():
     assert np.isfinite(loss)
 
 
-@pytest.mark.parametrize("flags", [["--elastic-drop", "2,3,5"],
+@pytest.mark.parametrize("flags", [["--tune-plan", "plan.json"],
                                    ["--mesh", "2,2,2"], ["--sharded"],
                                    ["--autotune"]])
 def test_launcher_refuses_unported_paths(flags, capsys, monkeypatch):
-    """The unported paths exit "not yet ported"; the sharded ones (ported
-    since) exit with how to start their ranks when there is no process
-    group to join."""
+    """The unported paths (the autotune search) exit "not yet ported"; the
+    sharded ones (ported since) exit with how to start their ranks when
+    there is no process group to join. ``--elastic-drop`` and the other
+    supervisor flags run (``tests/test_torch_supervisor.py``)."""
     from repro_torch.launch.train import main
     for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(var, raising=False)

@@ -28,7 +28,7 @@ for its sharded legs (``tests/test_sharded_round.py:690-705, :800-810``):
   kernel route in two chunks within 2e-5.
 
 Then, in this process: a 1x1 mesh equals ``make_round_step`` bit for bit,
-and the refusals (tree engine, ``staleness_k``, elastic)."""
+and the refusals (tree engine, a misplaced ``staleness_k`` ring)."""
 from __future__ import annotations
 
 import dataclasses
@@ -336,17 +336,22 @@ def test_refusals():
     x, y = td.mlp_batches(1, 2, 4)[0]
     with pytest.raises(ValueError, match="flat"):
         step(st, {"x": torch.tensor(x), "y": torch.tensor(y)})
-    # staleness_k and elastic: the next slice
+    # staleness_k and elastic build and place (tests/
+    # test_torch_sharded_staleness_k.py runs them); a ring whose snapshot
+    # is not a list of (R, n_local) buffers is refused
     for kw in (dict(overlap="staleness_k", staleness=2),
                dict(overlap="staleness_k", staleness=1, elastic=True)):
         d = DPPFConfig(engine="flat", **kw)
-        with pytest.raises(NotImplementedError, match="staleness_k"):
-            make_sharded_round_step(tmlp_loss, topt, d, mesh=mesh,
-                                    plan=FLAT_PLAN, base_lr=0.05,
-                                    total_steps=40)
+        sk_step = make_sharded_round_step(tmlp_loss, topt, d, mesh=mesh,
+                                          plan=FLAT_PLAN, base_lr=0.05,
+                                          total_steps=40)
         sk = init_train_state(init, topt, d, 4, None, device="cpu")
-        with pytest.raises(NotImplementedError, match="ring_gather"):
-            shard_train_state(sk, mesh, FLAT_PLAN)
+        placed = shard_train_state(sk, mesh, FLAT_PLAN)
+        assert len(placed.snap["x"]) == kw["staleness"]
+        bad_ring = dataclasses.replace(
+            placed, snap=dict(placed.snap, x=placed.snap["x"][0]))
+        with pytest.raises(ValueError, match="shard_train_state"):
+            sk_step(bad_ring, {"x": torch.tensor(x), "y": torch.tensor(y)})
     # a whole state is not a shard
     d = DPPFConfig(engine="flat")
     whole = init_train_state(init, topt, d, 4, None, device="cpu")
@@ -416,7 +421,7 @@ def test_launcher_sharded_matches_unsharded(tmp_path):
     (["--mesh", "2,2"], "three comma-separated ints"),
     (["--sharded", "--engine", "tree"], "--engine flat"),
     (["--sharded", "--method", "ddp"], "communicating"),
-    (["--sharded", "--overlap", "staleness_k"], "not yet ported"),
+    (["--sharded", "--autotune"], "not yet ported"),
 ])
 def test_launcher_refuses_bad_sharded_flags(flags, msg, capsys):
     from repro_torch.launch.train import main

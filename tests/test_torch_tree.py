@@ -47,6 +47,8 @@ from repro_torch.train import (
 )
 from test_torch_kernels import bf16_ulp
 from test_torch_round import _mlp_loss
+from _torch_dist import _one_torch_thread  # noqa: F401 (autouse)
+
 
 DTYPES = ("float32", "bfloat16")
 LOSSES = [3.0, 1.0, 2.0, 4.0]
