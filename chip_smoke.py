@@ -50,7 +50,7 @@ Phases (any failure raises, and the script exits non-zero):
    (b) one prompt through ``make_state`` +
    ``prefill_chunk`` in chunks of 512; (c) the continuous-batching
    launcher ``repro_torch.launch.serve.main`` at full width, depth cut
-   to 8 layers (``SERVE_LAYERS``: the run's time limit).
+   to 4 layers (``SERVE_LAYERS``: the run's time limit).
 7. SSD kernel: ptxas's registers and spills and a ``cuobjdump -sass``
    census of every ``ssd_kernel`` instance (highest register, HMMA and
    HGMMA counts: the phase fails unless each instance runs its products
@@ -79,7 +79,7 @@ Phases (any failure raises, and the script exits non-zero):
    traced (8 new tokens) with CUDA events around each SSD scan and its
    kernel, and the share of the traced prefill taken by the ``swa*``
    kernels; (b) one prompt in chunks of 512 (carried ssm and conv states);
-   (c) the serving launcher at 27 layers (``SERVE_LAYERS``): 5 requests
+   (c) the serving launcher at 12 layers (``SERVE_LAYERS``): 5 requests
    of 256 / 512 / 1024 / 256 / 512 tokens, 4 slots, chunk 64, 16 new
    tokens.
 9. sLSTM kernel: its launch geometry at every head dim (blocks per
@@ -123,7 +123,7 @@ Phases (any failure raises, and the script exits non-zero):
    prefill taken by its 6 ``slstm`` kernels; (b) one prompt in chunks of
    512 (and, for information, one-shot against chunked in fp32 at 1024
    and 4096 tokens); (c) the serving launcher on the published config
-   (``xlstm_chunk = 0``) at 8 layers (``SERVE_LAYERS``): 5 requests of
+   (``xlstm_chunk = 0``) at 4 layers (``SERVE_LAYERS``): 5 requests of
    256 / 512 / 1024 / 256 / 512 tokens, 4 slots, chunk 64, 16 new
    tokens.
 
@@ -257,6 +257,33 @@ Phases (any failure raises, and the script exits non-zero):
    ``launch.serve --smoke --ckpt`` on the same file. ``python3
    chip_smoke.py --phases 15,16`` runs phase 1 and phases 15 and 16
    alone (16 resumes from 15's resume point).
+17. The MoE, enc-dec and vlm families (bf16, random weights from seeded
+   generators on the card). First ``swa_attention`` against its plain
+   version (bf16, each query row within 2e-2 of its scale, both layouts)
+   and timed beside ``scaled_dot_product_attention`` at every shape this
+   phase's serving paths launch it (``ATTN_FAMILIES``: hd 128 GQA causal
+   with 6, 5 and 2 heads a kv head, seamless's hd 64 causal
+   self-attention and its non-causal encoder pass and cross-attention, in
+   (a)'s prefill, (b)'s 512-token chunks and (c)'s 64-token chunks; a
+   census of (a)-(c) fails on a launch at any other shape). Then, for dbrx-132b cut to 6 of 40 layers,
+   llama4-scout-17b-a16e cut to 10 of 48, internvl2-2b at its 24 layers
+   with a 256-patch prefix and seamless-m4t-medium at its 12 + 12 layers
+   over 1536 frames (``FAMILIES``): (0) the kernel route of the serving
+   prefill against ``attend`` at full width in fp32 (1 MoE layer, 2 dense
+   layers, seamless's 1 + 1: its encoder pass, causal self-attention and
+   non-causal cross-attention), 1e-4 of the scale; (a) ``generate`` on 4
+   prompts (8160 positions; seamless 2048 tokens), greedy, 32 new tokens,
+   counters zeroed just before and read just after (``swa_attention``: 6,
+   10, 24 and 12 + 12 + 12 launches), prefill ms, decode ms a token, peak
+   memory, and for dbrx a traced prefill; (b) one prompt through
+   ``make_state`` + ``prefill_chunk`` in chunks of 512; (c) the serving
+   launcher at ``SERVE_LAYERS``' depth, 4 requests, 8 new tokens
+   (seamless's requests carry their frames). (d) Training at full width on
+   the flat engine's kernel mode, as phase 3 (M = 4, tau 4, seq 64, batch
+   8, 2 rounds): seamless-m4t-medium at 12 + 12 layers and internvl2-2b at
+   12 of 24, the round batches carrying frames / the prefix; round ms,
+   consensus ms, peak memory, ``fused_round`` launches. ``python3
+   chip_smoke.py --phases 17`` runs phase 1 and this phase alone.
 
 It prints a ``kernels`` line, the ``{"kernels": [...]}`` record and, last,
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -312,13 +339,19 @@ ATTN_CASES = (
 # the serving shapes: gemma2-2b's local and global layers at S = 8160,
 # and the cap 0 / window 0 case one PyTorch call computes
 SERVE_S = 8160
-# the serving launchers of phases 6(c), 8(c) and 10(c) at a cut depth: their
-# host-bound decode costs time in proportion to the layers, and the whole
-# run must end within its limit (the models' (a) and (b) parts stay at
-# full depth). gemma2-2b 8 of 26 layers (4 local + 4 global), zamba2-7b
-# 27 of 81 (23 Mamba2 + 4 shared attention), xlstm-350m 8 of 24 (6 mLSTM
-# + 2 sLSTM)
-SERVE_LAYERS = {"gemma2-2b": 8, "zamba2-7b": 27, "xlstm-350m": 8}
+# the serving launchers of phases 6(c), 8(c), 10(c) and 17(c) at a cut
+# depth: their host-bound decode costs time in proportion to the layers,
+# and the whole run must end within its limit (the models' (a) and (b)
+# parts stay at full depth). gemma2-2b 4 of 26 layers (2 local + 2
+# global), zamba2-7b 12 of 81 (10 Mamba2 + 2 shared attention),
+# xlstm-350m 4 of 24 (3 mLSTM + 1 sLSTM)
+SERVE_LAYERS = {"gemma2-2b": 4, "zamba2-7b": 12, "xlstm-350m": 4,
+                # phase 17(c): dbrx-132b and llama4-scout-17b-a16e 2 of 40
+                # / 48 (13.0 / 8.8 GB of weights), internvl2-2b 4 of 24,
+                # seamless-m4t-medium 4 of its 12 decoder layers (all 12
+                # encoder layers)
+                "dbrx-132b": 2, "llama4-scout-17b-a16e": 2,
+                "internvl2-2b": 4, "seamless-m4t-medium": 4}
 
 
 @contextlib.contextmanager
@@ -758,11 +791,13 @@ def _model_layout(t):
     return t.transpose(1, 2).contiguous().transpose(1, 2)
 
 
-def _attn_case(swa, plain, case, dtype, gen, name):
+def _attn_case(swa, plain, case, dtype, gen, name, plain_reps=20):
     """One case against the plain version, each query row held to the
     dtype's tolerance of its own largest |value|; bf16 also in the model's
     transposed (B, S, H, hd) view, whose strides the TMA descriptors are
-    built from."""
+    built from. Where ``scaled_dot_product_attention`` computes the same
+    function (no window, no cap; causal only with Sq = Skv) it is timed
+    too."""
     B, H, Hkv, Sq, Skv, hd, window, cap, causal = case
     q = torch.randn((B, H, Sq, hd), generator=gen, device="cuda").to(dtype)
     k = torch.randn((B, Hkv, Skv, hd), generator=gen, device="cuda").to(dtype)
@@ -783,7 +818,8 @@ def _attn_case(swa, plain, case, dtype, gen, name):
            "max_abs_err": err, "max_rel_err": rel, "tol_rel": tol,
            "ms": _time_ms(lambda: swa.swa_attention(q, k, v, **kw)),
            "plain_ms": _time_ms(lambda: _attn_plain_rows(plain, q, k, v,
-                                                         **kw)),
+                                                         **kw),
+                                reps=plain_reps),
            "bound_ms": bound, "bound_by": bound_by, "flops": flops,
            "library_ms": None}
     if dtype == torch.bfloat16:
@@ -801,9 +837,9 @@ def _attn_case(swa, plain, case, dtype, gen, name):
             lambda: swa.swa_attention(qm, km, vm, **kw))
         del qm, km, vm
     del want
-    if causal and not window and not cap and Sq == Skv:
+    if not window and not cap and (Sq == Skv or not causal):
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        row["library_ms"] = _time_ms(lambda: sdpa(q, k, v, is_causal=True,
+        row["library_ms"] = _time_ms(lambda: sdpa(q, k, v, is_causal=causal,
                                                   enable_gqa=True))
     print("  attention " + json.dumps(row))
     if name in ATTN_SLICE and dtype == torch.bfloat16:
@@ -975,19 +1011,20 @@ def _serve_reference_check(swa, cfg):
 def _profile_generate(generate, model, params, prompts, buf, new,
                       prefill_kernel=None):
     """``torch.profiler`` over one ``generate`` call (prefill + new - 1
-    decode steps): wall time, the device's busy time (the sum of its
-    kernels' and copies' spans: one stream, so they do not overlap) and
-    idle share, and the kernels that hold the device longest. With
-    ``prefill_kernel = (name, n)``: the time of the kernels whose name
-    holds ``name``, in all and in their first n launches (the prefill's)."""
+    decode steps; ``prompts`` the tokens or a whole batch): wall time, the
+    device's busy time (the sum of its kernels' and copies' spans: one
+    stream, so they do not overlap) and idle share, and the kernels that
+    hold the device longest. With ``prefill_kernel = (name, n)``: the time
+    of the kernels whose name holds ``name``, in all and in their first n
+    launches (the prefill's)."""
+    batch = prompts if isinstance(prompts, dict) else {"tokens": prompts}
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        generate(model, params, {"tokens": prompts}, max_new_tokens=new,
-                 buf_len=buf)
+        generate(model, params, batch, max_new_tokens=new, buf_len=buf)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
@@ -4074,6 +4111,400 @@ def _phase15_pair(rank, world, single, resume_path):
             "transport": mm.transport(DEV)}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the MoE, enc-dec and vlm families
+# ---------------------------------------------------------------------------
+
+# (a) / (b): (config, depth served, prompt tokens a sequence). dbrx-132b
+# and llama4-scout-17b-a16e cut for the card's 80 GB (41.6 and 48.2 GB of
+# bf16 weights at 6 and 10 layers, the MoE transients beside them);
+# internvl2-2b's 256-patch prefix + 7904 tokens fill 8160 positions;
+# seamless-m4t-medium decodes 2048 tokens over 1536 frames
+FAMILIES = (("dbrx-132b", 6, SERVE_S), ("llama4-scout-17b-a16e", 10, SERVE_S),
+            ("internvl2-2b", None, SERVE_S - 256),
+            ("seamless-m4t-medium", None, 2048))
+FAMILY_B, FAMILY_NEW, FAMILY_CHUNK = 4, 32, 512
+FAMILY_CHECK_S = 1024        # (0): one sequence, fp32, 1 MoE / 2 dense layers
+# (d): (config, depth) trained at full width on the flat engine's kernels
+FAMILY_TRAIN = (("seamless-m4t-medium", None), ("internvl2-2b", 12))
+FAMILY_ROUNDS = 2
+# swa_attention at every shape this phase's serving paths launch it, bf16
+# (B, H, Hkv, Sq, Skv, hd, window, cap, causal); the census of (a)-(c)
+# (_attn_census) fails the phase on a launch at a shape not held here
+ATTN_FAMILIES = {
+    # (a) generate's prefill, B = 4: the MoE / vlm prefill (hd 128, GQA
+    # 6, 5 and 2), seamless's decoder self-attention, encoder pass and
+    # cross-attention
+    "dbrx": (4, 48, 8, SERVE_S, SERVE_S, 128, 0, 0.0, True),
+    "llama4": (4, 40, 8, SERVE_S, SERVE_S, 128, 0, 0.0, True),
+    "internvl2": (4, 16, 8, SERVE_S, SERVE_S, 128, 0, 0.0, True),
+    "seamless_self": (4, 16, 16, 2048, 2048, 64, 0, 0.0, True),
+    "seamless_encoder": (4, 16, 16, 1536, 1536, 64, 0, 0.0, False),
+    "seamless_cross": (4, 16, 16, 2048, 1536, 64, 0, 0.0, False),
+    # (b) one sequence in 512-token chunks: the first chunk's
+    # self-attention, internvl2-2b's prefix in make_state, seamless's
+    # encoder pass (also each launcher slot's, (c)) and every chunk's
+    # cross-attention
+    "dbrx_chunk": (1, 48, 8, 512, 512, 128, 0, 0.0, True),
+    "llama4_chunk": (1, 40, 8, 512, 512, 128, 0, 0.0, True),
+    "internvl2_prefix": (1, 16, 8, 256, 256, 128, 0, 0.0, True),
+    "seamless_self_chunk": (1, 16, 16, 512, 512, 64, 0, 0.0, True),
+    "seamless_encoder_one": (1, 16, 16, 1536, 1536, 64, 0, 0.0, False),
+    "seamless_chunk": (1, 16, 16, 512, 1536, 64, 0, 0.0, False),
+    # (c) the launcher's first 64-token chunk of each request, one slot
+    # at a time, and seamless's cross-attention of every chunk
+    "dbrx_launcher": (1, 48, 8, 64, 64, 128, 0, 0.0, True),
+    "llama4_launcher": (1, 40, 8, 64, 64, 128, 0, 0.0, True),
+    "internvl2_launcher": (1, 16, 8, 64, 64, 128, 0, 0.0, True),
+    "seamless_self_launcher": (1, 16, 16, 64, 64, 64, 0, 0.0, True),
+    "seamless_launcher": (1, 16, 16, 64, 1536, 64, 0, 0.0, False),
+}
+
+
+@contextlib.contextmanager
+def _attn_census(seen):
+    """Add to ``seen`` the (dtype, case) of every ``swa_attention`` call
+    the models make (through ``ops.attention``) while the block runs."""
+    from repro_torch.kernels.swa_attention import ops
+    orig = ops.swa_attention
+
+    def recorded(q, k, v, *, causal=True, window=0, cap=0.0):
+        B, H, Sq, hd = q.shape
+        seen.add((q.dtype, (B, H, k.shape[1], Sq, k.shape[2], hd,
+                            int(window), float(cap), bool(causal))))
+        return orig(q, k, v, causal=causal, window=window, cap=cap)
+
+    ops.swa_attention = recorded
+    try:
+        yield
+    finally:
+        ops.swa_attention = orig
+
+
+def _family_cfg(name, layers):
+    from repro_torch.configs import get_arch
+    cfg = get_arch(name)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def _family_batch(cfg, B, S, seed):
+    """Random prompts and the config's stubbed input (vlm prefix or
+    enc-dec frames, 0.02 x normal), made on the card from a seed."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     device="cuda", generator=gen)}
+    if cfg.n_prefix:
+        batch["enc" if cfg.n_enc_layers else "prefix"] = 0.02 * torch.randn(
+            (B, cfg.n_prefix, cfg.d_model), device="cuda", generator=gen)
+    return batch
+
+
+def _prefill_launches(cfg):
+    """swa_attention launches of one prefill at index 0: a layer's
+    self-attention, and for an enc-dec model the encoder pass and the
+    cross-attention too."""
+    return cfg.n_enc_layers + cfg.n_layers * (2 if cfg.n_enc_layers else 1)
+
+
+def _family_route_check(swa, cfg):
+    """(0) The kernel route of the serving prefill against the training
+    path's ``attend`` on the same input, at full width, fp32, one sequence
+    of FAMILY_CHECK_S tokens (internvl2-2b: its 256-patch prefix and 768
+    tokens): 1 MoE layer, 2 dense layers, or seamless's 1 encoder + 1
+    decoder layer (the encoder pass, the decoder's causal self-attention
+    and its non-causal cross-attention over 1536 frames). Hidden states
+    held to 1e-4 of their scale."""
+    from repro_torch.models import build_model, encdec
+    from repro_torch.models import transformer as lm
+    small = dataclasses.replace(
+        cfg, n_layers=1 if cfg.n_experts or cfg.n_enc_layers else 2,
+        n_enc_layers=min(cfg.n_enc_layers, 1), dtype="float32")
+    params = build_model(small).init(
+        torch.Generator(device="cuda").manual_seed(3), "cuda")
+    S = FAMILY_CHECK_S - (small.n_prefix if not small.n_enc_layers else 0)
+    batch = _family_batch(small, 1, S, seed=4)
+    errs = {}
+    before = swa.LAUNCHES["swa_attention"]
+    with torch.no_grad():
+        x = lm._embed(params, small, batch["tokens"], batch.get("prefix"))
+        if small.n_enc_layers:
+            enc_w = encdec.encode(small, params, batch["enc"])
+            enc_g = encdec.encode(small, params, batch["enc"], kernel=True)
+            errs["encoder"] = (float((enc_g - enc_w).abs().max()),
+                               float(enc_w.abs().max()))
+            want, _ = encdec.decode_stack(small, params, x, enc_out=enc_w)
+            states, _ = encdec.encdec_make_state(small, params, 1, S,
+                                                 enc=batch["enc"])
+            got, _ = encdec.decode_stack(small, params, x, states=states,
+                                         index=0, kernel=True)
+        else:
+            want, _, _ = lm.run_blocks(params["blocks"], x, small)
+            states = lm.init_states(small, 1, x.shape[1], torch.float32,
+                                    device="cuda")
+            got, _, _ = lm.run_blocks(params["blocks"], x, small,
+                                      states=states, index=0)
+    errs["output"] = (float((got - want).abs().max()),
+                      float(want.abs().max()))
+    launched = swa.LAUNCHES["swa_attention"] - before
+    expect = _prefill_launches(small) + small.n_enc_layers
+    print(f"  (0) kernel route vs attend, full width, {small.n_layers} "
+          f"layer(s), fp32, {x.shape[1]} positions: [max abs err, scale] "
+          f"{json.dumps(errs)}; {launched} swa_attention launches")
+    del params, states, want, got, x
+    torch.cuda.empty_cache()
+    if launched != expect:
+        raise AssertionError(f"{cfg.name}: the kernel route launched "
+                             f"{launched} times, not {expect}")
+    for what, (err, scale) in errs.items():
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"{cfg.name} {what}: the kernel route "
+                                 f"differs from attend: {err:.3e} > 1e-4 x "
+                                 f"{scale:.3e}")
+    return errs
+
+
+def _serve_family(swa, cfg, S, route):
+    """(a), (b) and (c) for one configuration with prompts of ``S``
+    tokens, after its route check ``route`` (0); returns their numbers
+    and (a)'s swa_attention launches."""
+    from repro_torch.core.engine import tree_items
+    from repro_torch.models import build_model
+    from repro_torch.serving import generate
+    name = cfg.name
+    extra = cfg.n_prefix if not cfg.n_enc_layers else 0
+    buf = extra + S + FAMILY_NEW
+    B = FAMILY_B
+    print(f"  config {cfg.name} ({cfg.family}): d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}, head_dim {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, layers {cfg.n_layers}"
+          f"{f' + {cfg.n_enc_layers} encoder' if cfg.n_enc_layers else ''}"
+          f", experts {cfg.n_experts} top {cfg.top_k}, n_prefix "
+          f"{cfg.n_prefix}; B={B} S={S} new={FAMILY_NEW} buf_len={buf}")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    torch.cuda.synchronize()
+    n = sum(leaf.numel() for _, leaf in tree_items(params))
+    weights = torch.cuda.memory_allocated()
+    print(f"  parameters {n} ({weights / 1e9:.2f} GB on the card, made in "
+          f"{time.perf_counter() - t0:.1f} s); peak while made "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    batch = _family_batch(cfg, B, S, seed=1)
+
+    # (a) the main path: generate, counters zeroed just before
+    timed, events = _events_of(model, ("prefill", "decode_step"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    swa.reset_launches()
+    t0 = time.perf_counter()
+    toks, logits = generate(timed, params, batch, max_new_tokens=FAMILY_NEW,
+                            buf_len=buf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = swa.LAUNCHES["swa_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    prefill_ms = events["prefill"][0][0].elapsed_time(events["prefill"][0][1])
+    dec = [a.elapsed_time(b) for a, b in events["decode_step"]]
+    a = {"config": cfg.name, "layers": cfg.n_layers,
+         "parameters": n, "weight_bytes": weights,
+         "prefill_ms": prefill_ms, "ttft_ms": prefill_ms,
+         "prefill_positions": B * (S + extra),
+         "decode_ms_per_token": statistics.mean(dec),
+         "decode_ms_median": statistics.median(dec),
+         "wall_s": wall, "tok_s": B * FAMILY_NEW / wall,
+         "peak_bytes": peak, "swa_launches": launches,
+         "route_check": route}
+    print("  (a) generate " + json.dumps(a))
+    print(f"  first tokens {toks[:, :8].tolist()}")
+    want = _prefill_launches(cfg)
+    if launches != want:
+        raise AssertionError(f"{cfg.name}: swa_attention launched "
+                             f"{launches} times in generate, not {want}")
+    if toks.shape != (B, FAMILY_NEW) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name}: generate gave a bad shape or "
+                             "non-finite logits")
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"{cfg.name}: token ids out of the vocabulary")
+    if cfg.n_experts and cfg.top_k > 1:
+        # one new token: the prefill alone
+        prof = _profile_generate(generate, model, params, batch, buf, 1)
+        print("  (a) profile of one prefill " + json.dumps(prof))
+        a["profile"] = prof
+
+    # (b) one prompt in chunks of FAMILY_CHUNK
+    one = {k: v[:1] for k, v in batch.items()}
+    swa.reset_launches()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    states, start = model.make_state(params, one, buf)
+    for j in range(0, S, FAMILY_CHUNK):
+        lg, states = model.prefill_chunk(
+            params, states, one["tokens"][:, j:j + FAMILY_CHUNK], start + j)
+    e1.record()
+    torch.cuda.synchronize()
+    chunks = -(-S // FAMILY_CHUNK)
+    b_launch = swa.LAUNCHES["swa_attention"]
+    # make_state: the encoder pass, or the prefix at index 0; the first
+    # chunk's self-attention at index 0 (no prefix); every chunk's
+    # cross-attention
+    want = (cfg.n_enc_layers + cfg.n_layers * (1 + chunks)
+            if cfg.n_enc_layers else cfg.n_layers)
+    diff = float((lg[0] - logits[0]).abs().max())
+    b = {"ms": e0.elapsed_time(e1), "start": int(start), "chunks": chunks,
+         "swa_launches": b_launch,
+         "max_abs_last_logits_vs_a": diff,
+         "logits_scale": float(logits[0].abs().max())}
+    why = ("a MoE chunk is its own routing group" if cfg.n_experts
+           else "bf16 sums in another order")
+    print("  (b) chunked prefill " + json.dumps(b) + " (the difference is "
+          f"information: {why})")
+    if b_launch != want:
+        raise AssertionError(f"{cfg.name}: chunked prefill launched "
+                             f"swa_attention {b_launch} times, not {want}")
+    if int(start) != extra or not bool(torch.isfinite(lg).all()):
+        raise AssertionError(f"{cfg.name}: make_state start {start} or "
+                             "non-finite chunk logits")
+    del params, states, timed, model, lg, logits, batch, one
+    torch.cuda.empty_cache()
+
+    # (c) the continuous-batching launcher at a cut depth
+    swa.reset_launches()
+    report = _serve_cut(["--arch", name, "--requests", "4", "--max-slots",
+                         "4", "--prompt-len", "256", "--new-tokens", "8",
+                         "--chunk", "64"])
+    c = {"layers": SERVE_LAYERS[name], "steps": report.steps,
+         "generated": report.generated, "occupancy": report.occupancy,
+         "wall_s": report.wall_s, "tok_s": report.tok_s,
+         "ttft_mean_ms": report.ttft_mean_s * 1e3,
+         "swa_launches": swa.LAUNCHES["swa_attention"]}
+    print("  (c) launcher " + json.dumps(c))
+    if sorted(report.results) != list(range(4)) or any(
+            len(r.tokens) != 8 for r in report.results.values()):
+        raise AssertionError(f"{name}: the launcher left requests "
+                             "unfinished")
+    if swa.LAUNCHES["swa_attention"] == 0:
+        raise AssertionError(f"{name}: the launcher launched no "
+                             "swa_attention")
+    torch.cuda.empty_cache()
+    return {"a": a, "b": b, "c": c, "launches": launches}
+
+
+def _train_family(pk, name, layers):
+    """(d) DPPF rounds at full width on the flat engine's kernel mode (as
+    phase 3): M = 4, tau 4, seq 64, batch 8 a worker, the round batches
+    carrying the stubbed prefix / frames (made before the rounds, so that
+    no round times their host draws); counters zeroed just before the
+    state is made."""
+    from repro_torch.configs import DPPFConfig
+    from repro_torch.core import consensus
+    from repro_torch.data import TokenTask, make_round_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import (
+        RoundClock, init_train_state, make_round_step,
+    )
+    import repro_torch.train.trainer as trainer_mod
+    cfg = _family_cfg(name, layers)
+    M, tau, seq, batch = 4, 4, 64, 8
+    model = build_model(cfg)
+    dcfg = DPPFConfig(alpha=0.1, lam=0.5, tau=tau, consensus="simple_avg",
+                      engine="flat")
+    opt = make_optimizer("sgd", momentum=0.9, weight_decay=1e-3)
+    clock = RoundClock.from_config(dcfg, base_lr=LR,
+                                   total_steps=FAMILY_ROUNDS * tau)
+    task = TokenTask(vocab_size=cfg.vocab_size, seq_len=seq)
+    batches = [make_round_batch(task, 0, M, spec.tau, spec.start, batch, cfg,
+                                device="cuda") for spec in clock.rounds]
+    inputs = sorted(batches[0])
+    torch.cuda.reset_peak_memory_stats()
+    pk.reset_launches()
+    state = init_train_state(model.init, opt, dcfg, M,
+                             torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda")
+    n, R = state.engine.layout.n, state.engine.layout.R
+    stages = sum(s[0] == "coef" for s in consensus.lower_stages(
+        state.engine, dcfg, clock.lam_at(0))[0])
+    step = make_round_step(model.loss, opt, dcfg, clock=clock)
+    state, rounds = _timed_rounds(
+        trainer_mod, step, [state],
+        [lambda b=b: b for b in batches], f"(d) {cfg.name}")
+    launches = dict(pk.LAUNCHES)
+    d = {"config": cfg.name, "layers": cfg.n_layers,
+         "enc_layers": cfg.n_enc_layers, "n": n, "view_bytes": 4 * R * n,
+         "inputs": inputs, "rounds": rounds,
+         "peak_bytes": torch.cuda.max_memory_allocated(),
+         "fused_round": launches["fused_round"]}
+    print("  (d) training " + json.dumps(d))
+    del state, step, batches
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(r["loss"]) for r in rounds):
+        raise AssertionError(f"{cfg.name}: non-finite training loss")
+    if not all(r["consensus_dist"] > 0 for r in rounds[1:]):
+        raise AssertionError(f"{cfg.name}: consensus_dist 0 after round 0")
+    if launches["fused_round"] != stages * len(rounds):
+        raise AssertionError(f"{cfg.name}: fused_round launched "
+                             f"{launches['fused_round']} times for "
+                             f"{stages * len(rounds)} consensus stages")
+    return d, launches
+
+
+def phase_families(pk, swa, plain):
+    """Phase 17: the attention kernel at this phase's shapes, then the four
+    families served, then two trained. Returns the swa_attention row's
+    additions and the launches of each main path."""
+    t_all = time.perf_counter()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+    print(f"  card {card}")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    attn = {}
+    for name, case in ATTN_FAMILIES.items():
+        row = _attn_case(swa, plain, case, torch.bfloat16, gen, name,
+                         plain_reps=3)
+        attn[name] = {k: row[k] for k in (
+            "shape", "ms", "ms_model_layout", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "max_rel_err",
+            "max_rel_err_model_layout")}
+        torch.cuda.empty_cache()
+    secs = {"attention": time.perf_counter() - t_all}
+    launches, seen = {}, set()
+    for name, layers, S in FAMILIES:
+        t0 = time.perf_counter()
+        cfg = _family_cfg(name, layers)
+        route = _family_route_check(swa, cfg)
+        with _attn_census(seen):
+            served = _serve_family(swa, cfg, S, route)
+        launches[f"{name} serving, {served['a']['layers']} layers "
+                 "(phase 17)"] = served["launches"]
+        secs[name] = time.perf_counter() - t0
+    checked = set(ATTN_FAMILIES.values())
+    unchecked = sorted(case for dtype, case in seen
+                       if dtype != torch.bfloat16 or case not in checked)
+    print(f"  census: (a)-(c) launched swa_attention at {len(seen)} "
+          f"shapes, each held above: {not unchecked}")
+    if unchecked:
+        raise AssertionError("swa_attention launched at shapes not held "
+                             f"against its plain version: {unchecked}")
+    train_launches = {}
+    for name, layers in FAMILY_TRAIN:
+        t0 = time.perf_counter()
+        d, counts = _train_family(pk, name, layers)
+        label = (f"{name} training, {d['layers']} layers, "
+                 f"{FAMILY_ROUNDS} rounds (phase 17)")
+        for k, v in counts.items():
+            if v:
+                train_launches.setdefault(k, {})[label] = v
+        secs[f"{name} training"] = time.perf_counter() - t0
+    print("  phase 17 seconds " + json.dumps(secs))
+    return {"attention": attn, "serve_launches": launches,
+            "train_launches": train_launches}
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="the port's smoke run on one "
@@ -4120,7 +4551,7 @@ def main(argv=None):
     secs = {"card": time.perf_counter() - t_start}
     try:
         if only:
-            _partial(only, pk, ref, secs)
+            _partial(only, pk, ref, swa, swa_attention_plain, secs)
         else:
             _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk,
                    slstm_ref, secs, t_start)
@@ -4128,11 +4559,11 @@ def main(argv=None):
         shutil.rmtree(os.path.dirname(RESUME_POINT), ignore_errors=True)
 
 
-def _partial(only, pk, ref, secs):
+def _partial(only, pk, ref, swa, swa_attention_plain, secs):
     """``--phases``: phase 1, then the phases named, alone."""
-    if only not in ({15}, {15, 16}):
-        raise SystemExit("--phases: 15 or 15,16 (phase 16 resumes from "
-                         "phase 15's resume point)")
+    if not only <= {15, 16, 17} or (16 in only and 15 not in only):
+        raise SystemExit("--phases: any of 15, 16, 17 (phase 16 resumes "
+                         "from phase 15's resume point: 15,16)")
     for ph in sorted(only):
         t0 = time.perf_counter()
         print(f"phase {ph} (partial run)")
@@ -4140,15 +4571,21 @@ def _partial(only, pk, ref, secs):
             res = phase_sharded(pk, ref, RESUME_POINT if 16 in only
                                 else None)
             print("  fused_round_sharded " + json.dumps(res["row"]))
-        else:
+        elif ph == 16:
             phase_supervised(pk, RESUME_POINT)
+        else:
+            fam = phase_families(pk, swa, swa_attention_plain)
+            print("  swa_attention at phase 17's shapes "
+                  + json.dumps(fam["attention"]))
+            print("  swa_attention launches " + json.dumps(
+                fam["serve_launches"]))
         secs[ph] = time.perf_counter() - t0
     print("partial run, phase seconds " + json.dumps(secs))
 
 
 def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
            secs, t_start):
-    """Phases 2-16, the kernels record and the contract's last line."""
+    """Phases 2-17, the kernels record and the contract's last line."""
     print("phase 2: kernels against their plain versions")
     t0 = time.perf_counter()
     rows = phase_kernels(pk, ref)
@@ -4272,6 +4709,19 @@ def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
             if n and name in rows:
                 rows[name].setdefault("launches_by_path", {})[label] = n
                 rows[name]["launches"] += n
+
+    print("phase 17: the MoE, enc-dec and vlm families")
+    t0 = time.perf_counter()
+    fam = phase_families(pk, swa, swa_attention_plain)
+    secs["families"] = time.perf_counter() - t0
+    row = rows["swa_attention"]
+    row["phase17_shapes"] = fam["attention"]
+    row["launches_by_path"].update(fam["serve_launches"])
+    row["launches"] += sum(fam["serve_launches"].values())
+    for name, by_path in fam["train_launches"].items():
+        if name in rows:
+            rows[name].setdefault("launches_by_path", {}).update(by_path)
+            rows[name]["launches"] += sum(by_path.values())
     secs["total"] = time.perf_counter() - t_start
     print("phase seconds " + json.dumps(secs))
 

@@ -8,6 +8,10 @@ reproducible from (seed, worker, step) with no pipeline state: the
 worker shards never overlap. The recurrence is the reference's; the random
 bits are torch's, not ``jax.random``'s, so the tokens differ from the JAX
 package's (tests that compare the two feed both the same numpy batches).
+A vlm config's batch carries its stubbed ``prefix`` (B, n_prefix,
+d_model) and an enc-dec config's its ``enc`` frames, 0.02 x a normal draw
+from the batch's own generator after the tokens, as the reference draws
+them from the batch's key.
 
 Classification task: the reference's numpy code verbatim, so its data is
 identical to the JAX package's.
@@ -57,13 +61,18 @@ class TokenTask:
 def make_lm_batch(task: TokenTask, seed: int, worker: int, step: int,
                   batch: int, cfg=None, *, device):
     """Deterministic per-(worker, step) batch: ``tokens`` and next-token
-    ``labels`` (last position -1 = masked)."""
-    if cfg is not None and (cfg.n_prefix or cfg.n_enc_layers):
-        raise NotImplementedError("not yet ported: prefix / encoder inputs")
-    toks = task.sample(batch_generator(seed, worker, step), batch)
+    ``labels`` (last position -1 = masked), and with ``cfg`` the stubbed
+    ``prefix`` (vlm) or ``enc`` frames (enc-dec), fp32."""
+    gen = batch_generator(seed, worker, step)
+    toks = task.sample(gen, batch)
     labels = torch.roll(toks, -1, dims=1)
     labels[:, -1] = -1
-    return {"tokens": toks.to(device), "labels": labels.to(device)}
+    out = {"tokens": toks, "labels": labels}
+    if cfg is not None and (cfg.n_prefix or cfg.n_enc_layers):
+        name = "enc" if cfg.n_enc_layers else "prefix"
+        out[name] = 0.02 * torch.randn((batch, cfg.n_prefix, cfg.d_model),
+                                       generator=gen)
+    return {k: v.to(device) for k, v in out.items()}
 
 
 def make_round_batch(task: TokenTask, seed: int, n_workers: int, tau: int,

@@ -11,7 +11,11 @@ weights are random, drawn from ``--seed``, unless ``--ckpt`` names a
 final-params checkpoint (``launch.train --ckpt``, of either package),
 which is loaded into the model's tree in its dtypes.
 The stream mixes prompt lengths (p/2, p, 2p cycling) so admissions and
-evictions interleave mid-decode. A short warm-up stream runs first, so
+evictions interleave mid-decode. An enc-dec config's requests carry their
+own stubbed encoder frames (0.02 x a normal draw, from a generator seeded
+by the stream key and the request); a vlm config's cache counts its
+prefix positions, but its requests carry no prefix, as in the
+reference's launcher. A short warm-up stream runs first, so
 that first-call costs (the kernel build, allocator growth) are reported
 apart from the timed stream.
 """
@@ -36,10 +40,19 @@ def mixed_lengths(base: int, n: int):
     return [cycle[i % 3] for i in range(n)]
 
 
+def _frames(cfg, key: int):
+    """One request's stubbed encoder frames (n_prefix, d_model), fp32."""
+    gen = torch.Generator().manual_seed(key)
+    return (0.02 * torch.randn((cfg.n_prefix, cfg.d_model),
+                               generator=gen)).numpy()
+
+
 def build_requests(cfg, key: int, lens, new_tokens):
     rng = np.random.default_rng(key)
     return [Request(rid=i, tokens=rng.integers(0, cfg.vocab_size, (l,)),
-                    max_new_tokens=new_tokens)
+                    max_new_tokens=new_tokens,
+                    enc=(_frames(cfg, fold_in(key, 100 + i))
+                         if cfg.n_enc_layers else None))
             for i, l in enumerate(lens)]
 
 
@@ -89,11 +102,15 @@ def main(argv=None, *, device="cuda"):
     sampling = (GREEDY if args.temp == 0.0 else SamplingParams(
         temperature=args.temp, top_k=args.topk, top_p=args.topp))
     lens = mixed_lengths(args.prompt_len, args.requests)
+    prefix = cfg.n_prefix if not cfg.n_enc_layers else 0
     buf = args.buf_len or (args.window + (args.chunk or 1) if args.window
-                           else max(lens) + args.new_tokens)
+                           else prefix + max(lens) + args.new_tokens)
+    example = {"tokens": np.zeros((1, 1), np.int32)}
+    if cfg.n_enc_layers:
+        example["enc"] = np.zeros((1, cfg.n_prefix, cfg.d_model), np.float32)
     engine = SlotEngine(model, params, max_slots=args.max_slots,
                         buf_len=buf, window=args.window, chunk=args.chunk,
-                        sampling=sampling)
+                        sampling=sampling, example=example)
 
     # warm-up stream: every lane, the chunked-prefill lane via a long prompt
     warm_lens = [max(lens), min(lens)][:min(2, args.requests)]

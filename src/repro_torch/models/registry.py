@@ -9,12 +9,15 @@
     make_state(params, batch, buf_len, window=0) -> (blank states, start)
     prefill_chunk(params, states, tokens, index, window=0) -> (logits, states)
 
-for decoder-only configs whose blocks are all ``attn``/``local_attn``, for
-the hybrid one (``mamba`` + ``shared_attn``, zamba2-7b) and for the
-recurrent one (``mlstm`` + ``slstm``, xlstm-350m); the other families are
-not ported yet. ``batch["tokens"]`` may be a tensor or
-a numpy array; the serving lanes move it to the parameters' device. The
-serving lanes run without gradients and update ``states`` in place.
+for every family: decoder-only (``models/transformer.py``: dense, MoE,
+hybrid, recurrent, and vlm with its prefix) and encoder-decoder
+(``models/encdec.py``, seamless-m4t). ``batch`` holds ``tokens`` (B, S),
+``labels`` (B, S) for the loss, and the stubbed modality inputs: ``prefix``
+(B, P, D) for a vlm, ``enc`` (B, F, D) frames for an enc-dec model.
+``make_state`` primes a state with them, so its ``start`` is the first
+token's position. The serving lanes take tensors or numpy arrays and move
+them to the parameters' device; they run without gradients and update
+``states`` in place.
 
 ``params_from_numpy`` / ``flat_from_numpy`` / ``states_from_numpy`` carry
 the JAX package's weights and decode states (as numpy) across, so both
@@ -31,6 +34,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import tree_from_items, tree_items
+from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as lm
 
 
@@ -52,41 +56,62 @@ def _tokens(tokens, device):
     return tokens.to(device=device, dtype=torch.int64)
 
 
+def _context(batch, params, key):
+    """The batch's stubbed modality input ``key`` (a tensor or numpy
+    array, or absent) on the parameters' device; numpy arrays as fp32."""
+    x = batch.get(key)
+    if x is None:
+        return None
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.asarray(x, np.float32))
+    return x.to(params["embed"].device)
+
+
+def _init_fn(cfg):
+    return encdec_lib.init_encdec if cfg.n_enc_layers else lm.init_lm
+
+
 def build_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.n_enc_layers or cfg.n_prefix:
-        raise NotImplementedError(
-            f"not yet ported: {cfg.name} ({cfg.family}: encoder / prefix "
-            "inputs)")
-    lm._check_supported(cfg)
+    # the family's lanes; both modules take the modality input by the
+    # keyword that names its batch entry
+    if cfg.n_enc_layers:
+        key, lanes = "enc", (encdec_lib.encdec_loss,
+                             encdec_lib.encdec_prefill,
+                             encdec_lib.encdec_decode_step,
+                             encdec_lib.encdec_make_state,
+                             encdec_lib.encdec_prefill_chunk)
+    else:
+        key, lanes = "prefix", (lm.lm_loss, lm.lm_prefill,
+                                lm.lm_decode_step, lm.lm_make_state,
+                                lm.lm_prefill_chunk)
+    loss_fn, prefill_fn, decode_fn, make_state_fn, chunk_fn = lanes
 
     def init(gen, device):
-        return lm.init_lm(cfg, gen, device=device)
-
-    def loss(params, batch):
-        return lm.lm_loss(cfg, params, batch)
+        return _init_fn(cfg)(cfg, gen, device=device)
 
     def dev(params):
         return params["embed"].device
 
+    def loss(params, batch):
+        return loss_fn(cfg, params, batch)
+
     def prefill(params, batch, buf_len, window=0):
-        return lm.lm_prefill(cfg, params,
-                             _tokens(batch["tokens"], dev(params)), buf_len,
-                             prefix=batch.get("prefix"), serve_window=window)
+        return prefill_fn(cfg, params, _tokens(batch["tokens"], dev(params)),
+                          buf_len, serve_window=window,
+                          **{key: _context(batch, params, key)})
 
     def decode_step(params, states, token, index, window=0):
-        return lm.lm_decode_step(cfg, params, states,
-                                 _tokens(token, dev(params)), index,
-                                 serve_window=window)
+        return decode_fn(cfg, params, states, _tokens(token, dev(params)),
+                         index, serve_window=window)
 
     def make_state(params, batch, buf_len, window=0):
-        return lm.lm_make_state(cfg, params, batch["tokens"].shape[0],
-                                buf_len, prefix=batch.get("prefix"),
-                                serve_window=window)
+        return make_state_fn(cfg, params, batch["tokens"].shape[0], buf_len,
+                             serve_window=window,
+                             **{key: _context(batch, params, key)})
 
     def prefill_chunk(params, states, tokens, index, window=0):
-        return lm.lm_prefill_chunk(cfg, params, states,
-                                   _tokens(tokens, dev(params)), index,
-                                   serve_window=window)
+        return chunk_fn(cfg, params, states, _tokens(tokens, dev(params)),
+                        index, serve_window=window)
 
     return ModelAPI(cfg=cfg, init=init, loss=loss, prefill=prefill,
                     decode_step=decode_step, make_state=make_state,
@@ -106,12 +131,13 @@ def params_from_numpy(cfg: ModelConfig, tree, *, device, dtype=None):
     ``device``: leaves the model keeps in its working type in ``dtype``
     (default: ``cfg.dtype``), fp32 leaves (Mamba's ``A_log``, ``D``,
     ``dt_bias``; the xLSTM gates' ``w_i``, ``b_i``, ``w_f``, ``b_f``,
-    ``r_gates``, ``b_gates``) in fp32. Raises ``ValueError`` on a missing
-    or extra leaf or a shape mismatch."""
+    ``r_gates``, ``b_gates``; the MoE ``router``) in fp32. Enc-dec
+    configs take the reference's enc-dec tree. Raises ``ValueError`` on a
+    missing or extra leaf or a shape mismatch."""
     if dtype is not None:
         cfg = dataclasses.replace(cfg,
                                   dtype=str(dtype).removeprefix("torch."))
-    return _tree_from_numpy(lm.init_lm(cfg, None, device="meta"), tree,
+    return _tree_from_numpy(_init_fn(cfg)(cfg, None, device="meta"), tree,
                             f"parameter tree of {cfg.name}", device)
 
 
@@ -138,9 +164,10 @@ def states_from_numpy(cfg: ModelConfig, tree, *, device, dtype=None):
     states)`` of ``make_state`` / ``prefill``) -> the port's stacked states
     on ``device``: KV caches and conv states in ``dtype`` (default
     ``cfg.dtype``), ``pos`` int32, SSM and xLSTM states fp32. Batch and
-    buffer length are read from the first KV cache of the tree; a tree
-    with no KV cache (xlstm) gives its batch from its first leaf and needs
-    no buffer length."""
+    buffer length are read from the first KV cache of the tree (an enc-dec
+    tree's ``self`` cache; its frames from ``ck``, whose (L, B, F, nkv, hd)
+    is no cache); a tree with no KV cache (xlstm) gives its batch from its
+    first leaf and needs no buffer length."""
     items = tree_items(tree)
     if not items:
         raise ValueError(f"state tree of {cfg.name} has no leaves")
@@ -149,8 +176,14 @@ def states_from_numpy(cfg: ModelConfig, tree, *, device, dtype=None):
                        (items[0][0], np.shape(items[0][1])))
     lead = 0 if path[0] == "remainder" else 1    # the stacked layer dim
     buf_len = shape[lead + 1] if path[-1] == "k" else 0
-    want = lm.init_states(cfg, shape[lead], buf_len,
-                          dtype or getattr(torch, cfg.dtype), device="meta")
+    dtype = dtype or getattr(torch, cfg.dtype)
+    if cfg.n_enc_layers:
+        frames = np.shape(tree["ck"])[2] if "ck" in tree else 0
+        want = encdec_lib.init_states(cfg, shape[lead], buf_len, frames,
+                                      dtype, device="meta")
+    else:
+        want = lm.init_states(cfg, shape[lead], buf_len, dtype,
+                              device="meta")
     return _tree_from_numpy(want, tree, f"state tree of {cfg.name}", device)
 
 

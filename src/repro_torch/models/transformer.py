@@ -1,10 +1,12 @@
 """Decoder-only LM assembly, config-driven over the block pattern.
 
-Counterpart of ``repro/models/transformer.py`` for the dense families
-(``attn``/``local_attn`` patterns: yi-6b, gemma2-2b, internlm2-20b,
-qwen2-72b) and the hybrid one (zamba2-7b: ``mamba`` blocks with one
-``shared_attn`` block) and the recurrent one (xlstm-350m: ``mlstm`` and
-``slstm`` blocks). Parameters keep the reference's trees:
+Counterpart of ``repro/models/transformer.py`` for every decoder-only
+family: dense (``attn``/``local_attn`` patterns: yi-6b, gemma2-2b,
+internlm2-20b, qwen2-72b; internvl2-2b with its stubbed ViT patch
+embeddings as a prefix), MoE (``moe`` blocks: dbrx-132b,
+llama4-scout-17b-a16e), hybrid (zamba2-7b: ``mamba`` blocks with one
+``shared_attn`` block) and recurrent (xlstm-350m: ``mlstm`` and ``slstm``
+blocks). Parameters keep the reference's trees:
 
 * uniform layout: the layers are stacked on a leading dim under
   ``blocks/stack``;
@@ -12,9 +14,12 @@ qwen2-72b) and the hybrid one (zamba2-7b: ``mamba`` blocks with one
   cycles}, "shared": one attention + MLP block used at every shared_attn
   position, "remainder": {"b<j>": the layers after the last full cycle}}``.
 
-``run_blocks`` is a Python loop where the reference scans. Per-layer
-sliding windows follow the pattern (``local_attn`` -> ``sliding_window``,
-``attn`` -> 0 = global).
+``run_blocks`` is a Python loop where the reference scans; it sums the
+blocks' aux losses (MoE routing) over the layers, as the reference's scan
+carries them. Per-layer sliding windows follow the pattern (``local_attn``
+-> ``sliding_window``, ``attn`` -> 0 = global). A prefix (vlm / audio
+decoder-only) is concatenated after the scaled token embeddings and takes
+positions ``0..P-1``; the logits cover the tokens only.
 
 Serving: ``lm_prefill`` / ``lm_make_state`` / ``lm_prefill_chunk`` /
 ``lm_decode_step`` run the stack over the stacked states (``init_states``:
@@ -25,27 +30,28 @@ attention over it is exactly causal self-attention over the chunk: there
 ``_self_attention`` calls the hand-written ``swa_attention`` kernel
 (``kernels/swa_attention``). Decode steps and later chunks attend over
 the cache with ``attend``, as the reference does in jnp; training keeps
-``attend`` too (the kernel has no backward). Mamba blocks route their chunked scan as ``models/ssm.py``
-says, sLSTM blocks their recurrence as ``models/xlstm.py`` says. MoE
-blocks are not ported yet.
+``attend`` too (the kernel has no backward). Mamba blocks route their
+chunked scan as ``models/ssm.py`` says, sLSTM blocks their recurrence as
+``models/xlstm.py`` says, MoE blocks their routing as ``models/moe.py``
+says. ``lm_make_state`` runs a prefix through the stack at index 0 and
+returns start ``P``, so the serving lanes stream raw tokens only.
 """
 from __future__ import annotations
 
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.core.engine import tree_at, tree_stack
+from repro_torch.core.engine import (
+    tree_at, tree_from_items, tree_items, tree_stack,
+)
 from repro_torch.kernels.swa_attention import ops as swa_ops
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import (
     embed_init, init_mlp, mlp, rms_norm, softcap,
 )
-
-
-def _not_ported(what):
-    return NotImplementedError(f"not yet ported: {what}")
 
 
 # ---------------------------------------------------------------------------
@@ -67,6 +73,18 @@ def init_attn_block(gen, cfg, dtype, *, device):
         p["post1"] = torch.zeros((d,), dtype=dtype, device=device)
         p["post2"] = torch.zeros((d,), dtype=dtype, device=device)
     return p
+
+
+def init_moe_block(gen, cfg, dtype, *, device):
+    d = cfg.d_model
+    return {
+        "ln1": torch.zeros((d,), dtype=dtype, device=device),
+        "attn": attn.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                    cfg.head_dim, dtype, cfg.qkv_bias,
+                                    device=device),
+        "ln2": torch.zeros((d,), dtype=dtype, device=device),
+        "moe": moe_lib.init_moe(gen, cfg, dtype, device=device),
+    }
 
 
 def _self_attention(p, h, cfg, window, cache=None, index=0):
@@ -110,36 +128,53 @@ def attn_block(p, x, cfg, window=None, cache=None, index=0):
     return x, cache
 
 
+def moe_block(p, x, cfg, window=None, cache=None, index=0):
+    """Attention, then the MoE MLP. Returns (x, cache, aux)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    o, cache = _self_attention(p["attn"], h, cfg, window, cache, index)
+    x = x + o
+    m, aux = moe_lib.moe_mlp(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps),
+                             cfg)
+    return x + m, cache, aux
+
+
 def _apply_block_inner(kind, p, x, cfg, window, state, index):
+    """(x, new_state, aux): aux is None for blocks that have none."""
     if kind in ("attn", "shared_attn"):
-        return attn_block(p, x, cfg, window, state, index)
+        return attn_block(p, x, cfg, window, state, index) + (None,)
+    if kind == "moe":
+        return moe_block(p, x, cfg, window, state, index)
     if kind == "mamba":
         out, state = ssm_lib.mamba_forward(p, x, cfg, state)
-        return x + out, state
-    if kind == "mlstm":
+    elif kind == "mlstm":
         out, state = xlstm_lib.mlstm_forward(p, x, cfg, state)
-        return x + out, state
-    if kind == "slstm":
+    elif kind == "slstm":
         out, state = xlstm_lib.slstm_forward(p, x, cfg, state)
-        return x + out, state
-    raise _not_ported(f"{kind!r} blocks")
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
+    return x + out, state, None
 
 
 def _apply_block(kind, p, x, cfg, window, state=None, index=0):
-    """Dispatch. Returns (x, new_state). With ``cfg.remat`` (and no state)
-    the block body is rematerialized in the backward pass (activation
-    checkpointing)."""
+    """Dispatch. Returns (x, new_state, aux). With ``cfg.remat`` (and no
+    state) the block body is rematerialized in the backward pass
+    (activation checkpointing); a MoE block's aux leaves the checkpoint
+    beside x."""
     if cfg.remat and state is None:
-        return torch.utils.checkpoint.checkpoint(
-            lambda pp, xx: _apply_block_inner(kind, pp, xx, cfg, window,
-                                              None, index)[0], p, x,
-            use_reentrant=False), None
+        def body(pp, xx):
+            out, _, aux = _apply_block_inner(kind, pp, xx, cfg, window,
+                                             None, index)
+            return out if aux is None else (out, aux)
+        res = torch.utils.checkpoint.checkpoint(body, p, x,
+                                                use_reentrant=False)
+        return (res[0], None, res[1]) if kind == "moe" else (res, None, None)
     return _apply_block_inner(kind, p, x, cfg, window, state, index)
 
 
 _INIT = {
     "attn": init_attn_block,
     "shared_attn": init_attn_block,
+    "moe": init_moe_block,
     "mamba": ssm_lib.init_mamba,
     "mlstm": xlstm_lib.init_mlstm,
     "slstm": xlstm_lib.init_slstm,
@@ -148,7 +183,7 @@ _INIT = {
 
 def _block_state(kind, cfg, batch, buf_len, dtype, *, device):
     """Fresh decode/prefill state for one block."""
-    if kind in ("attn", "shared_attn"):
+    if kind in ("attn", "shared_attn", "moe"):
         return attn.init_cache(batch, cfg.n_kv_heads, buf_len, cfg.head_dim,
                                dtype, device=device)
     if kind == "mamba":
@@ -157,7 +192,7 @@ def _block_state(kind, cfg, batch, buf_len, dtype, *, device):
         return xlstm_lib.init_mlstm_state(cfg, batch, device=device)
     if kind == "slstm":
         return xlstm_lib.init_slstm_state(cfg, batch, device=device)
-    raise _not_ported(f"{kind!r} block states")
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -183,32 +218,40 @@ def _windows(cfg):
     return [pat[i % len(pat)][1] for i in range(cfg.n_layers)]
 
 
-def _check_supported(cfg):
-    kinds = {k for k, _ in _merged_pattern(cfg)}
-    if kinds != {"attn"} and not kinds <= {"mamba", "shared_attn"} \
-            and not kinds <= {"mlstm", "slstm"}:
-        raise _not_ported(f"block pattern {cfg.layer_pattern}")
-
-
 def _cycles(cfg):
     """(pattern, full cycles, remainder layers) of the cycle layout."""
     pat = _merged_pattern(cfg)
     return (pat,) + divmod(cfg.n_layers, len(pat))
 
 
+def stack_init(make, n):
+    """``tree_stack([make() for _ in range(n)])`` without holding the n
+    trees at once: the stack is allocated after the first tree and each
+    tree is copied in as it is made (the same draws in the same order).
+    One full-width MoE layer is gigabytes."""
+    tree = make()
+    out = [(path, torch.empty((n,) + tuple(leaf.shape), dtype=leaf.dtype,
+                              device=leaf.device))
+           for path, leaf in tree_items(tree)]
+    for i in range(n):
+        if i:
+            tree = make()
+        for (_, dst), (_, leaf) in zip(out, tree_items(tree)):
+            if dst.device.type != "meta":
+                dst[i].copy_(leaf)
+        tree = None
+    return tree_from_items(out)
+
+
 def init_blocks(cfg, gen, dtype, *, device):
     """The layer tree: ``{"stack": {...}}`` (leaves (L, ...)) for uniform
     patterns, ``{"cycle", "shared", "remainder"}`` for cycled ones."""
-    _check_supported(cfg)
-
     def init(kind):
         return _INIT[kind](gen, cfg, dtype, device=device)
-    if _layout(cfg) == "uniform":
-        return {"stack": tree_stack([init("attn")
-                                     for _ in range(cfg.n_layers)])}
     pat, n_cycles, rem = _cycles(cfg)
-    params = {"cycle": {f"b{j}": tree_stack([init(kind)
-                                              for _ in range(n_cycles)])
+    if _layout(cfg) == "uniform":
+        return {"stack": stack_init(lambda: init(pat[0][0]), cfg.n_layers)}
+    params = {"cycle": {f"b{j}": stack_init(lambda: init(kind), n_cycles)
                         for j, (kind, _) in enumerate(pat)
                         if kind != "shared_attn"}}
     if any(kind == "shared_attn" for kind, _ in pat):
@@ -225,13 +268,11 @@ def init_states(cfg, batch, buf_len, dtype, *, device):
     cycled ``{"cycle": {"b<j>": (n_cycles, ...) per position, one KV cache
     per shared-attention occurrence}, "remainder": {"b<j>": ...}}``, an
     xLSTM block's state a tuple of stacked leaves."""
-    _check_supported(cfg)
-
     def one(kind):
         return _block_state(kind, cfg, batch, buf_len, dtype, device=device)
-    if _layout(cfg) == "uniform":
-        return tree_stack([one("attn")] * cfg.n_layers)
     pat, n_cycles, rem = _cycles(cfg)
+    if _layout(cfg) == "uniform":
+        return tree_stack([one(pat[0][0])] * cfg.n_layers)
     return {"cycle": {f"b{j}": tree_stack([one(kind)] * n_cycles)
                       for j, (kind, _) in enumerate(pat)},
             "remainder": {f"b{j}": one(pat[j][0]) for j in range(rem)}}
@@ -247,17 +288,25 @@ def _serve_windows(cfg, serve_window):
 
 
 def run_blocks(blocks, x, cfg, states=None, index=0, serve_window=0):
-    """Execute the block stack. Returns (x, states, aux); ``states`` (if
+    """Execute the block stack. Returns (x, states, aux), aux the fp32 sum
+    of the blocks' aux losses (0 without MoE blocks); ``states`` (if
     given) are updated in place, layer by layer."""
-    _check_supported(cfg)
     windows = _serve_windows(cfg, serve_window)
+    pat, n_cycles, rem = _cycles(cfg)
+    total = None
+
+    def add(aux):
+        nonlocal total
+        if aux is not None:
+            total = aux if total is None else total + aux
     if _layout(cfg) == "uniform":
         for layer, window in enumerate(windows):
             st = None if states is None else tree_at(states, layer)
-            x, _ = _apply_block("attn", tree_at(blocks["stack"], layer), x,
-                                cfg, window, st, index)
+            x, _, aux = _apply_block(pat[0][0],
+                                     tree_at(blocks["stack"], layer), x,
+                                     cfg, window, st, index)
+            add(aux)
     else:
-        pat, n_cycles, rem = _cycles(cfg)
         shared = blocks.get("shared")
         layers = [(f"b{j}", kind, c) for c in range(n_cycles)
                   for j, (kind, _) in enumerate(pat)]
@@ -272,8 +321,11 @@ def run_blocks(blocks, x, cfg, states=None, index=0, serve_window=0):
                     tree_at(blocks["cycle"][name], c)
                 st = None if states is None else \
                     tree_at(states["cycle"][name], c)
-            x, _ = _apply_block(kind, p, x, cfg, window, st, index)
-    return x, states, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, _, aux = _apply_block(kind, p, x, cfg, window, st, index)
+            add(aux)
+    if total is None:
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, states, total
 
 
 # ---------------------------------------------------------------------------
@@ -295,12 +347,14 @@ def init_lm(cfg, gen, *, device):
 
 
 def _embed(params, cfg, tokens, prefix=None):
-    if prefix is not None:
-        raise _not_ported("prefix embeddings (vlm / audio)")
+    """Scaled token embeddings, with the prefix (B, P, D) before them."""
     x = params["embed"][tokens]
     # made on the device: a host tensor copied over would synchronise
-    return x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
-                          device=x.device)
+    x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
+                       device=x.device)
+    if prefix is not None:
+        x = torch.cat([prefix.to(x.dtype), x], dim=1)
+    return x
 
 
 def _head(params, cfg, x):
@@ -313,9 +367,11 @@ def _head(params, cfg, x):
 
 
 def lm_logits(cfg, params, tokens, prefix=None):
-    """Teacher-forced logits over the token positions."""
+    """Teacher-forced logits over the token positions only."""
     x = _embed(params, cfg, tokens, prefix)
     x, _, aux = run_blocks(params["blocks"], x, cfg)
+    if prefix is not None:
+        x = x[:, prefix.shape[1]:]
     return _head(params, cfg, x), aux
 
 
@@ -356,14 +412,18 @@ def lm_prefill(cfg, params, tokens, buf_len, prefix=None, serve_window=0):
 def lm_make_state(cfg, params, batch_size, buf_len, prefix=None,
                   serve_window=0):
     """Blank decode states for ``batch_size`` sequences plus the stream
-    start index (serving slot-reset / chunked-prefill entry point). Prefix
-    inputs (vlm / audio) are not ported, so the start is always 0."""
-    if prefix is not None:
-        raise _not_ported("prefix embeddings (vlm / audio)")
-    del serve_window
-    states = init_states(cfg, batch_size, buf_len,
-                         params["embed"].dtype, device=params["embed"].device)
-    return states, 0
+    start index (serving slot-reset / chunked-prefill entry point).
+    Without a prefix the start is 0. A prefix (B, P, D) runs through the
+    stack first, at positions ``0..P-1``, and the start is ``P``: the
+    caller streams raw tokens only."""
+    dtype = params["embed"].dtype
+    states = init_states(cfg, batch_size, buf_len, dtype,
+                         device=params["embed"].device)
+    if prefix is None:
+        return states, 0
+    run_blocks(params["blocks"], prefix.to(dtype), cfg, states=states,
+               index=0, serve_window=serve_window)
+    return states, prefix.shape[1]
 
 
 @torch.no_grad()

@@ -7,7 +7,9 @@ Two layers:
 * ``generate`` — prefill, then decode a fixed batch. Prompts longer than
   ``buf_len`` stream through the ring buffer in fixed-size chunks via
   ``ModelAPI.make_state`` / ``prefill_chunk`` (window mode only: without a
-  sliding window a ring overwrite would silently truncate the prompt).
+  sliding window a ring overwrite would silently truncate the prompt). A
+  vlm prefix occupies the first positions, so decoding starts at ``S +
+  P``; an enc-dec model's frames take no cache position.
 
 * ``SlotEngine`` — the continuous-batching core. A fixed ``(max_slots,)``
   slot table whose per-slot index / generated-token counter / key / budget
@@ -18,7 +20,9 @@ Two layers:
   decode step itself, so the first kept token comes out of the same step
   (per-slot ``decode_key`` contract); eviction is the budget check flipping
   the active lane. The host ``Scheduler`` (``serving/scheduler.py``) packs
-  requests into slots.
+  requests into slots. A request's state is made from its own batch
+  (its encoder frames or prefix); ``example`` (required for an enc-dec
+  model) gives the blank slot states their shapes.
 
 PyTorch runs eagerly, so there is no compile to count: each lane
 (``fresh``, ``chunk``, ``decode``, ``insert``) and generate's decode loop
@@ -187,20 +191,23 @@ def generate(model: ModelAPI, params, batch, *, max_new_tokens: int,
             f"buffer must hold at least one full attention window")
     sp = _resolve_sampling(greedy, sampling)
     S = batch["tokens"].shape[1]
-    if S <= buf_len:
+    # a vlm prefix takes the cache's first positions; encoder frames none
+    extra = batch["prefix"].shape[1] if "prefix" in batch else 0
+    if extra + S <= buf_len:
         logits, states = model.prefill(params, batch, buf_len, window=window)
     else:
         if window <= 0:
             raise ValueError(
-                f"prompt of {S} tokens exceeds buf_len {buf_len} without a "
-                f"sliding window: ring overwrite would silently truncate the "
-                f"prompt — pass window > 0 or grow buf_len")
+                f"prompt of {S} tokens (+{extra} prefix) exceeds buf_len "
+                f"{buf_len} without a sliding window: ring overwrite would "
+                f"silently truncate the prompt — pass window > 0 or grow "
+                f"buf_len")
         logits, states = _stream_prefill(
             model, params, batch, buf_len, window,
             chunk or _ring_default_chunk(buf_len, window))
     k0 = key if key is not None else 0
     out, _ = _decode_loop(model, max_new_tokens, window, sp)(
-        params, states, logits, k0, S)
+        params, states, logits, k0, S + extra)
     return out, logits
 
 
@@ -229,7 +236,7 @@ class SlotEngine:
 
     def __init__(self, model: ModelAPI, params, *, max_slots: int,
                  buf_len: int, window: int = 0, chunk: int = 0,
-                 sampling: SamplingParams = GREEDY):
+                 sampling: SamplingParams = GREEDY, example=None):
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         if buf_len < 1:
@@ -252,9 +259,16 @@ class SlotEngine:
         self.window = window
         self.chunk = chunk
         self.sampling = sampling
-        # a one-sequence batch: make_state reads its batch size (the
-        # encoder / prefix inputs that would ride along are not ported)
-        self.example = {"tokens": np.zeros((1, 1), np.int32)}
+        # a one-sequence batch the blank slot states are made from: an
+        # enc-dec model's carries the encoder frames' shape
+        if example is None:
+            if model.cfg.n_enc_layers:
+                raise ValueError(
+                    "enc-dec serving needs an example batch carrying the "
+                    "encoder-frame shape (example={'tokens': ..., "
+                    "'enc': ...})")
+            example = {"tokens": np.zeros((1, 1), np.int32)}
+        self.example = example
         self.device = params["embed"].device
 
         # the lanes' closures hold no reference to self: an engine (and the

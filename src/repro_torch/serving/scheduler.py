@@ -32,12 +32,17 @@ MODES = ("continuous", "static")
 
 @dataclass
 class Request:
-    """One serving request. ``key`` (an int seed) seeds the slot's sampling
-    lanes; None derives one from the stream key by rid, so results are
-    independent of slot placement and co-residents."""
+    """One serving request. ``enc`` / ``prefix`` carry per-request modality
+    context (encoder frames (F, D), vlm prefix (P, D), or either with a
+    leading batch of one); shapes must match the engine's example batch.
+    ``key`` (an int seed) seeds the slot's sampling lanes; None derives
+    one from the stream key by rid, so results are independent of slot
+    placement and co-residents."""
     rid: int
     tokens: np.ndarray
     max_new_tokens: int
+    enc: np.ndarray | None = None
+    prefix: np.ndarray | None = None
     key: int | None = None
 
     def __post_init__(self):
@@ -117,6 +122,17 @@ class Scheduler:
         return [s for s, r in enumerate(self.table) if r is None]
 
 
+def _request_batch(req: Request):
+    """The one-sequence batch a request's state is made from."""
+    batch = {"tokens": np.asarray([[0]], np.int32)}
+    for name in ("enc", "prefix"):
+        ctx = getattr(req, name)
+        if ctx is not None:
+            ctx = np.asarray(ctx)
+            batch[name] = ctx[None] if ctx.ndim == 2 else ctx
+    return batch
+
+
 def _sync(engine):
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
@@ -144,7 +160,7 @@ def serve(engine: SlotEngine, requests, mode: str = "continuous",
             if not sched.queue:
                 break
             req = sched.queue.popleft()
-            state, start = engine.request_state(engine.example)
+            state, start = engine.request_state(_request_batch(req))
             state, idx, tail = engine.prefill_chunks(state, req.tokens, start)
             rkey = req.key if req.key is not None else fold_in(base_key,
                                                                req.rid)

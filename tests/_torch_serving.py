@@ -18,7 +18,10 @@ import torch
 from repro.configs import get_arch as jget_arch, reduced as jreduced
 from repro.models import attention as jattn
 from repro.models import build_model as jbuild_model
+from repro.serving import Request as JRequest
+from repro.serving import SlotEngine as JSlotEngine
 from repro.serving import generate as jgenerate
+from repro.serving import serve as jserve
 from repro.serving.sampling import (
     SamplingParams as JSamplingParams, mask_logits as jmask_logits,
 )
@@ -227,4 +230,60 @@ def check_ring_wraparound_matches_generate(arch):
             f"{arch}: ring-wraparound rid {req.rid} diverged"
 
 
-__all__ = ['_one_torch_thread', 'ARCHS', 'ATOL', 'FRESH_M', 'GREEDY', 'JSamplingParams', 'MODES', 'NEG_INF', 'ROOT', 'Request', 'SamplingParams', 'Scheduler', 'SlotEngine', '_jpaths', '_mp', '_np', '_overrides', '_prompts', '_requests', '_same_states', 'attn', 'build_model', 'check_continuous_matches_generate_and_lanes_stay_at_one', 'check_generate_greedy_equals_reference', 'check_prefill_chunks_and_decode_match_reference', 'check_ring_wraparound_matches_generate', 'decode_key', 'decode_loop_cache_size', 'fold_in', 'functools', 'generate', 'get_arch', 'jattn', 'jax', 'jbuild_model', 'jgenerate', 'jget_arch', 'jmask_logits', 'jnp', 'jreduced', 'json', 'lm', 'mask_logits', 'np', 'params_from_numpy', 'pathlib', 'pytest', 'reduced', 'sample_batch', 'sample_token', 'serve', 'states_from_numpy', 'swa_ops', 'torch', 'tree_items']
+def _context(cfg, B, seed=0):
+    """A batch's stubbed modality input as {name: (B, n_prefix, d_model)
+    fp32}: enc-dec frames ("enc") or a vlm prefix ("prefix"); {} for
+    token-only configs."""
+    if not cfg.n_prefix and not cfg.n_enc_layers:
+        return {}
+    name = "enc" if cfg.n_enc_layers else "prefix"
+    return {name: np.random.default_rng(seed).normal(
+        size=(B, cfg.n_prefix, cfg.d_model)).astype(np.float32)}
+
+
+def check_serve_with_context_matches_generate_and_reference(arch):
+    """Mixed-length requests, each with its own frames or prefix
+    (``Request.enc`` / ``.prefix``, the state made from the request's
+    batch at admission): continuous batching gives per-request
+    ``generate``'s greedy tokens on the same context, the reference's
+    ``serve`` gives the same tokens, and a second stream leaves every
+    lane at one signature. The engine's example carries the context's
+    shape, so a vlm's slots start at P."""
+    jmodel, jparams, cfg, model, params = _mp(arch)
+    lens, news = [5, 11, 3], [6, 4, 5]
+    ctx = [_context(cfg, 1, seed=20 + i) for i in range(len(lens))]
+    prompts = _prompts(cfg, lens)
+    prefix = cfg.n_prefix if not cfg.n_enc_layers else 0
+    buf = prefix + 24
+    example = {"tokens": np.zeros((1, 1), np.int32)}
+    example.update({k: np.zeros_like(v) for k, v in ctx[0].items()})
+    engine = SlotEngine(model, params, max_slots=2, buf_len=buf, chunk=4,
+                        example=example)
+    assert engine.start0 == prefix
+
+    def requests(cls, seed_ctx):
+        return [cls(rid=i, tokens=t, max_new_tokens=n,
+                    **{k: v[0] for k, v in c.items()})
+                for i, (t, n, c) in enumerate(zip(prompts, news, seed_ctx))]
+    report = serve(engine, requests(Request, ctx))
+    jengine = JSlotEngine(jmodel, jparams, max_slots=2, buf_len=buf,
+                          chunk=4, example=example)
+    jreport = jserve(jengine, requests(JRequest, ctx))
+    for i, (t, n, c) in enumerate(zip(prompts, news, ctx)):
+        want, _ = generate(model, params, dict(tokens=t[None], **c),
+                           max_new_tokens=n, buf_len=buf)
+        assert report.results[i].tokens == want[0].tolist(), \
+            f"{arch}: rid {i} diverged from generate()"
+        assert report.results[i].tokens == list(jreport.results[i].tokens), \
+            f"{arch}: rid {i} diverged from the reference's serve"
+    sizes = engine.compile_cache_sizes()
+    assert sizes == {"fresh": 1, "chunk": 1, "decode": 1, "insert": 1}, sizes
+    more = [_context(cfg, 1, seed=30 + i) for i in range(3)]
+    serve(engine, [Request(rid=i, tokens=t, max_new_tokens=2,
+                           **{k: v[0] for k, v in c.items()})
+                   for i, (t, c) in enumerate(zip(
+                       _prompts(cfg, [9, 2, 6], seed=1), more))])
+    assert engine.compile_cache_sizes() == sizes
+
+
+__all__ = ['_one_torch_thread', 'ARCHS', 'ATOL', 'FRESH_M', 'GREEDY', 'JSamplingParams', 'MODES', 'NEG_INF', 'ROOT', 'Request', 'SamplingParams', 'Scheduler', 'SlotEngine', '_jpaths', '_mp', '_np', '_overrides', '_prompts', '_requests', '_same_states', 'attn', 'build_model', 'check_continuous_matches_generate_and_lanes_stay_at_one', 'check_generate_greedy_equals_reference', 'check_prefill_chunks_and_decode_match_reference', 'check_ring_wraparound_matches_generate', 'check_serve_with_context_matches_generate_and_reference', '_context', 'JRequest', 'JSlotEngine', 'jserve', 'decode_key', 'decode_loop_cache_size', 'fold_in', 'functools', 'generate', 'get_arch', 'jattn', 'jax', 'jbuild_model', 'jgenerate', 'jget_arch', 'jmask_logits', 'jnp', 'jreduced', 'json', 'lm', 'mask_logits', 'np', 'params_from_numpy', 'pathlib', 'pytest', 'reduced', 'sample_batch', 'sample_token', 'serve', 'states_from_numpy', 'swa_ops', 'torch', 'tree_items']

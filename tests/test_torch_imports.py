@@ -75,3 +75,19 @@ def test_fault_tolerance_modules_are_walked_and_launchers_use_the_card():
     bad = sorted(n for n in names
                  if n.split(".")[0] in ("jax", "jaxlib", "repro"))
     assert not bad, bad
+
+
+def test_model_family_modules_are_walked():
+    """The MoE and enc-dec modules are among the walked ones, and each
+    imports alone in a fresh interpreter without JAX or the JAX
+    package."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for rel in ("models/moe.py", "models/encdec.py"):
+        assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
+    code = ("import sys; import repro_torch.models.moe, "
+            "repro_torch.models.encdec; bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "assert not bad, bad")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr

@@ -6,7 +6,10 @@ remainder blocks of the full config) and the recurrent one (xlstm-350m at
 4 layers, one cycle, and at 8, two cycles, on the per-step mLSTM of its
 published config; and with ``xlstm_chunk = 16``, the chunked mLSTM). The
 full-size zamba2-7b and xlstm-350m trees are held against the
-reference's shapes on the ``meta`` device."""
+reference's shapes on the ``meta`` device, and so is every
+configuration's full-size tree (the MoE, enc-dec and vlm families too;
+their reduced configs are held in ``tests/test_torch_moe.py``,
+``test_torch_encdec.py`` and ``test_torch_prefix.py``)."""
 from __future__ import annotations
 
 import functools
@@ -22,7 +25,7 @@ from repro.core.engine import ConsensusEngine as JEngine
 from repro.models import attention as jattn
 from repro.models import build_model as jbuild_model
 from repro.models import transformer as jlm
-from repro_torch.configs import get_arch, reduced
+from repro_torch.configs import ARCHS as PORT_ARCHS, get_arch, reduced
 from repro_torch.core.engine import (
     ConsensusEngine, tree_from_items, tree_items,
 )
@@ -157,26 +160,29 @@ def test_params_from_numpy_checks_the_tree():
         params_from_numpy(cfg, bad, device="cpu")
 
 
-def test_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model(reduced(get_arch("dbrx-132b")))
-
-
 def _full_tree_matches_reference(name):
     """(the port's meta tree as {path: leaf}, its parameter count) after
     holding its paths, shapes and dtypes against the reference's."""
     jcfg, cfg = jget_arch(name), get_arch(name)
-    want = jax.eval_shape(lambda k: jlm.init_lm(jcfg, k),
-                          jax.random.PRNGKey(0))
+    want = jax.eval_shape(jbuild_model(jcfg).init, jax.random.PRNGKey(0))
     want = {tuple(k.key for k in path): leaf for path, leaf in
             jax.tree_util.tree_flatten_with_path(want)[0]}
-    got = dict(tree_items(lm.init_lm(cfg, None, device="meta")))
+    got = dict(tree_items(build_model(cfg).init(None, "meta")))
     assert sorted(got) == sorted(want)
     for path, leaf in got.items():
         assert tuple(leaf.shape) == want[path].shape, path
         assert str(leaf.dtype).removeprefix("torch.") == \
             want[path].dtype.name, path
     return got, sum(leaf.numel() for leaf in got.values())
+
+
+@pytest.mark.parametrize("name", sorted(PORT_ARCHS))
+def test_build_model_and_full_tree_match_reference(name):
+    """Every configuration builds, and its full-size parameter tree on the
+    meta device (nothing allocated) has the reference's paths, shapes and
+    dtypes."""
+    _, n = _full_tree_matches_reference(name)
+    assert n > 0
 
 
 # zamba2-7b's tree, counted from the reference's init (jax.eval_shape)

@@ -163,9 +163,11 @@ def test_slot_engine_validation():
                dict(max_slots=1, buf_len=16, window=16, chunk=8)):
         with pytest.raises(ValueError):
             SlotEngine(model, params, **kw)
-    # enc-dec models (which need an example batch) are not ported yet
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model(reduced(get_arch("seamless-m4t-medium")))
+    # an enc-dec model needs an example batch carrying the frames' shape
+    encdec = build_model(reduced(get_arch("seamless-m4t-medium")))
+    with pytest.raises(ValueError, match="example"):
+        SlotEngine(encdec, encdec.init(torch.Generator().manual_seed(0),
+                                       "cpu"), max_slots=1, buf_len=8)
 
     engine = SlotEngine(model, params, max_slots=2, buf_len=16)
     slots = engine.blank_slots()
