@@ -13,7 +13,11 @@ Phases (any failure raises, and the script exits non-zero):
    version at (4, 300), (8, 4097), (5, 2^26 + 3), (32, 65537) and at the
    main path's shape R = 4, n = 1,216,385,024 (yi-6b at LAYERS = 4); then
    times kernel, plain version and the nearest PyTorch call at the main
-   shape (CUDA events, median of 20 runs after 3 warm-ups).
+   shape (CUDA events, median of 20 runs after 3 warm-ups; the plain
+   versions, 0.1-0.4 s a call there, median of 5 after 1), and
+   ``gram_coef``'s device time (one block on a few KB, whose event time
+   is the host's launch cost) from ``torch.profiler`` and from 20 calls
+   queued behind a sleep kernel.
 3. The slice: yi-6b at full width (d_model 4096, 32/4 heads, d_ff 11008,
    vocab 64000), depth cut to 4 layers, bf16 model over the fp32 flat
    master view; M = 4 workers, simple_avg, alpha 0.1, lam 0.5, tau 4,
@@ -30,8 +34,9 @@ Phases (any failure raises, and the script exits non-zero):
    with cap 50, global with cap 50, and cap 0 / window 0 where one
    PyTorch call, ``scaled_dot_product_attention``, computes the same
    function; zamba2-7b's B = 4, 32 heads over 32, S = 8160, hd = 112,
-   cap 0 / window 0); times kernel, plain version and that call (CUDA
-   events, median of 20 after 3 warm-ups). Each query row is held to 2e-5
+   cap 0 / window 0); times kernel, plain version (at the serving shapes
+   a median of 3) and that call (CUDA events, median of 20 after 3
+   warm-ups). Each query row is held to 2e-5
    (fp32) or 2e-2 (bf16) of its own largest |output|; bf16 both in the
    (B, H, S, hd) layout and as the transposed (B, S, H, hd) view the model
    hands the kernel (timed too). For each bf16 serving shape it prints
@@ -50,7 +55,7 @@ Phases (any failure raises, and the script exits non-zero):
    (b) one prompt through ``make_state`` +
    ``prefill_chunk`` in chunks of 512; (c) the continuous-batching
    launcher ``repro_torch.launch.serve.main`` at full width, depth cut
-   to 4 layers (``SERVE_LAYERS``: the run's time limit).
+   to 2 layers (``SERVE_LAYERS``: the run's time limit).
 7. SSD kernel: ptxas's registers and spills and a ``cuobjdump -sass``
    census of every ``ssd_kernel`` instance (highest register, HMMA and
    HGMMA counts: the phase fails unless each instance runs its products
@@ -79,7 +84,7 @@ Phases (any failure raises, and the script exits non-zero):
    traced (8 new tokens) with CUDA events around each SSD scan and its
    kernel, and the share of the traced prefill taken by the ``swa*``
    kernels; (b) one prompt in chunks of 512 (carried ssm and conv states);
-   (c) the serving launcher at 12 layers (``SERVE_LAYERS``): 5 requests
+   (c) the serving launcher at 6 layers (``SERVE_LAYERS``): 5 requests
    of 256 / 512 / 1024 / 256 / 512 tokens, 4 slots, chunk 64, 16 new
    tokens.
 9. sLSTM kernel: its launch geometry at every head dim (blocks per
@@ -190,9 +195,10 @@ Phases (any failure raises, and the script exits non-zero):
    and on the CPU with the same draws: MV within 1e-4 relative,
    lambda_max, trace and Frobenius norm within 1e-3; seconds of each.
    (d) ``repro_torch.benchmarks.run --fast --only theorem1,table2,
-   method_zoo`` in this process: its CSV rows printed, every number
-   finite, ``fused_round`` and ``sq_dist`` launched; seconds of each
-   suite.
+   method_zoo`` in this process, table2 on the first of its two seeds
+   (``HARNESS_TABLE2_SEEDS``: the run's time limit): its CSV rows
+   printed, every number finite, ``fused_round`` and ``sq_dist``
+   launched; seconds of each suite.
 15. The sharded round on ``torch.distributed`` ranks, spawned from this
    script (two, then eight, on the one card: the transport is gloo, every
    collective staged through host memory; the kernels are built in phase
@@ -207,11 +213,12 @@ Phases (any failure raises, and the script exits non-zero):
    all-reduces) and on both at once, of the all-reduce, and of each
    launch alone; bound 3 R n_local 4 bytes / 3.35 TB/s. (b) The trainer:
    yi-6b at full width cut to 1 layer (n = 697,316,352), M = 4, tau 4,
-   simple_avg, 2 rounds, on the kernel route, meshes 2x1 and 1x2, overlap
-   ``none``, ``doublebuf`` (4 chunks) and ``staleness_k`` k = 1 elastic
-   under 16(b)'s membership (row 2 out of round 1, which the quorum of 4
-   degrades; 16(b)'s clock: its ring slot gathered over ``ring_gather``
-   on 2x1), each rank's block within 2e-5 of the single-device run's
+   simple_avg, on the kernel route, meshes 2x1 and 1x2, overlap
+   ``none`` (1 round), ``doublebuf`` (4 chunks, 2 rounds) and
+   ``staleness_k`` k = 1 elastic (2 rounds) under 16(b)'s membership
+   (row 2 out of round 1, which the quorum of 4 degrades; 16(b)'s clock:
+   its ring slot gathered over ``ring_gather`` on 2x1) (``SH_OVERLAPS``),
+   each rank's block within 2e-5 of the single-device run's
    parameter scale on 2x1 and 1e-3 on 1x2 (``SH_BAR`` says why), each
    round's consensus_dist within 1e-5 relative (each rank runs the
    single-device rounds alone first and keeps its blocks on the host).
@@ -220,8 +227,10 @@ Phases (any failure raises, and the script exits non-zero):
    file), each rank's shard is overwritten and read back from its blocks
    of the file in place, and every tensor's bits must come back (sums of
    the bit patterns per row and 2^24 columns); 16(b) resumes from it;
-   per rank: round times, host seconds in gathers and all-reduces, bytes
-   staged, peak memory (their sum beside the card's); the counters are
+   per rank: round times, the host seconds of the single-device turns
+   and of making and sharding each mesh's state, host seconds in gathers
+   and all-reduces, bytes staged, peak memory (their sum beside the
+   card's); the counters are
    zeroed just before each sharded run. (c) The launcher: ``--sharded
    --arch yi-6b --smoke`` under ``torch.distributed.run`` with two ranks
    against the same run unsharded: per-round consensus_dist and
@@ -280,10 +289,32 @@ Phases (any failure raises, and the script exits non-zero):
    launcher at ``SERVE_LAYERS``' depth, 4 requests, 8 new tokens
    (seamless's requests carry their frames). (d) Training at full width on
    the flat engine's kernel mode, as phase 3 (M = 4, tau 4, seq 64, batch
-   8, 2 rounds): seamless-m4t-medium at 12 + 12 layers and internvl2-2b at
-   12 of 24, the round batches carrying frames / the prefix; round ms,
-   consensus ms, peak memory, ``fused_round`` launches. ``python3
-   chip_smoke.py --phases 17`` runs phase 1 and this phase alone.
+   8, 2 rounds; ``FAMILY_TRAIN``): seamless-m4t-medium cut to 6 + 6 of its
+   12 + 12 layers, internvl2-2b to 12 of 24, zamba2-7b to 18 of 81 on the
+   plain SSD route, xlstm-350m at its 24 blocks on the plain sLSTM loop
+   and the chunkwise mLSTM (``xlstm_chunk = 16``) at learning rate 0.01,
+   the round batches carrying frames / the prefix; round ms, consensus
+   ms, peak memory, ``fused_round`` launches. ``python3 chip_smoke.py
+   --phases 17`` runs phase 1 and this phase alone.
+18. The autotune search. (a) ``train.autotune`` through the port's API:
+   ``make_round_probe_runner(device="cuda")`` on yi-6b at full width and
+   ``LAYERS``, M = 4, ``doublebuf`` with staleness 1, sequences of
+   ``TUNE_SEQ`` = 2048 tokens, batches 1-6, taus (4, 8), chunks (1, 2, 4),
+   6 probes (``TUNE_SPACE``), ``make_lm_model_fn`` as the model, no
+   injected fault. Every probe printed (batch, tau, chunks, ok, measured
+   and modeled µs, seconds, peak, the memory allocated before and after
+   it, the exception it raised, its launches). It fails unless a probe
+   met a real ``torch.cuda.OutOfMemoryError``, each probe left the
+   allocated memory within 4 MiB of where it found it, the chosen batch
+   is the ladder's largest feasible one, the failures are sorted and
+   unique, the budget held, ``dominates_model`` holds, the saved plan
+   re-dumps byte for byte after ``TunePlan.load``, and each feasible
+   probe launched ``partial_gram``, ``gram_coef``, ``mix_from_gram`` and
+   ``stale_mix``. (b) ``launch.train --smoke --autotune --tune-oom-above
+   3 --tune-plan P``, then ``--tune-plan P`` alone: equal round plans
+   (``RoundClock.describe()``), finite losses, batch 3 chosen. ``python3
+   chip_smoke.py --phases 18`` runs phase 1 and this phase alone (``2``
+   runs phase 2 alone).
 
 It prints a ``kernels`` line, the ``{"kernels": [...]}`` record and, last,
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -342,10 +373,10 @@ SERVE_S = 8160
 # the serving launchers of phases 6(c), 8(c), 10(c) and 17(c) at a cut
 # depth: their host-bound decode costs time in proportion to the layers,
 # and the whole run must end within its limit (the models' (a) and (b)
-# parts stay at full depth). gemma2-2b 4 of 26 layers (2 local + 2
-# global), zamba2-7b 12 of 81 (10 Mamba2 + 2 shared attention),
+# parts stay at full depth). gemma2-2b 2 of 26 layers (1 local + 1
+# global), zamba2-7b 6 of 81 (5 Mamba2 + 1 shared attention),
 # xlstm-350m 4 of 24 (3 mLSTM + 1 sLSTM)
-SERVE_LAYERS = {"gemma2-2b": 4, "zamba2-7b": 12, "xlstm-350m": 4,
+SERVE_LAYERS = {"gemma2-2b": 2, "zamba2-7b": 6, "xlstm-350m": 4,
                 # phase 17(c): dbrx-132b and llama4-scout-17b-a16e 2 of 40
                 # / 48 (13.0 / 8.8 GB of weights), internvl2-2b 4 of 24,
                 # seamless-m4t-medium 4 of its 12 decoder layers (all 12
@@ -493,6 +524,26 @@ def _time_ms(fn, reps=20, warm=3):
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
+def _profiled_ms(fn, kernel, reps=20):
+    """Mean device time in ms of ``kernel``'s launches over ``reps`` calls
+    of ``fn``, read from ``torch.profiler`` (CUPTI); None when the trace
+    holds no device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            us = getattr(ev, "device_time_total", None)
+            total += ev.cuda_time_total if us is None else us
+            count += ev.count
+    return total / count / 1e3 if count and total > 0 else None
+
+
 def _forms(G, T, coef):
     """Pre / post distance forms (zero-sum) of a Gram."""
     R = G.shape[0]
@@ -583,11 +634,12 @@ def phase_kernels(pk, ref):
     times = {
         "fused_round": (
             _time_ms(lambda: pk.fused_round(x, T, c0, c1, out=out)),
-            _time_ms(lambda: ref.fused_round_plain(x, T, c0, c1, out=out)),
+            _time_ms(lambda: ref.fused_round_plain(x, T, c0, c1, out=out),
+                     reps=5, warm=1),
             None),
         "partial_gram": (
             _time_ms(lambda: pk.partial_gram(x)),
-            _time_ms(lambda: ref.partial_gram_plain(x)),
+            _time_ms(lambda: ref.partial_gram_plain(x), reps=5, warm=1),
             _time_ms(lambda: torch.matmul(x, x.T))),
         "gram_coef": (
             _time_ms(lambda: pk.gram_coef(ws, T, c0, c1)),
@@ -595,9 +647,19 @@ def phase_kernels(pk, ref):
             None),
         "mix_shard": (
             _time_ms(lambda: pk.mix_shard(x, T, coef, out=out)),
-            _time_ms(lambda: ref.mix_shard_plain(x, T, coef, out=out)),
+            _time_ms(lambda: ref.mix_shard_plain(x, T, coef, out=out),
+                     reps=5, warm=1),
             _time_ms(lambda: torch.matmul(T, x, out=out))),
     }
+    # gram_coef is one block on a few KB: its event time is the host's
+    # launch cost; the device's own time comes from the profiler, and from
+    # calls queued behind a sleep kernel
+    coef_device = {
+        "profiler": _profiled_ms(lambda: pk.gram_coef(ws, T, c0, c1),
+                                 "gram_coef"),
+        "queued": _device_ms(lambda: pk.gram_coef(ws, T, c0, c1))}
+    print("  gram_coef device ms " + json.dumps(coef_device)
+          + f", event ms {times['gram_coef'][0]}")
     nblk = ws.shape[0]
     small = 4 * (R * R + 3 * R)              # T, c0/c1/coef, r
     work = {   # (bytes: inputs once + outputs once, fp32 operations)
@@ -623,6 +685,7 @@ def phase_kernels(pk, ref):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms}
+    rows["gram_coef"]["device_ms"] = coef_device
     return rows
 
 
@@ -918,7 +981,10 @@ def phase_attention(swa, plain):
         for i, case in enumerate(ATTN_CASES):
             rows.append(_attn_case(swa, plain, case, dtype, gen, f"case{i}"))
         for name, case in ATTN_SLICE.items():
-            rows.append(_attn_case(swa, plain, case, dtype, gen, name))
+            # the plain version at a serving shape takes 0.1-0.2 s a call:
+            # median of 3 (the run's time limit)
+            rows.append(_attn_case(swa, plain, case, dtype, gen, name,
+                                   plain_reps=3))
             torch.cuda.empty_cache()
     by = {(r["case"], r["dtype"]): r for r in rows}
     head, local = by[("global", "bfloat16")], by[("local", "bfloat16")]
@@ -2651,6 +2717,9 @@ HARNESS_RUNS = (("tree", dict(alpha=0.1, lam=0.5, tau=4), 300),
 HARNESS_M = 4
 MLP_LEAVES = 6           # the benchmark MLP: 3 layers x (w, b)
 HARNESS_SUITES = "theorem1,table2,method_zoo"
+# (d): table2 averages each row over its two seeds (``table2_comm.SEEDS``);
+# here over the first (a cut of repetitions: the run's time limit)
+HARNESS_TABLE2_SEEDS = 1
 FUSED_SPREAD = 1e-5      # (b) the reference test's near-consensus spread
 FUSED_VIEW_RTOL = 1e-5   # (b) full width: the fp32 update against the tree's
 
@@ -2927,14 +2996,18 @@ def _measures_checks(common, workers, data):
 
 def _fast_suites(pk):
     """(d): ``repro_torch.benchmarks.run --fast`` on three suites, in this
-    process; every number of their CSV rows finite."""
+    process (table2 on ``HARNESS_TABLE2_SEEDS`` of its seeds); every
+    number of their CSV rows finite."""
     import contextlib
     import io
-    from repro_torch.benchmarks import run
+    from unittest import mock
+    from repro_torch.benchmarks import run, table2_comm
     buf = io.StringIO()
+    seeds = table2_comm.SEEDS[:HARNESS_TABLE2_SEEDS]
     pk.reset_launches()                     # main path: counts from here
     try:
-        with contextlib.redirect_stdout(buf):
+        with contextlib.redirect_stdout(buf), \
+                mock.patch.object(table2_comm, "SEEDS", seeds):
             secs = run.main(["--fast", "--only", HARNESS_SUITES])
     finally:
         print("\n".join("  " + line for line in
@@ -2954,7 +3027,8 @@ def _fast_suites(pk):
                 continue
             if not math.isfinite(x):
                 bad.append(line)
-    print(f"  --fast {HARNESS_SUITES}: {n_rows} rows, seconds "
+    print(f"  --fast {HARNESS_SUITES} (table2 seeds {list(seeds)}): "
+          f"{n_rows} rows, seconds "
           f"{json.dumps(secs)}, launches {json.dumps(launches)}")
     if bad or n_rows == 0:
         raise AssertionError(f"non-finite rows: {bad}")
@@ -3008,9 +3082,13 @@ SH_MESHES = ((2, 1), (1, 2))
 SUP_LR, SUP_STEPS, SUP_DROP, SUP_QUORUM = 0.3, 16, (2, 1, 3), 4
 SUP_DCFG = dict(overlap="staleness_k", staleness=1, overlap_chunks=4,
                 elastic=True)
-SH_OVERLAPS = (("none", dict(overlap="none")),
-               ("doublebuf", dict(overlap="doublebuf", overlap_chunks=4)),
-               ("staleness_k", SUP_DCFG))
+# (label, overlap settings, rounds), each on every mesh of SH_MESHES:
+# ``none`` runs one round (its rounds are alike: the run's time limit),
+# doublebuf and staleness_k two (round 1 is their stale round)
+SH_OVERLAPS = (("none", dict(overlap="none"), 1),
+               ("doublebuf", dict(overlap="doublebuf", overlap_chunks=4),
+                SH_ROUNDS),
+               ("staleness_k", SUP_DCFG, SH_ROUNDS))
 # where (b)'s 2x1 staleness_k run writes its resume point (one file, ~33.5
 # GB: the machine takes at most 45 GiB of disk writes a call, so phase 16
 # resumes from it instead of writing one of its own)
@@ -3229,9 +3307,13 @@ def _row_absmax(x):
 
 
 def _row_err(got, want):
-    """(R,) largest |got - want| of each row, in column chunks."""
-    return torch.stack([(g - w).abs().amax(dim=1) for g, w in zip(
-        got.split(1 << 24, dim=1), want.split(1 << 24, dim=1))]).amax(dim=0)
+    """(R,) largest |got - want| of each row, in column chunks, on
+    ``got``'s device (a ``want`` kept on the host moves there a chunk at a
+    time)."""
+    return torch.stack([
+        (g - w.to(g.device)).abs().amax(dim=1) for g, w in zip(
+            got.split(1 << 24, dim=1), want.split(1 << 24, dim=1))
+    ]).amax(dim=0)
 
 
 def _block_sums(x):
@@ -3421,14 +3503,14 @@ def _trainer_rank(rank, world, resume_path=None):
         task, 0, SH_M, s.tau, s.start, SH_BATCH, cfg, device="cpu")
         for s in clock.rounds[:SH_ROUNDS]]
     results, resume = {}, None
-    for label, over in SH_OVERLAPS:
+    for label, over, n_rounds in SH_OVERLAPS:
         dcfg = DPPFConfig(alpha=0.1, lam=0.5, tau=SH_TAU,
                           consensus="simple_avg", engine="flat", **over)
         ring = over is SUP_DCFG
         clock = RoundClock.from_config(
             dcfg, base_lr=SUP_LR if ring else LR,
             total_steps=SUP_STEPS if ring else steps)
-        data = batches(clock)
+        data = batches(clock)[:n_rounds]
 
         def member(st, r):
             if not ring:
@@ -3436,6 +3518,7 @@ def _trainer_rank(rank, world, resume_path=None):
             mask, sync = _sup_membership(r)
             return set_participation(st, mask, sync=sync)
         want, single_m, single_ms, scale = {}, [], [], None
+        t_single = time.perf_counter()
         for turn in range(world):
             dist.barrier()
             if turn == rank:
@@ -3472,8 +3555,10 @@ def _trainer_rank(rank, world, resume_path=None):
                 torch.cuda.empty_cache()
             torch.cuda.synchronize()
         dist.barrier()
+        single_s = time.perf_counter() - t_single
         for name, mesh in meshes.items():
             state = None
+            t_init = time.perf_counter()
             for turn in range(world):      # the whole state, in turns
                 dist.barrier()
                 if turn == rank:
@@ -3485,6 +3570,7 @@ def _trainer_rank(rank, world, resume_path=None):
                     torch.cuda.empty_cache()
                 torch.cuda.synchronize()
             dist.barrier()
+            init_s = time.perf_counter() - t_init
             acc = {"all_gather": 0.0, "all_reduce": 0.0,
                    "ring_gather": 0.0}
             orig = _timed_collectives(mm, acc)
@@ -3527,12 +3613,14 @@ def _trainer_rank(rank, world, resume_path=None):
                     setattr(mm, k, f)
             peak = torch.cuda.max_memory_allocated()
             mm.release_staging()
-            got = state.params[:sh.m_loc].cpu()
-            dp = float(_row_err(got, want[name]).max())
+            dp = float(_row_err(state.params[:sh.m_loc], want[name]).max())
             results[f"{label} {name}"] = {
                 "rank": rank, "peak_bytes": peak,
                 "rounds": rounds, "single_consensus_dist": single_m,
                 "single_round_ms": single_ms,
+                # host seconds: the mode's single-device turns (both
+                # ranks'), this mesh's state made and sharded in turns
+                "single_s": single_s, "init_s": init_s,
                 "gather_s": acc["all_gather"],
                 "ring_gather_s": acc["ring_gather"],
                 "all_reduce_s": acc["all_reduce"],
@@ -3561,7 +3649,7 @@ def _trainer_rank(rank, world, resume_path=None):
                 mm.release_staging()
                 print(f"  (b) rank {rank}: resume point " + json.dumps(
                     resume), flush=True)
-            del state, step, got
+            del state, step
             torch.cuda.empty_cache()
             dist.barrier()
         del want
@@ -3729,6 +3817,8 @@ def phase_sharded(pk, ref, resume_path=None):
                                for x in runs[0]["rounds"]],
             "single_consensus_dist": runs[0]["single_consensus_dist"],
             "single_round_ms_by_rank": [r["single_round_ms"] for r in runs],
+            "single_s_by_rank": [r["single_s"] for r in runs],
+            "init_s_by_rank": [r["init_s"] for r in runs],
             "max_abs_diff": max(r["max_abs_diff"] for r in runs),
             "bar": SH_BAR[key.split()[-1]] * runs[0]["scale"],
             "launches_by_rank": [r["launches"] for r in runs]}
@@ -4126,7 +4216,18 @@ FAMILIES = (("dbrx-132b", 6, SERVE_S), ("llama4-scout-17b-a16e", 10, SERVE_S),
 FAMILY_B, FAMILY_NEW, FAMILY_CHUNK = 4, 32, 512
 FAMILY_CHECK_S = 1024        # (0): one sequence, fp32, 1 MoE / 2 dense layers
 # (d): (config, depth) trained at full width on the flat engine's kernels
-FAMILY_TRAIN = (("seamless-m4t-medium", None), ("internvl2-2b", 12))
+# (d): (config, layers or None for the full depth, config fields set for
+# training, local-step learning rate). seamless-m4t-medium cut 12 + 12 ->
+# 6 + 6 layers (the run's time limit); zamba2-7b cut 81 -> 18 layers
+# (n = 1,604,578,608, a 25.7 GB view); xlstm-350m at its 24 blocks on the
+# chunkwise mLSTM (xlstm_chunk = 16): the published per-step recurrence
+# keeps every step's (B, 4, 512, 512) fp32 matrix memory for the backward
+# pass, > 100 GB at seq 64, batch 8, 18 mLSTM blocks. At LR = 0.3 its SGD
+# diverges in either mLSTM form (its gradient norm is ~130 at the seeded
+# init); it trains at 0.01
+FAMILY_TRAIN = (("seamless-m4t-medium", 6, {"n_enc_layers": 6}, LR),
+                ("internvl2-2b", 12, {}, LR), ("zamba2-7b", 18, {}, LR),
+                ("xlstm-350m", None, {"xlstm_chunk": 16}, 0.01))
 FAMILY_ROUNDS = 2
 # swa_attention at every shape this phase's serving paths launch it, bf16
 # (B, H, Hkv, Sq, Skv, hd, window, cap, causal); the census of (a)-(c)
@@ -4393,12 +4494,13 @@ def _serve_family(swa, cfg, S, route):
     return {"a": a, "b": b, "c": c, "launches": launches}
 
 
-def _train_family(pk, name, layers):
+def _train_family(pk, name, layers, over, lr):
     """(d) DPPF rounds at full width on the flat engine's kernel mode (as
     phase 3): M = 4, tau 4, seq 64, batch 8 a worker, the round batches
     carrying the stubbed prefix / frames (made before the rounds, so that
     no round times their host draws); counters zeroed just before the
-    state is made."""
+    state is made. ``over``: config fields set for training; ``lr`` the
+    local steps' learning rate."""
     from repro_torch.configs import DPPFConfig
     from repro_torch.core import consensus
     from repro_torch.data import TokenTask, make_round_batch
@@ -4408,13 +4510,13 @@ def _train_family(pk, name, layers):
         RoundClock, init_train_state, make_round_step,
     )
     import repro_torch.train.trainer as trainer_mod
-    cfg = _family_cfg(name, layers)
+    cfg = dataclasses.replace(_family_cfg(name, layers), **over)
     M, tau, seq, batch = 4, 4, 64, 8
     model = build_model(cfg)
     dcfg = DPPFConfig(alpha=0.1, lam=0.5, tau=tau, consensus="simple_avg",
                       engine="flat")
     opt = make_optimizer("sgd", momentum=0.9, weight_decay=1e-3)
-    clock = RoundClock.from_config(dcfg, base_lr=LR,
+    clock = RoundClock.from_config(dcfg, base_lr=lr,
                                    total_steps=FAMILY_ROUNDS * tau)
     task = TokenTask(vocab_size=cfg.vocab_size, seq_len=seq)
     batches = [make_round_batch(task, 0, M, spec.tau, spec.start, batch, cfg,
@@ -4434,7 +4536,8 @@ def _train_family(pk, name, layers):
         [lambda b=b: b for b in batches], f"(d) {cfg.name}")
     launches = dict(pk.LAUNCHES)
     d = {"config": cfg.name, "layers": cfg.n_layers,
-         "enc_layers": cfg.n_enc_layers, "n": n, "view_bytes": 4 * R * n,
+         "enc_layers": cfg.n_enc_layers, "set": over, "lr": lr, "n": n,
+         "view_bytes": 4 * R * n,
          "inputs": inputs, "rounds": rounds,
          "peak_bytes": torch.cuda.max_memory_allocated(),
          "fused_round": launches["fused_round"]}
@@ -4491,9 +4594,9 @@ def phase_families(pk, swa, plain):
         raise AssertionError("swa_attention launched at shapes not held "
                              f"against its plain version: {unchecked}")
     train_launches = {}
-    for name, layers in FAMILY_TRAIN:
+    for name, layers, over, lr in FAMILY_TRAIN:
         t0 = time.perf_counter()
-        d, counts = _train_family(pk, name, layers)
+        d, counts = _train_family(pk, name, layers, over, lr)
         label = (f"{name} training, {d['layers']} layers, "
                  f"{FAMILY_ROUNDS} rounds (phase 17)")
         for k, v in counts.items():
@@ -4503,6 +4606,202 @@ def phase_families(pk, swa, plain):
     print("  phase 17 seconds " + json.dumps(secs))
     return {"attention": attn, "serve_launches": launches,
             "train_launches": train_launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the autotune search
+# ---------------------------------------------------------------------------
+
+# (a): yi-6b at LAYERS, M = 4, doublebuf with staleness 1, on sequences of
+# TUNE_SEQ tokens: the fleet's three (4, n) fp32 views take 58.4 GB and a
+# worker's activations ~2.3 MB a token, so batches of 2048-token sequences
+# reach the card's memory at 5-6 of them; the budget ends the search at
+# one point of the joint sweep (a tau 4 probe at the frontier takes ~18 s)
+TUNE_SEQ = 2048
+TUNE_SPACE = dict(min_batch=1, max_batch=6, taus=(4, 8), chunks=(1, 2, 4),
+                  probe_budget=6, overlap="doublebuf", staleness=1)
+TUNE_REPS = 1
+TUNE_MEM_TOL = 4 << 20      # allocated bytes a probe may leave behind
+# the kernels every feasible doublebuf probe launches: its stale rounds'
+# chunk Grams, coefficients and mix with the stale epilogue
+TUNE_KERNELS = ("partial_gram", "gram_coef", "mix_from_gram", "stale_mix")
+# (b): the smoke launcher, searched under an injected frontier, then
+# replayed from the plan it wrote
+TUNE_ARGV = ["--arch", "yi-6b", "--smoke", "--workers", "4", "--tau", "2",
+             "--steps", "8", "--seq", "16", "--batch", "1", "--overlap",
+             "doublebuf", "--probe-budget", "8"]
+TUNE_OOM_ABOVE = 3
+TUNE_PLAN = os.path.join(ROOT, "build", "chip_smoke", "tune18", "plan.json")
+
+
+def _tune_search(pk):
+    """(a) ``autotune`` through the port's API on the card: the round probe
+    runner at full width, no injected fault. Each probe is recorded with
+    the memory allocated before and after it, the exception it raised and
+    the kernels it launched."""
+    from repro_torch.configs import DPPFConfig, get_arch
+    from repro_torch.data import TokenTask, make_round_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import (
+        TunePlan, TuneSpace, autotune, make_lm_model_fn,
+        make_round_probe_runner,
+    )
+    cfg = dataclasses.replace(get_arch("yi-6b"), n_layers=LAYERS)
+    M = 4
+    space = TuneSpace(**TUNE_SPACE)
+    model = build_model(cfg)
+    dcfg = DPPFConfig(alpha=0.1, lam=0.5, tau=space.taus[0],
+                      consensus="simple_avg", engine="flat",
+                      overlap=space.overlap, overlap_chunks=1,
+                      staleness=space.staleness)
+    opt = make_optimizer("sgd", momentum=0.9, weight_decay=1e-3)
+    task = TokenTask(vocab_size=cfg.vocab_size, seq_len=TUNE_SEQ)
+    rounds = 2 + TUNE_REPS
+    inner = make_round_probe_runner(
+        model.init, model.loss, opt, dcfg, M,
+        lambda c: make_round_batch(task, 0, M, c.tau, 0, c.batch, cfg,
+                                   device="cuda"),
+        base_lr=LR, total_steps=rounds * max(space.taus), reps=TUNE_REPS,
+        seed=0, device="cuda")
+    model_fn = make_lm_model_fn(n_params=cfg.param_count(), seq=TUNE_SEQ,
+                                workers=M, overlap=space.overlap,
+                                staleness=space.staleness)
+    records = []
+
+    def runner(cand):
+        torch.cuda.synchronize()
+        rec = {"batch": cand.batch, "tau": cand.tau,
+               "chunks": cand.overlap_chunks,
+               "allocated_before": torch.cuda.memory_allocated(),
+               "raised": None}
+        before = dict(pk.LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            return inner(cand)
+        except BaseException as e:
+            rec["raised"] = type(e).__name__
+            raise
+        finally:
+            rec["seconds"] = time.perf_counter() - t0
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+            rec["allocated_after"] = torch.cuda.memory_allocated()
+            rec["launches"] = {k: v - before[k] for k, v in pk.LAUNCHES.items()
+                               if v > before[k]}
+            records.append(rec)
+
+    t0 = time.perf_counter()
+    pk.reset_launches()                     # main path: counts from here
+    plan = autotune(runner, model_fn, space)
+    launches = dict(pk.LAUNCHES)
+    secs = time.perf_counter() - t0
+    os.makedirs(os.path.dirname(TUNE_PLAN), exist_ok=True)
+    plan.save(TUNE_PLAN)
+    with open(TUNE_PLAN) as f:
+        saved = f.read()
+    reloaded = TunePlan.load(TUNE_PLAN).dumps()
+    for p, rec in zip(plan.probes, records):
+        print("  (a) probe " + json.dumps(dict(
+            rec, ok=p.ok, us_round=p.us_round, modeled_us=p.modeled_us)))
+    ch = plan.chosen
+    out = {"seq": TUNE_SEQ, "n": cfg.param_count(), "space": TUNE_SPACE,
+           "chosen": [ch.batch, ch.tau, ch.overlap_chunks],
+           "failures": list(plan.failures),
+           "probes_used": plan.probes_used,
+           "residual_scale": plan.residual_scale,
+           "dominates_model": plan.dominates_model,
+           "dominates_measured": plan.dominates_measured,
+           "seconds": secs, "launches": launches}
+    print("  (a) search " + json.dumps(out))
+    fails = []
+    if not any(r["raised"] == "OutOfMemoryError" for r in records):
+        fails.append("no probe met a real torch.cuda.OutOfMemoryError")
+    for r in records:
+        if abs(r["allocated_after"] - r["allocated_before"]) > TUNE_MEM_TOL:
+            fails.append(f"probe {r['batch']},{r['tau']},{r['chunks']} "
+                         f"left {r['allocated_after'] - r['allocated_before']}"
+                         " bytes allocated")
+    base = (space.taus[0], space.chunk_ladder()[0])
+    ladder_ok = [p.batch for p in plan.probes
+                 if p.ok and (p.tau, p.overlap_chunks) == base]
+    if ch.batch != max(ladder_ok):
+        fails.append(f"chose batch {ch.batch}, the ladder's largest "
+                     f"feasible is {max(ladder_ok)}")
+    if list(plan.failures) != sorted(set(plan.failures)):
+        fails.append(f"failures {plan.failures} not sorted and unique")
+    if plan.probes_used > space.probe_budget:
+        fails.append(f"{plan.probes_used} probes > budget")
+    if not plan.dominates_model:
+        fails.append("the chosen point does not dominate the model")
+    if reloaded != saved:
+        fails.append("TunePlan.load of the saved plan re-dumps otherwise")
+    for p, r in zip(plan.probes, records):
+        if p.ok and any(r["launches"].get(k, 0) == 0 for k in TUNE_KERNELS):
+            fails.append(f"feasible probe {r['batch']},{r['tau']},"
+                         f"{r['chunks']} launched {r['launches']}")
+    if fails:
+        raise AssertionError("phase 18(a): " + "; ".join(fails))
+    return out
+
+
+def _tune_launcher(pk):
+    """(b) The launcher's ``--autotune --tune-oom-above N --tune-plan P``,
+    then ``--tune-plan P`` alone: both build the same round plan."""
+    from repro_torch.launch import train as train_mod
+    from repro_torch.train import RoundClock
+    plans = []
+    orig = RoundClock.from_tune_plan.__func__
+
+    def recorded(cls, *a, **kw):
+        clock = orig(cls, *a, **kw)
+        plans.append(clock.describe())
+        return clock
+
+    if os.path.exists(TUNE_PLAN):
+        os.remove(TUNE_PLAN)
+    runs = {}
+    pk.reset_launches()                     # main path: counts from here
+    RoundClock.from_tune_plan = classmethod(recorded)
+    try:
+        for label, extra in (
+                ("search", ["--autotune", "--tune-oom-above",
+                            str(TUNE_OOM_ABOVE), "--tune-plan", TUNE_PLAN]),
+                ("replay", ["--tune-plan", TUNE_PLAN])):
+            loss = train_mod.main(TUNE_ARGV + extra)
+            runs[label] = loss
+    finally:
+        RoundClock.from_tune_plan = classmethod(orig)
+    launches = dict(pk.LAUNCHES)
+    with open(TUNE_PLAN) as f:
+        chosen = json.load(f)["chosen"]
+    out = {"losses": runs, "chosen": chosen, "round_plans_equal":
+           len(plans) == 2 and plans[0] == plans[1],
+           "round_plan": plans[0] if plans else None, "launches": launches}
+    print("  (b) launcher " + json.dumps(out))
+    if not out["round_plans_equal"]:
+        raise AssertionError(f"phase 18(b): replay's round plan differs: "
+                             f"{plans}")
+    if not all(math.isfinite(v) for v in runs.values()):
+        raise AssertionError(f"phase 18(b): eval losses {runs}")
+    if chosen["batch"] != TUNE_OOM_ABOVE:
+        raise AssertionError(f"phase 18(b): chose {chosen} under a frontier "
+                             f"of {TUNE_OOM_ABOVE}")
+    return out
+
+
+def phase_autotune(pk):
+    """Phase 18: (a) the search at full width, (b) the launcher's flags."""
+    secs = {}
+    t0 = time.perf_counter()
+    a = _tune_search(pk)
+    secs["a"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    b = _tune_launcher(pk)
+    secs["b"] = time.perf_counter() - t0
+    print("  phase 18 seconds " + json.dumps(secs))
+    return {"a": a, "b": b, "seconds": secs}
 
 
 def main(argv=None):
@@ -4561,18 +4860,23 @@ def main(argv=None):
 
 def _partial(only, pk, ref, swa, swa_attention_plain, secs):
     """``--phases``: phase 1, then the phases named, alone."""
-    if not only <= {15, 16, 17} or (16 in only and 15 not in only):
-        raise SystemExit("--phases: any of 15, 16, 17 (phase 16 resumes "
-                         "from phase 15's resume point: 15,16)")
+    if not only <= {2, 15, 16, 17, 18} or (16 in only and 15 not in only):
+        raise SystemExit("--phases: any of 2, 15, 16, 17, 18 (phase 16 "
+                         "resumes from phase 15's resume point: 15,16)")
     for ph in sorted(only):
         t0 = time.perf_counter()
         print(f"phase {ph} (partial run)")
-        if ph == 15:
+        if ph == 2:
+            rows = phase_kernels(pk, ref)
+            print("  kernels " + json.dumps(list(rows.values())))
+        elif ph == 15:
             res = phase_sharded(pk, ref, RESUME_POINT if 16 in only
                                 else None)
             print("  fused_round_sharded " + json.dumps(res["row"]))
         elif ph == 16:
             phase_supervised(pk, RESUME_POINT)
+        elif ph == 18:
+            phase_autotune(pk)
         else:
             fam = phase_families(pk, swa, swa_attention_plain)
             print("  swa_attention at phase 17's shapes "
@@ -4722,6 +5026,18 @@ def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
         if name in rows:
             rows[name].setdefault("launches_by_path", {}).update(by_path)
             rows[name]["launches"] += sum(by_path.values())
+
+    print("phase 18: the autotune search")
+    t0 = time.perf_counter()
+    tune = phase_autotune(pk)
+    secs["autotune"] = time.perf_counter() - t0
+    for part, label in (
+            ("a", "yi-6b autotune search, doublebuf, full width (phase 18a)"),
+            ("b", "smoke launcher --autotune, then --tune-plan (phase 18b)")):
+        for name, n in tune[part]["launches"].items():
+            if n and name in rows:
+                rows[name].setdefault("launches_by_path", {})[label] = n
+                rows[name]["launches"] += n
     secs["total"] = time.perf_counter() - t_start
     print("phase seconds " + json.dumps(secs))
 

@@ -10,10 +10,14 @@ and read back as bf16 bits (the reference's own ``load_pytree`` cannot
 cast them back: ROADMAP Queue 3).
 
 The writer streams: each leaf goes to its entry in pieces of at most
-``PIECE_BYTES`` copied from the device, so host memory holds one piece,
+``PIECE_BYTES`` copied from the device (through one page-locked buffer),
+so host memory holds one piece,
 not the state, and entries larger than 4 GiB get ZIP64 records as
 ``np.savez`` forces them. The reader streams the same way into tensors
-on the requested device. A save goes to a temporary file in the same
+on the requested device, each piece read straight into one host buffer
+kept for the whole read (page-locked when the tensors lie on a CUDA
+device); an entry read whole has its CRC-32 checked as ``zipfile``
+checks it. A save goes to a temporary file in the same
 directory, ``os.replace``d into place: a crash mid-save never leaves a
 torn archive under the final name. A truncated or garbled archive raises
 one ``ValueError`` naming the path (the supervisor's restore ladder
@@ -100,13 +104,18 @@ def _entry(key, t):
 
 def _host_pieces(t):
     """``t``'s bytes, in row-major order, as host numpy pieces of at most
-    ``PIECE_BYTES``."""
+    ``PIECE_BYTES``. A CUDA tensor's pieces are copied into one
+    page-locked buffer: each piece is valid until the next is asked for."""
     flat = t.detach().reshape(-1)
-    step = max(1, PIECE_BYTES // max(1, t.element_size()))
+    if flat.dtype in _NP_OF:
+        flat = flat.view(torch.int16)
+    step = max(1, PIECE_BYTES // max(1, flat.element_size()))
+    buf = torch.empty(min(step, flat.numel()), dtype=flat.dtype,
+                      pin_memory=True) if flat.is_cuda else None
     for a in range(0, flat.numel(), step):
         piece = flat[a:a + step]
-        if piece.dtype in _NP_OF:
-            piece = piece.view(torch.int16)
+        if buf is not None:
+            piece = buf[:piece.numel()].copy_(piece)
         yield piece.cpu().numpy()
 
 
@@ -211,42 +220,15 @@ class _Reader:
             raise _corrupt(self.path, EOFError(f"leaf {key!r} is short"))
         return np.frombuffer(raw, dtype=dtype).reshape(shape).copy()
 
-    def tensors(self, key, outs, dtype):
-        """Fill ``outs`` (tensors whose concatenation along dim 0 is the
-        entry, each contiguous) from the entry, piece by piece, cast to
-        ``dtype``."""
-        f, shape, ndt = self._open(key)
-        bf16 = ndt == np.dtype("V2")
-        if bf16:
-            ndt = np.dtype("<i2")
-        try:
-            with f:
-                for out in outs:
-                    flat = out.view(-1)
-                    step = max(1, PIECE_BYTES // ndt.itemsize)
-                    for a in range(0, flat.numel(), step):
-                        cnt = min(step, flat.numel() - a)
-                        raw = f.read(cnt * ndt.itemsize)
-                        if len(raw) != cnt * ndt.itemsize:
-                            raise EOFError(f"leaf {key!r} is short")
-                        t = torch.from_numpy(
-                            np.frombuffer(raw, dtype=ndt).copy())
-                        if bf16:
-                            t = t.view(torch.bfloat16)
-                        flat[a:a + cnt].copy_(t.to(dtype))
-        except _CORRUPT_ERRORS as e:
-            raise _corrupt(self.path, e) from e
-
-
     def _data(self, key):
-        """``(offset of the array's first byte in the file, shape, numpy
-        dtype)`` of a stored (uncompressed) entry, what ``np.savez``
-        writes."""
+        """``(zip info, offset of the entry's first byte in the file,
+        offset of the array's first byte, shape, numpy dtype)`` of a
+        stored (uncompressed) entry, what ``np.savez`` writes."""
         try:
             info = self.zf.getinfo(key + ".npy")
             if info.compress_type != zipfile.ZIP_STORED:
-                raise ValueError(f"leaf {key!r} is compressed; a block "
-                                 "read needs np.savez's stored entries")
+                raise ValueError(f"leaf {key!r} is compressed; the "
+                                 "reader needs np.savez's stored entries")
             with open(self.path, "rb") as f:
                 f.seek(info.header_offset)
                 head = f.read(30)
@@ -254,7 +236,8 @@ class _Reader:
                     raise zipfile.BadZipFile(f"leaf {key!r}: no local "
                                              "header")
                 name_len, extra_len = struct.unpack("<HH", head[26:30])
-                f.seek(info.header_offset + 30 + name_len + extra_len)
+                first = info.header_offset + 30 + name_len + extra_len
+                f.seek(first)
                 version = np.lib.format.read_magic(f)
                 if version == (1, 0):
                     shape, fortran, dtype = \
@@ -268,46 +251,91 @@ class _Reader:
         if fortran:
             raise ValueError(f"checkpoint {self.path!r}: leaf {key!r} is "
                              "Fortran-ordered")
-        return start, tuple(shape), dtype
+        return info, first, start, tuple(shape), dtype
 
     def blocks(self, key, outs, dtype, rows=None, cols=None):
         """Fill ``outs`` with a block of each consecutive slice of the
         entry along dim 0 (one out: the whole entry; k outs: the k slots
         of a ring), read at their offsets: ``rows`` the indices along the
         slice's first dim (None: all), ``cols`` the ``(start, stop)`` of
-        its last dim, for a 2-D slice (None: all). Cast to ``dtype``."""
-        if rows is None and cols is None:
-            return self.tensors(key, outs, dtype)
-        start, shape, ndt = self._data(key)
-        bf16 = ndt == np.dtype("V2")
-        if bf16:
-            ndt = np.dtype("<i2")
-        # a ring's entry has a leading slot dim its slots do not have
-        sub = shape[1:] if len(shape) > outs[0].dim() else shape
-        a = sub[0]
-        b = int(np.prod(sub[1:], dtype=np.int64))
-        c0, c1 = cols if cols is not None else (0, b)
-        rows = range(a) if rows is None else rows
-        step = max(1, PIECE_BYTES // ndt.itemsize)
+        its last dim, for a 2-D slice (None: all). Cast to ``dtype``.
+        With neither ``rows`` nor ``cols`` the outs (each contiguous, their
+        concatenation along dim 0 the entry) take the whole entry in file
+        order and its CRC-32 is checked, as ``zipfile`` checks it. Each
+        piece of at most ``PIECE_BYTES`` is read straight into one host
+        buffer kept for the whole read (page-locked when the outs lie on a
+        CUDA device) and copied from there."""
+        info, first, start, shape, ndt = self._data(key)
+        tdt = torch.bfloat16 if ndt == np.dtype("V2") else \
+            torch.from_numpy(np.empty(0, dtype=ndt)).dtype
+        whole = rows is None and cols is None
+        if whole:
+            outs = [o.view(1, -1) for o in outs]
+            a, b, rows, (c0, c1) = 1, None, range(1), (0, None)
+        else:
+            # a ring's entry has a leading slot dim its slots do not have
+            sub = shape[1:] if len(shape) > outs[0].dim() else shape
+            a = sub[0]
+            b = int(np.prod(sub[1:], dtype=np.int64))
+            c0, c1 = cols if cols is not None else (0, b)
+            rows = range(a) if rows is None else rows
+        longest = max([o.shape[1] for o in outs] if whole else [c1 - c0])
+        step = max(1, min(PIECE_BYTES // ndt.itemsize, longest))
+        pinned = any(o.is_cuda for o in outs) and torch.cuda.is_available()
+        buf = torch.empty(step * ndt.itemsize, dtype=torch.uint8,
+                          pin_memory=pinned)
+        mv = memoryview(buf.numpy())
+        done = 0
         try:
-            with open(self.path, "rb") as f:
+            with open(self.path, "rb", buffering=0) as f:
+                crc = None
+                if whole:
+                    f.seek(first)
+                    crc = zlib.crc32(_read_full(f, start - first))
+                    pos = start
                 for i, out in enumerate(outs):
                     dst = out.view(len(rows), -1)
+                    end = dst.shape[1] if whole else c1
                     for j, r in enumerate(rows):
-                        base = (i * a + r) * b
-                        for c in range(c0, c1, step):
-                            cnt = min(step, c1 - c)
-                            f.seek(start + (base + c) * ndt.itemsize)
-                            raw = f.read(cnt * ndt.itemsize)
-                            if len(raw) != cnt * ndt.itemsize:
+                        if not whole:
+                            pos = start + ((i * a + r) * b + c0) \
+                                * ndt.itemsize
+                        for c in range(c0, end, step):
+                            cnt = min(step, end - c)
+                            nb = cnt * ndt.itemsize
+                            f.seek(pos)
+                            if _read_into(f, mv[:nb]) != nb:
                                 raise EOFError(f"leaf {key!r} is short")
-                            t = torch.from_numpy(
-                                np.frombuffer(raw, dtype=ndt).copy())
-                            if bf16:
-                                t = t.view(torch.bfloat16)
-                            dst[j, c - c0:c - c0 + cnt].copy_(t.to(dtype))
+                            pos += nb
+                            if crc is not None:
+                                crc = zlib.crc32(mv[:nb], crc)
+                            dst[j, c - c0:c - c0 + cnt].copy_(
+                                buf[:nb].view(tdt).to(dtype))
+                            done += nb
+            if whole and (crc != info.CRC
+                          or start - first + done != info.file_size):
+                raise zipfile.BadZipFile(f"Bad CRC-32 for file "
+                                         f"{key + '.npy'!r}")
         except _CORRUPT_ERRORS as e:
             raise _corrupt(self.path, e) from e
+
+
+def _read_full(f, n):
+    """``n`` bytes from the unbuffered file ``f`` (fewer only at its end)."""
+    out = bytearray(n)
+    return bytes(out[:_read_into(f, memoryview(out))])
+
+
+def _read_into(f, mv):
+    """Fill ``mv`` from the unbuffered file ``f``; the bytes read (fewer
+    than ``len(mv)`` only at the file's end)."""
+    got = 0
+    while got < len(mv):
+        n = f.readinto(mv[got:])
+        if not n:
+            break
+        got += n
+    return got
 
 
 def _check_shape(path, key, got, want):
@@ -354,7 +382,7 @@ def load_pytree(path, like, *, device=None):
             _check_shape(rd.path, key, rd.shape(key), leaf.shape)
             t = torch.empty(tuple(leaf.shape), dtype=leaf.dtype,
                             device=_device_of(leaf, device))
-            rd.tensors(key, [t], leaf.dtype)
+            rd.blocks(key, [t], leaf.dtype)
             out.append((p, t))
         extra = {k.split(_SEP, 1)[1]: rd.numpy(k) for k in sorted(rd.keys)
                  if k.startswith("__extra__")}

@@ -42,8 +42,20 @@ from which a later run with the same flags resumes; a chaos run's
 rotation checkpoints live in ``<stem>.sup``; on a mesh each rank reads
 only its blocks of the resume point. Rank 0 alone prints the supervisor's
 ``supervisor events: ...`` and ``supervisor counters: ...`` lines.
-``--autotune`` and ``--tune-plan`` are not ported yet: they exit with
-"not yet ported".
+
+``--autotune`` searches the (batch, tau, overlap_chunks) point on the
+real round step before training (``train/autotune.py``): batches from
+``--batch`` up to ``--max-batch``, taus ``{--tau, 2 --tau}``, at most
+``--probe-budget`` probes; ``--tune-oom-above N`` makes every batch above
+N fail with a scripted OOM before it touches the device. With
+``--tune-plan PATH`` the plan is written there; ``--tune-plan PATH`` alone
+replays a saved plan (of either package), also on a mesh. The probes run
+the single-device round with the whole fleet, so ``--autotune`` is refused
+with ``--sharded`` / ``--mesh``:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \
+      --workers 4 --tau 2 --steps 8 --seq 16 --batch 1 --overlap doublebuf \
+      --autotune --tune-oom-above 3 --tune-plan plan.json
 """
 from __future__ import annotations
 
@@ -68,16 +80,16 @@ from repro_torch.models import build_model
 from repro_torch.optim import make_optimizer
 from repro_torch.train import (
     ChaosMembership, ChaosPlan, FaultInjector, RoundClock,
-    RoundMetricsLogger, ScheduleMembership, Supervisor, TrainState,
-    average_params, init_train_state, make_ddp_step, make_round_step,
-    make_sharded_round_step, shard_train_state, sharded_average_params,
+    RoundMetricsLogger, ScheduleMembership, Supervisor, TrainState, TunePlan,
+    TuneSpace, autotune, average_params, init_train_state, inject_oom_above,
+    make_ddp_step, make_lm_model_fn, make_round_probe_runner,
+    make_round_step, make_sharded_round_step, shard_train_state,
+    sharded_average_params,
 )
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
-
-NOT_PORTED = "not yet ported"
 
 
 def _parser():
@@ -200,9 +212,30 @@ def _parser():
                          "written here; DPPF runs also keep a resume point "
                          "at <ckpt>.state.npz and resume from it when it "
                          "exists")
-    # reference flags whose paths are not ported yet
-    ap.add_argument("--autotune", action="store_true", help=NOT_PORTED)
-    ap.add_argument("--tune-plan", default="", help=NOT_PORTED)
+    ap.add_argument("--autotune", action="store_true",
+                    help="probe-search the operating point before training "
+                         "(train.autotune): power-of-two batch probes with "
+                         "OOM backoff and binary refinement, then a joint "
+                         "(tau, overlap_chunks) sweep at the frontier batch, "
+                         "scored by measured round time reconciled against "
+                         "the roofline overlap model; training then runs at "
+                         "the chosen point (--batch / --max-batch bound the "
+                         "ladder, --tau seeds the tau ladder {tau, 2*tau})")
+    ap.add_argument("--tune-plan", default="", metavar="PATH",
+                    help="with --autotune: write the searched TunePlan JSON "
+                         "to PATH; without: load a TunePlan from PATH and "
+                         "train at its chosen point (batch, tau, "
+                         "overlap_chunks)")
+    ap.add_argument("--probe-budget", type=int, default=16,
+                    help="autotune: most probes (distinct candidates "
+                         "measured or OOMed); when spent, the best point so "
+                         "far wins")
+    ap.add_argument("--max-batch", type=int, default=0,
+                    help="autotune: batch-ladder ceiling (0 = 8x --batch)")
+    ap.add_argument("--tune-oom-above", type=int, default=0,
+                    help="autotune fault injection: probes with batch > "
+                         "this raise a scripted RESOURCE_EXHAUSTED before "
+                         "touching the device (0 = off)")
     return ap
 
 
@@ -252,10 +285,6 @@ def _run_dir(mesh):
 def main(argv=None, *, device="cuda"):
     ap = _parser()
     args = ap.parse_args(argv)
-    for flag, used in (("--autotune", args.autotune),
-                       ("--tune-plan", args.tune_plan)):
-        if used:
-            ap.error(f"{flag}: {NOT_PORTED}")
     mspec = method_registry.get_method(args.consensus)
     if (args.sharded or args.mesh) and (args.engine != "flat"
                                         or not mspec.communicates):
@@ -265,6 +294,18 @@ def main(argv=None, *, device="cuda"):
     if args.sharded and args.mesh:
         ap.error("--sharded and --mesh are mutually exclusive (--mesh IS "
                  "a sharded run on an explicit workers,fsdp,model shape)")
+    if (args.autotune or args.tune_plan) and (
+            args.tau_schedule == "qsr" or args.qsr_beta > 0):
+        ap.error("--autotune/--tune-plan pin a fixed tau at the measured "
+                 "comm/compute crossover; --tau-schedule qsr would "
+                 "re-adapt it — drop --qsr-beta when tuning")
+    if args.autotune and not mspec.communicates:
+        ap.error("--autotune searches the communication round's operating "
+                 "point and needs a communicating consensus method")
+    if args.autotune and (args.sharded or args.mesh):
+        ap.error("--autotune probes the single-device round with the whole "
+                 "fleet on each rank; with --sharded/--mesh search on one "
+                 "device and replay the plan with --tune-plan")
     mesh_shape = ()
     if args.mesh:
         try:
@@ -370,9 +411,58 @@ def main(argv=None, *, device="cuda"):
                       lam_schedule=args.lam_schedule,
                       tau_schedule=args.tau_schedule, qsr_beta=args.qsr_beta)
     opt = make_optimizer(args.optimizer, momentum=0.9, weight_decay=1e-3)
+
+    # --autotune: search the (batch, tau, overlap_chunks) point on the real
+    # round step before committing to it; --tune-plan alone replays a plan
+    batch_size, tune_plan = args.batch, None
+    if args.autotune:
+        space = TuneSpace(min_batch=args.batch,
+                          max_batch=args.max_batch or args.batch * 8,
+                          taus=(args.tau, args.tau * 2), chunks=(1, 2, 4),
+                          probe_budget=args.probe_budget,
+                          overlap=args.overlap, staleness=args.staleness)
+        runner = make_round_probe_runner(
+            model.init, model.loss, opt, dcfg, args.workers,
+            lambda cand: make_round_batch(task, args.seed, args.workers,
+                                          cand.tau, 0, cand.batch, cfg,
+                                          device=device),
+            base_lr=args.lr, total_steps=args.steps, seed=args.seed,
+            device=device)
+        if args.tune_oom_above:
+            runner = inject_oom_above(runner, args.tune_oom_above)
+        model_fn = make_lm_model_fn(n_params=n_params, seq=args.seq,
+                                    workers=args.workers,
+                                    overlap=args.overlap,
+                                    staleness=args.staleness)
+        tune_plan = autotune(runner, model_fn, space)
+        ch = tune_plan.chosen
+        say(f"autotune: chose batch={ch.batch} tau={ch.tau} "
+            f"chunks={ch.overlap_chunks} after {tune_plan.probes_used} "
+            f"probes (OOM batches: {list(tune_plan.failures) or 'none'}, "
+            f"model scale {tune_plan.residual_scale:.3f})")
+        if args.tune_plan:
+            if rank0:
+                tune_plan.save(args.tune_plan)
+            say(f"tune plan -> {args.tune_plan}")
+    elif args.tune_plan:
+        tune_plan = TunePlan.load(args.tune_plan)
+        ch = tune_plan.chosen
+        say(f"tune plan <- {args.tune_plan}: batch={ch.batch} "
+            f"tau={ch.tau} chunks={ch.overlap_chunks}")
+
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    clock = RoundClock.from_config(dcfg, base_lr=args.lr,
-                                   total_steps=args.steps, warmup=args.warmup)
+    # the RoundClock owns the step / round accounting; a tune plan pins its
+    # tau and the config's overlap chunks and batch
+    if tune_plan is not None:
+        clock = RoundClock.from_tune_plan(tune_plan, base_lr=args.lr,
+                                          total_steps=args.steps,
+                                          warmup=args.warmup, dcfg=dcfg)
+        dcfg = dcfg.apply_tune_plan(tune_plan)
+        batch_size = tune_plan.chosen.batch
+    else:
+        clock = RoundClock.from_config(dcfg, base_lr=args.lr,
+                                       total_steps=args.steps,
+                                       warmup=args.warmup)
     logger = RoundMetricsLogger(args.log_every_round,
                                 legacy=args.legacy_metrics) \
         if args.log_every_round and rank0 else None
@@ -385,7 +475,7 @@ def main(argv=None, *, device="cuda"):
         step = make_ddp_step(model.loss, opt, clock=clock,
                              sam_rho=args.sam_rho)
         for s in range(args.steps):
-            bs = [make_lm_batch(task, args.seed, m, s, args.batch, cfg,
+            bs = [make_lm_batch(task, args.seed, m, s, batch_size, cfg,
                                 device=device) for m in range(args.workers)]
             batch = {k: torch.stack([b[k] for b in bs]) for k in bs[0]}
             state, m = step(state, batch)
@@ -461,7 +551,8 @@ def main(argv=None, *, device="cuda"):
         sup = Supervisor(clock, workers=args.workers, membership=membership,
                          quorum=args.quorum, retry_budget=args.retry_budget,
                          chaos=injector, ckpt_dir=sup_dir,
-                         batch_size=args.batch, logger=logger,
+                         tune_plan=tune_plan, batch_size=batch_size,
+                         logger=logger,
                          on_round=on_round, mesh=mesh,
                          plan=plan, seed=args.seed)
         try:
@@ -489,7 +580,7 @@ def main(argv=None, *, device="cuda"):
 
     # held-out eval
     eval_batch = make_lm_batch(task, args.seed + 999, 0, 10 ** 6,
-                               args.batch * args.workers, cfg, device=device)
+                               batch_size * args.workers, cfg, device=device)
     with torch.no_grad():
         loss, _ = model.loss(final, eval_batch)
     if logger is not None:

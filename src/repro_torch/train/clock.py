@@ -126,6 +126,32 @@ class RoundClock:
                    inner_rounds=spec.inner_rounds,
                    inner_pull=spec.inner_pull)
 
+    @classmethod
+    def from_tune_plan(cls, plan, *, base_lr: float, total_steps: int,
+                       warmup: int = 0, dcfg=None) -> "RoundClock":
+        """Build the clock from an autotune ``TunePlan`` (the
+        ``--autotune`` / ``--tune-plan`` path), the dataclass or its
+        ``to_dict()`` form. The plan pins tau with ``tau_schedule="fixed"``.
+        With ``dcfg`` the plan goes onto the config
+        (``dcfg.apply_tune_plan``) and through ``from_config``, keeping lam
+        and the method's inner / outer plan; without, a bare fixed-tau
+        clock."""
+        if isinstance(plan, dict):
+            tau = int(plan["chosen"]["tau"])
+            overlap = str(plan.get("overlap", "none"))
+            staleness = int(plan.get("staleness", 1))
+        else:
+            tau = int(plan.chosen.tau)
+            overlap = plan.overlap
+            staleness = int(plan.staleness)
+        if dcfg is not None:
+            return cls.from_config(dcfg.apply_tune_plan(plan),
+                                   base_lr=base_lr, total_steps=total_steps,
+                                   warmup=warmup)
+        return cls(total_steps=total_steps, tau=tau, base_lr=base_lr,
+                   warmup=warmup, tau_schedule="fixed", overlap=overlap,
+                   staleness=staleness)
+
     @property
     def staleness_depth(self) -> int:
         """Pipeline depth of the overlap mode: 0, 1 or k."""

@@ -12,9 +12,9 @@ local-only steps — the elastic carry's scalar ``sync`` gate skips the
 consensus application bit-exactly — with exponential backoff + jitter),
 and recovers from round-level failures by restoring the last good
 checkpoint and replaying under a retry budget. ``RESOURCE_EXHAUSTED``
-failures reuse the ``is_oom`` contract: the per-worker batch halves
-instead of dying (the reference's TunePlan probe ladder belongs to the
-autotune search, not ported).
+failures reuse the ``is_oom`` contract: the per-worker batch shrinks
+instead of dying, down the TunePlan's feasible probe batches when one is
+given, else by halving.
 
 Membership providers expose ``workers`` and
 ``mask_for(round) -> (mask, events)``; three ship here:
@@ -254,6 +254,8 @@ class Supervisor:
     * ``ckpt_dir``     — rotation-checkpoint directory (``sup_last.npz``
       / ``sup_prev.npz``); empty string disables restore (failures then
       propagate immediately);
+    * ``tune_plan``    — optional TunePlan whose feasible probe batches
+      form the OOM shrink ladder;
     * ``batch_size``   — per-worker batch, threaded to ``batch_fn`` and
       shrunk on OOM;
     * ``logger``       — optional RoundMetricsLogger; recovery events are
@@ -269,7 +271,7 @@ class Supervisor:
 
     def __init__(self, clock, *, workers: int, membership=None,
                  quorum: int = 0, retry_budget: int = 3, chaos=None,
-                 ckpt_dir: str = "", ckpt_every: int = 1,
+                 ckpt_dir: str = "", ckpt_every: int = 1, tune_plan=None,
                  batch_size: int = 0, logger=None, on_round=None,
                  mesh=None, plan=None, sleep_fn=None,
                  seed: int = 0, backoff_base: float = 0.5,
@@ -304,6 +306,7 @@ class Supervisor:
         self.chaos = chaos
         self.ckpt_dir = ckpt_dir
         self.ckpt_every = ckpt_every
+        self.tune_plan = tune_plan
         self.batch_size = int(batch_size)
         self.logger = logger
         self.on_round = on_round
@@ -432,11 +435,16 @@ class Supervisor:
     # -- OOM shrink ladder ---------------------------------------------------
 
     def _shrunk_batch(self):
-        """Next smaller per-worker batch: half the current one (the
-        reference's fallback when no TunePlan is given; the autotune
-        search is not ported). Returns None when there is nothing smaller
-        to try."""
-        half = self.batch_size // 2
+        """Next smaller feasible per-worker batch: the TunePlan's ok-probe
+        ladder below the current size when a plan is given, else halving.
+        Returns None when there is nothing smaller to try."""
+        cur = self.batch_size
+        if self.tune_plan is not None:
+            ok = sorted({p.batch for p in self.tune_plan.probes
+                         if p.ok and p.batch < cur})
+            if ok:
+                return ok[-1]
+        half = cur // 2
         return half if half >= 1 else None
 
     def _backoff(self, round_idx, attempt):

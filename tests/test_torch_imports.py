@@ -91,3 +91,29 @@ def test_model_family_modules_are_walked():
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+
+
+def test_autotune_and_roofline_import_alone():
+    """``launch/roofline.py`` and the full ``train/autotune.py`` (the
+    search, the plan, the probe runners) import alone in a fresh
+    interpreter without JAX or the JAX package."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for rel in ("launch/roofline.py", "train/autotune.py"):
+        assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
+    code = ("import sys, importlib; "
+            "rf = importlib.import_module('repro_torch.launch.roofline'); "
+            "at = importlib.import_module('repro_torch.train.autotune'); "
+            "names = ('PLAN_VERSION', 'Candidate', 'TuneSpace', "
+            "'ProbeResult', 'TunePlan', 'per_sample_us', 'autotune', "
+            "'inject_oom_above', 'make_round_probe_runner', "
+            "'make_lm_model_fn', 'is_oom', 'OOM_TOKENS'); "
+            "assert all(hasattr(at, n) for n in names); "
+            "assert all(hasattr(rf, n) for n in ('roofline', "
+            "'overlap_model', 'probe_round_model', 'reconcile_probes', "
+            "'model_flops', 'serving_model', 'supervisor_model')); "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "assert not bad, bad")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr

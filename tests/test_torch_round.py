@@ -139,14 +139,17 @@ def test_launcher_smoke_on_cpu():
     assert np.isfinite(loss)
 
 
-@pytest.mark.parametrize("flags", [["--tune-plan", "plan.json"],
+@pytest.mark.parametrize("flags", [["--tune-plan", "plan.json",
+                                    "--qsr-beta", "0.5"],
                                    ["--mesh", "2,2,2"], ["--sharded"],
-                                   ["--autotune"]])
+                                   ["--autotune", "--method", "ddp"]])
 def test_launcher_refuses_unported_paths(flags, capsys, monkeypatch):
-    """The unported paths (the autotune search) exit "not yet ported"; the
-    sharded ones (ported since) exit with how to start their ranks when
-    there is no process group to join. ``--elastic-drop`` and the other
-    supervisor flags run (``tests/test_torch_supervisor.py``)."""
+    """The paths once refused as unported run now, within their own
+    refusals: the autotune flags (ported since) refuse a QSR schedule and a
+    method that does not communicate, as the reference's launcher does;
+    the sharded ones exit with how to start their ranks when there is no
+    process group to join. ``--elastic-drop`` and the other supervisor
+    flags run (``tests/test_torch_supervisor.py``)."""
     from repro_torch.launch.train import main
     for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(var, raising=False)
@@ -155,8 +158,10 @@ def test_launcher_refuses_unported_paths(flags, capsys, monkeypatch):
     err = capsys.readouterr().err
     if flags[0] in ("--mesh", "--sharded"):
         assert "no process group" in err and "torchrun" in err
+    elif flags[0] == "--tune-plan":
+        assert "pin a fixed tau" in err
     else:
-        assert "not yet ported" in err
+        assert "communicating consensus method" in err
 
 
 def test_launcher_needs_a_card_unless_asked_for_the_cpu(monkeypatch):

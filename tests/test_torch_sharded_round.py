@@ -421,7 +421,8 @@ def test_launcher_sharded_matches_unsharded(tmp_path):
     (["--mesh", "2,2"], "three comma-separated ints"),
     (["--sharded", "--engine", "tree"], "--engine flat"),
     (["--sharded", "--method", "ddp"], "communicating"),
-    (["--sharded", "--autotune"], "not yet ported"),
+    (["--sharded", "--autotune"], "--autotune probes the single-device"),
+    (["--mesh", "2,2,2", "--autotune"], "--autotune probes the single-device"),
 ])
 def test_launcher_refuses_bad_sharded_flags(flags, msg, capsys):
     from repro_torch.launch.train import main

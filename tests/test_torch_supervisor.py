@@ -540,8 +540,8 @@ def test_launcher_elastic_drop_quorum_events_match_reference():
 
 
 @pytest.mark.parametrize("flags, msg", [
-    (["--autotune"], "not yet ported"),
-    (["--tune-plan", "plan.json"], "not yet ported"),
+    (["--autotune", "--tau-schedule", "qsr"], "--tau-schedule qsr"),
+    (["--tune-plan", "plan.json", "--qsr-beta", "0.5"], "pin a fixed tau"),
     (["--chaos", "p.json", "--elastic-drop", "1,0,2"], "mutually exclusive"),
     (["--quorum", "2"], "membership source"),
     (["--elastic-drop", "1,0,2"], "staleness_k"),

@@ -3,9 +3,11 @@ CPU: the round batches carry the stubbed ``enc`` frames / ``prefix``, the
 training launcher runs every configuration's ``--smoke`` size, final
 parameters of reduced seamless-m4t-medium and dbrx-132b cross between the
 packages' checkpoint files both ways, and ``launch.train --ckpt`` then
-``launch.serve --ckpt`` runs on an enc-dec model."""
+``launch.serve --ckpt`` runs on an enc-dec model; xlstm-350m's training
+route (the chunkwise mLSTM) gives the per-step form's gradient."""
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import jax
@@ -19,7 +21,7 @@ from repro.configs import get_arch as jget_arch, reduced as jreduced
 from repro.models import build_model as jbuild_model
 from repro_torch.checkpoint import load_pytree, save_pytree
 from repro_torch.configs import ARCHS, get_arch, reduced
-from repro_torch.core.engine import tree_items
+from repro_torch.core.engine import tree_from_items, tree_items
 from repro_torch.data import TokenTask, make_lm_batch, make_round_batch
 from repro_torch.models import build_model, params_from_numpy
 from _torch_dist import _one_torch_thread  # noqa: F401 (autouse)
@@ -105,3 +107,44 @@ def test_train_then_serve_encdec_from_checkpoint(tmp_path):
     toks = lambda r: [r.results[i].tokens for i in sorted(r.results)]
     assert sorted(a.results) == [0, 1, 2]
     assert toks(a) != toks(b)
+
+
+def _loss_grads_and_saved_bytes(cfg, params, batch):
+    """The loss, its gradient leaves, and the bytes autograd saved for the
+    backward pass (counted as each tensor is packed)."""
+    saved = [0]
+
+    def pack(t):
+        saved[0] += t.numel() * t.element_size()
+        return t
+    leaves = [leaf.detach().requires_grad_(True)
+              for _, leaf in tree_items(params)]
+    tree = tree_from_items([(p, leaf) for (p, _), leaf in
+                            zip(tree_items(params), leaves)])
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss, _ = build_model(cfg).loss(tree, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), grads, saved[0]
+
+
+def test_xlstm_trains_on_the_chunkwise_mlstm():
+    """``chip_smoke.py`` phase 17(d) trains xlstm-350m with
+    ``xlstm_chunk = 16``: the published per-step mLSTM saves every step's
+    (B, H, P, P) matrix memory for the backward pass (> 100 GB at full
+    width, seq 64, batch 8). On the reduced config at seq 64 the chunkwise
+    form gives the per-step form's loss and gradient and saves a fraction
+    of its bytes."""
+    base = reduced(get_arch("xlstm-350m"), n_layers=4)
+    assert base.xlstm_chunk == 0
+    params = build_model(base).init(torch.Generator().manual_seed(3), "cpu")
+    task = TokenTask(vocab_size=base.vocab_size, seq_len=64)
+    batch = make_lm_batch(task, 0, 0, 0, 2, base, device="cpu")
+    step_loss, step_g, step_bytes = _loss_grads_and_saved_bytes(
+        base, params, batch)
+    chunk = dataclasses.replace(base, xlstm_chunk=16)
+    loss, grads, nbytes = _loss_grads_and_saved_bytes(chunk, params, batch)
+    assert loss == pytest.approx(step_loss, abs=1e-5)
+    for g, sg in zip(grads, step_g):
+        np.testing.assert_allclose(g.numpy(), sg.numpy(), rtol=1e-3,
+                                   atol=1e-4)
+    assert nbytes < step_bytes / 2, (nbytes, step_bytes)
