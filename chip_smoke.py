@@ -11,13 +11,24 @@ Phases (any failure raises, and the script exits non-zero):
    lists them), one ``nvcc`` each, all at once.
 2. Kernels: every kernel of the DPPF round against its plain PyTorch
    version at (4, 300), (8, 4097), (5, 2^26 + 3), (32, 65537) and at the
-   main path's shape R = 4, n = 1,216,385,024 (yi-6b at LAYERS = 4); then
-   times kernel, plain version and the nearest PyTorch call at the main
-   shape (CUDA events, median of 20 runs after 3 warm-ups; the plain
-   versions, 0.1-0.4 s a call there, median of 5 after 1), and
+   main path's shape R = 4, n = 1,216,385,024 (yi-6b at LAYERS = 4);
+   at each, ``fused_round`` (the partial Gram whose last block runs the
+   coefficient phase, then the mix), ``mix_from_gram`` (the coefficients
+   in the mix's prologue) and its stale epilogue bit-equal (out, r, G)
+   to the launch sequences they replaced (block partials, ``gram_coef``,
+   ``mix_shard`` / ``stale_mix``), and the tail's G bit-equal to the
+   plain fixed-order sum (``ref.gram_sum_plain``); ``pullpush_fused``'s
+   two leaf kernels on small stacked trees (``LEAF_CASES``: mixed fp32 /
+   bf16 leaves, sizes not multiples of 4, leaves off a 16-byte boundary,
+   M from 2 to 32) bit-equal to the flattened composite and held against
+   their plain versions. Then times kernel, plain version and the
+   nearest PyTorch call at the main shape (CUDA events, median of 20
+   runs after 3 warm-ups; the plain versions, 0.1-0.4 s a call there,
+   median of 3 after 1), the replaced launch sequences, and
    ``gram_coef``'s device time (one block on a few KB, whose event time
    is the host's launch cost) from ``torch.profiler`` and from 20 calls
-   queued behind a sleep kernel.
+   queued behind a sleep kernel. No main path launches ``gram_coef``
+   (``MERGED``): every phase's census below holds it at 0.
 3. The slice: yi-6b at full width (d_model 4096, 32/4 heads, d_ff 11008,
    vocab 64000), depth cut to 4 layers, bf16 model over the fp32 flat
    master view; M = 4 workers, simple_avg, alpha 0.1, lam 0.5, tau 4,
@@ -182,15 +193,20 @@ Phases (any failure raises, and the script exits non-zero):
    (tree: 24 ``sq_dist`` + 24 ``apply_update`` a round, 6 MLP leaves x 4
    workers, plus the final ``worker_dists``' 24 ``sq_dist``; flat: one
    ``fused_round`` a round plus those 24; DDP: none); wall seconds of
-   each. (b) ``pullpush_fused`` against the tree ``pullpush``
-   (``sq_dist`` / ``apply_update``): the reference test's near-consensus
-   case (M = 8, n = 4096, spread 1e-5: r within 1e-3, entries within
-   2e-3), then yi-6b's stacked bf16 tree at 4 layers, M = 4 (r within
-   1e-5 relative, each entry within 2 bf16 ulps of the larger of its
-   input and output); one ``fused_round`` a call; its time at full width
-   (CUDA events, median of 5 after 1 warm-up) beside the ``fused_round``
-   launch alone, the tree route and the tree route on ``ref.py``'s plain
-   functions (median of 3). (c) ``mean_valley`` (Table 1's kappa 2, step 0.05, 120
+   each. (b) ``pullpush_fused`` (one ``leaf_gram`` and one ``leaf_mix``
+   launch a call, over the tree's own leaves) against the tree
+   ``pullpush`` (``sq_dist`` / ``apply_update``): the reference test's
+   near-consensus case (M = 8, n = 4096, spread 1e-5: r within 1e-3,
+   entries within 2e-3), then yi-6b's stacked bf16 tree at 4 layers, M =
+   4: bit-equal (leaves, r) to the route it replaced (the engine's
+   flatten, ``fused_round`` on the fp32 view, unflatten), against the
+   tree route (r within 1e-5 relative, each entry within 2 bf16 ulps of
+   the larger of its input and output); the peak memory above the tree
+   of both routes; its time at full width (CUDA events, median of 5
+   after 1 warm-up) beside the replaced route, each pass alone (median of
+   20), the two-pass floor (the tree read twice and written once), the
+   ``fused_round`` launch on the fp32 view, the tree route and the plain
+   versions (median of 3). (c) ``mean_valley`` (Table 1's kappa 2, step 0.05, 120
    steps) and ``hessian_measures`` on the tree run's workers, on the card
    and on the CPU with the same draws: MV within 1e-4 relative,
    lambda_max, trace and Frobenius norm within 1e-3; seconds of each.
@@ -207,7 +223,9 @@ Phases (any failure raises, and the script exits non-zero):
    608,192,512 columns, seeds 15 and 16): out within 1e-6 of each row's
    scale of ``fused_round`` on the whole view (its columns are
    ``mix_shard`` of the shard with its coefficients, checked here), r
-   within 1e-6; against its plain version within 1e-4; times (CUDA
+   within 1e-6; bit-equal (out, r, G) to the launch sequence it replaced
+   (block partials, ``gram_coef``'s sum, the all-reduce, ``gram_coef``,
+   ``mix_shard``); against its plain version within 1e-4; times (CUDA
    events, median of 20 after 3 warm-ups; plain: 5 after 1) of the
    composite on each rank alone (the other runs only the matching
    all-reduces) and on both at once, of the all-reduce, and of each
@@ -291,8 +309,8 @@ Phases (any failure raises, and the script exits non-zero):
    the flat engine's kernel mode, as phase 3 (M = 4, tau 4, seq 64, batch
    8, 2 rounds; ``FAMILY_TRAIN``): seamless-m4t-medium cut to 6 + 6 of its
    12 + 12 layers, internvl2-2b to 12 of 24, zamba2-7b to 18 of 81 on the
-   plain SSD route, xlstm-350m at its 24 blocks on the plain sLSTM loop
-   and the chunkwise mLSTM (``xlstm_chunk = 16``) at learning rate 0.01,
+   plain SSD route, xlstm-350m to 12 of its 24 blocks on the plain sLSTM
+   loop and the chunkwise mLSTM (``xlstm_chunk = 16``) at learning rate 0.01,
    the round batches carrying frames / the prefix; round ms, consensus
    ms, peak memory, ``fused_round`` launches. ``python3 chip_smoke.py
    --phases 17`` runs phase 1 and this phase alone.
@@ -309,12 +327,12 @@ Phases (any failure raises, and the script exits non-zero):
    is the ladder's largest feasible one, the failures are sorted and
    unique, the budget held, ``dominates_model`` holds, the saved plan
    re-dumps byte for byte after ``TunePlan.load``, and each feasible
-   probe launched ``partial_gram``, ``gram_coef``, ``mix_from_gram`` and
-   ``stale_mix``. (b) ``launch.train --smoke --autotune --tune-oom-above
+   probe launched ``partial_gram``, ``mix_from_gram`` and ``stale_mix``
+   and no ``gram_coef``. (b) ``launch.train --smoke --autotune --tune-oom-above
    3 --tune-plan P``, then ``--tune-plan P`` alone: equal round plans
    (``RoundClock.describe()``), finite losses, batch 3 chosen. ``python3
    chip_smoke.py --phases 18`` runs phase 1 and this phase alone (``2``
-   runs phase 2 alone).
+   and ``14`` run phase 2 and phase 14 alone).
 
 It prints a ``kernels`` line, the ``{"kernels": [...]}`` record and, last,
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -472,6 +490,46 @@ REPLACES = {
     "gram_coef": "src/repro/kernels/pullpush/pullpush.py:162",
     "mix_shard": "src/repro/kernels/pullpush/pullpush.py:319",
 }
+# the coefficient phase runs in the partial-Gram kernel's tail and in the
+# mix's prologue: no main path launches gram_coef, and every census below
+# holds it at 0 (it stays as their standalone counterpart, checked and
+# timed in phase 2)
+MERGED = {"gram_coef": ["partial_gram (its last block's tail)",
+                        "mix_shard / stale_mix (the prologue, where the "
+                        "Gram is given)"]}
+# pullpush_fused's two passes over a stacked tree's own leaves (phase 2:
+# small trees bit-equal to the flattened composite; phase 14(b): yi-6b)
+LEAF_REPLACES = {
+    "leaf_gram": "src/repro/kernels/pullpush/ops.py:26 (pullpush_fused: "
+                 "flatten + fused_round's phase 0 and _coef, "
+                 "src/repro/kernels/pullpush/pullpush.py:142)",
+    "leaf_mix": "src/repro/kernels/pullpush/ops.py:26 (pullpush_fused: "
+                "fused_round's phase 1 + unflatten, "
+                "src/repro/kernels/pullpush/pullpush.py:142)",
+}
+# (M, leaves as (worker shape, dtype, element shift of the leaf's start)):
+# sizes that are not multiples of 4, mixed dtypes, leaves that start off
+# a 16-byte boundary, n a multiple of 4 (float4 groups that straddle
+# leaves) and not, M from 2 to 32, and one tree large enough for a full
+# grid of blocks
+LEAF_CASES = (
+    (4, (((3, 5), torch.bfloat16, 0), ((7,), torch.float32, 1),
+         ((33, 2), torch.bfloat16, 0), ((1,), torch.float32, 0),
+         ((101,), torch.bfloat16, 3))),
+    (4, (((6,), torch.float32, 0), ((2, 5), torch.bfloat16, 1),
+         ((1,), torch.bfloat16, 0), ((3,), torch.float32, 2),
+         ((4,), torch.bfloat16, 0), ((4096,), torch.bfloat16, 0))),
+    (2, (((4098,), torch.bfloat16, 1), ((6,), torch.float32, 0),
+         ((20000,), torch.bfloat16, 2))),
+    (8, (((32,), torch.float32, 0), ((64,), torch.bfloat16, 1),
+         ((1024, 3), torch.float32, 0), ((3,), torch.bfloat16, 0))),
+    (16, (((17,), torch.bfloat16, 0), ((300,), torch.float32, 0),
+          ((4000,), torch.bfloat16, 0))),
+    (32, (((17,), torch.bfloat16, 0), ((300,), torch.float32, 1),
+          ((3,), torch.bfloat16, 0))),
+    (4, (((1_000_003,), torch.bfloat16, 0), ((2_097_152,), torch.float32, 0),
+         ((777,), torch.bfloat16, 1))),
+)
 # the tree path's pair (phase 11): the cases of tests/test_kernels.py
 PAIR_REPLACES = {
     "sq_dist": "src/repro/kernels/pullpush/pullpush.py:90",
@@ -559,8 +617,8 @@ class ErrLog:
     scale (max |plain output|); the relative one is held to TOL."""
 
     def __init__(self):
-        self.abs = {k: 0.0 for k in REPLACES}
-        self.rel = {k: 0.0 for k in REPLACES}
+        self.abs = {k: 0.0 for k in (*REPLACES, *LEAF_REPLACES)}
+        self.rel = {k: 0.0 for k in (*REPLACES, *LEAF_REPLACES)}
 
     def check(self, name, what, got, want):
         # column chunks: a full-width difference of the main path's view
@@ -575,6 +633,14 @@ class ErrLog:
         if not err <= TOL * scale:
             raise AssertionError(f"{name} {what}: max abs err {err:.3e} > "
                                  f"{TOL} x {scale:.3e}")
+
+
+def _merged_launched(counts, where):
+    """Failures for a main path's census: the kernels of MERGED must not
+    run there (their work runs in their neighbours)."""
+    return [f"{where} launched {name} {counts[name]} times; its work runs "
+            f"in {' and '.join(MERGED[name])}" for name in MERGED
+            if counts.get(name, 0)]
 
 
 def _inputs(R, n, gen):
@@ -611,35 +677,172 @@ def check_shape(pk, ref, errs, x, T, c0, c1):
                       for c in torch.tensor_split(x, nblk, dim=1)])
     g_G, g_r, g_coef = pk.gram_coef(ws, T, c0, c1)
     torch.cuda.synchronize()
-    w_G = ws.sum(0)
+    w_G = ref.gram_sum_plain(ws)
     w_r, w_coef = ref.gram_coef_plain(w_G, T, c0, c1)
     errs.check("gram_coef", "G", g_G, w_G)
     errs.check("gram_coef", "r", g_r, w_r)
     errs.check("gram_coef", "coef", g_coef, w_coef)
+    if not torch.equal(g_G, w_G):
+        raise AssertionError("gram_coef's G is not the plain fixed-order "
+                             "sum bit for bit")
     return p_out, p_r, coef, ws
+
+
+def check_sequences(pk, ref, x, T, c0, c1, stale=True):
+    """The stages that run the coefficient phase in a neighbour kernel,
+    bit for bit against the launch sequences they replaced: fused_round
+    (partial Gram with its tail, mix) against block partials, gram_coef
+    and mix_shard; mix_from_gram (the mix's prologue) against gram_coef on
+    G as a one-block workspace and mix_shard, and with ``stale`` also its
+    stale epilogue against gram_coef and stale_mix. At most two (R, n)
+    buffers beside x."""
+    out, r, G = pk.fused_round(x, T, c0, c1)
+    ws = pk._launch_partial_gram(x, pk._vec(x), tail=False)
+    o_G, o_r, o_coef = pk.gram_coef(ws, T, c0, c1)
+    buf = pk.mix_shard(x, T, o_coef)
+    same = {"fused_round": torch.equal(G, o_G) and torch.equal(r, o_r)
+            and _equal(out, buf),
+            "tail_G_is_the_plain_sum": torch.equal(G,
+                                                   ref.gram_sum_plain(ws))}
+    del ws
+    _, g_r, g_coef = pk.gram_coef(G[None], T, c0, c1)
+    pk.mix_shard(x, T, g_coef, out=buf)
+    _, m_r, m_G = pk.mix_from_gram(x, T, c0, c1, G, out=out)
+    same["mix_from_gram"] = torch.equal(m_r, g_r) and _equal(out, buf)
+    if stale:
+        q = torch.randn_like(x)
+        pk.stale_mix(x, T, g_coef, q, out=buf)
+        _, s_r, _ = pk.mix_from_gram(x, T, c0, c1, G, out=out, base=q)
+        same["mix_from_gram stale"] = torch.equal(s_r, g_r) \
+            and _equal(out, buf)
+        del q
+    del out, buf
+    bad = [k for k, v in same.items() if not v]
+    if bad:
+        raise AssertionError(f"not bit-equal to the launches they replace: "
+                             f"{bad}")
+    return same
+
+
+def _leaf_tree(M, spec, gen):
+    """Stacked leaves (M, *shape) on the card, each in its dtype and
+    starting ``shift`` elements into a buffer of its own (off any 16-byte
+    boundary for shift not a multiple of 4 / 8), M workers around one
+    model."""
+    leaves = []
+    for shape, dtype, shift in spec:
+        size = math.prod(shape)
+        v = torch.randn((1, size), generator=gen, device="cuda") \
+            + 0.3 * torch.randn((M, size), generator=gen, device="cuda")
+        buf = torch.empty((M * size + shift,), dtype=dtype, device="cuda")
+        leaf = buf[shift:].view((M,) + shape)
+        leaf.copy_(v.view((M,) + shape))
+        leaves.append(leaf)
+    return leaves
+
+
+def _leaf_errs(pk, ref, errs, leaves, outs, r, G, T, c0, c1):
+    """The leaf kernels against their plain versions: r and the Gram's
+    forms against the plain Gram of the flattened view (fp32, TOL); the
+    new leaves against the plain mix of that view on the kernel's own
+    coefficients (gram_coef on G, the tail's arithmetic), cast back:
+    bit for bit, as mix_shard against its plain version."""
+    M = leaves[0].shape[0]
+    flat = torch.cat([l.reshape(M, -1).float() for l in leaves], dim=1)
+    p_G = ref.partial_gram_plain(flat)
+    p_r, p_coef = ref.gram_coef_plain(p_G, T, c0, c1)
+    errs.check("leaf_gram", "r", r, p_r)
+    errs.check("leaf_gram", "G forms", _forms(G, T, p_coef),
+               _forms(p_G, T, p_coef))
+    _, _, coef = pk.gram_coef(G[None], T, c0, c1)
+    ref.mix_shard_plain(flat, T, coef, out=flat)
+    off = 0
+    for o, l in zip(outs, leaves):
+        size = l[0].numel()
+        errs.check("leaf_mix", "leaf", o.reshape(M, -1).float(),
+                   flat[:, off:off + size].to(l.dtype).float())
+        off += size
+    del flat
+
+
+def check_leaves(pk, ref, errs):
+    """pullpush_fused's two leaf kernels on LEAF_CASES: new leaves, r and
+    G bit-equal to the flattened composite (the fp32 view, fused_round,
+    each leaf's columns cast back), and held against the plain version
+    (``ref.fused_round_leaves_plain``)."""
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    for M, spec in LEAF_CASES:
+        leaves = _leaf_tree(M, spec, gen)
+        T = torch.full((M, M), 1.0 / M, device="cuda")
+        c0 = torch.full((M,), 0.1, device="cuda")
+        c1 = torch.full((M,), -0.5, device="cuda")
+        outs, r, G = pk.fused_round_leaves(leaves, T, c0, c1)
+        flat = torch.cat([l.reshape(M, -1).float() for l in leaves], dim=1)
+        _, f_r, f_G = pk.fused_round(flat, T, c0, c1, out=flat)
+        want = [p.reshape(l.shape).to(l.dtype) for p, l in zip(
+            flat.split([l[0].numel() for l in leaves], dim=1), leaves)]
+        torch.cuda.synchronize()
+        same = torch.equal(r, f_r) and torch.equal(G, f_G) and all(
+            o.dtype == w.dtype and torch.equal(o, w)
+            for o, w in zip(outs, want))
+        _leaf_errs(pk, ref, errs, leaves, outs, r, G, T, c0, c1)
+        n = flat.shape[1]
+        print(f"  leaves M = {M}, n = {n} ({len(spec)} leaves, vec "
+              f"{pk.leaf_table(leaves).vec}): bit-equal to the flattened "
+              f"composite: {same}")
+        if not same:
+            raise AssertionError(f"leaf kernels (M = {M}, n = {n}) differ "
+                                 "from the flattened composite")
+        del leaves, outs, flat, want
 
 
 def phase_kernels(pk, ref):
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = ErrLog()
     for R, n in SHAPES:
-        check_shape(pk, ref, errs, *_inputs(R, n, gen))
-        print(f"  checked ({R}, {n})")
+        args = _inputs(R, n, gen)
+        check_shape(pk, ref, errs, *args)
+        same = check_sequences(pk, ref, *args)
+        print(f"  checked ({R}, {n}); bit-equal to the replaced launch "
+              f"sequences {json.dumps(same)}")
     R, n = MAIN_R, MAIN_N
     x, T, c0, c1 = _inputs(R, n, gen)
     p_out, _, coef, ws = check_shape(pk, ref, errs, x, T, c0, c1)
-    print(f"  checked ({R}, {n}) (main path)")
     del p_out
+    torch.cuda.empty_cache()
+    # the stale epilogue at this width: phase 13(c)
+    same = check_sequences(pk, ref, x, T, c0, c1, stale=False)
+    print(f"  checked ({R}, {n}) (main path); bit-equal to the replaced "
+          f"launch sequences {json.dumps(same)}")
+    check_leaves(pk, ref, errs)
     out = torch.empty_like(x)
+
+    def three_launches():       # the sequence fused_round replaced
+        _, _, c = pk.gram_coef(pk._launch_partial_gram(
+            x, pk._vec(x), tail=False), T, c0, c1)
+        pk.mix_shard(x, T, c, out=out)
+
+    G_x = pk.partial_gram(x)
+    sequences = {
+        "fused_round, 3 launches (partial_gram, gram_coef, mix_shard)":
+            _time_ms(three_launches),
+        "mix_from_gram, 2 launches (gram_coef, mix_shard)":
+            _time_ms(lambda: pk.mix_shard(x, T, pk.gram_coef(
+                G_x[None], T, c0, c1)[2], out=out)),
+        "mix_from_gram, 1 launch (prologue)":
+            _time_ms(lambda: pk.mix_from_gram(x, T, c0, c1, G_x, out=out)),
+        "partial_gram without its tail": _time_ms(
+            lambda: pk._launch_partial_gram(x, pk._vec(x), tail=False)),
+    }
     times = {
         "fused_round": (
             _time_ms(lambda: pk.fused_round(x, T, c0, c1, out=out)),
             _time_ms(lambda: ref.fused_round_plain(x, T, c0, c1, out=out),
-                     reps=5, warm=1),
+                     reps=3, warm=1),
             None),
         "partial_gram": (
             _time_ms(lambda: pk.partial_gram(x)),
-            _time_ms(lambda: ref.partial_gram_plain(x), reps=5, warm=1),
+            _time_ms(lambda: ref.partial_gram_plain(x), reps=3, warm=1),
             _time_ms(lambda: torch.matmul(x, x.T))),
         "gram_coef": (
             _time_ms(lambda: pk.gram_coef(ws, T, c0, c1)),
@@ -648,7 +851,7 @@ def phase_kernels(pk, ref):
         "mix_shard": (
             _time_ms(lambda: pk.mix_shard(x, T, coef, out=out)),
             _time_ms(lambda: ref.mix_shard_plain(x, T, coef, out=out),
-                     reps=5, warm=1),
+                     reps=3, warm=1),
             _time_ms(lambda: torch.matmul(T, x, out=out))),
     }
     # gram_coef is one block on a few KB: its event time is the host's
@@ -660,6 +863,8 @@ def phase_kernels(pk, ref):
         "queued": _device_ms(lambda: pk.gram_coef(ws, T, c0, c1))}
     print("  gram_coef device ms " + json.dumps(coef_device)
           + f", event ms {times['gram_coef'][0]}")
+    print("  replaced launch sequences, ms " + json.dumps(sequences)
+          + f"; fused_round (2 launches) {times['fused_round'][0]}")
     nblk = ws.shape[0]
     small = 4 * (R * R + 3 * R)              # T, c0/c1/coef, r
     work = {   # (bytes: inputs once + outputs once, fp32 operations)
@@ -686,7 +891,10 @@ def phase_kernels(pk, ref):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms}
     rows["gram_coef"]["device_ms"] = coef_device
-    return rows
+    rows["gram_coef"]["merged_into"] = MERGED["gram_coef"]
+    rows["fused_round"]["replaced_sequences_ms"] = sequences
+    leaf_errs = {k: (errs.abs[k], errs.rel[k]) for k in LEAF_REPLACES}
+    return rows, leaf_errs
 
 
 def phase_slice(pk):
@@ -775,8 +983,11 @@ def phase_slice(pk):
         raise AssertionError(f"fused_round launched {launches['fused_round']}"
                              f" times for {want} consensus stages")
     for name in REPLACES:
-        if launches[name] == 0:
+        if launches[name] == 0 and name not in MERGED:
             raise AssertionError(f"{name} was not launched on the main path")
+    bad = _merged_launched(launches, "phase 3's training")
+    if bad:
+        raise AssertionError("; ".join(bad))
     if peak > 70e9:
         raise AssertionError(f"peak memory {peak / 1e9:.1f} GB > 70 GB: set "
                              "LAYERS = 2 and record why in PERF.md")
@@ -2372,17 +2583,17 @@ def phase_tree(pk, ref):
 def _expected_launches(dcfg, r, launch_names):
     """The kernel launches round r of a one-stage lowering runs: a
     staleness1 round is one fused_round with the stale epilogue; a fill
-    round of doublebuf / staleness_k is one fused_round; a stale one runs
-    its chunk Grams, then mix_from_gram (gram_coef + stale_mix)."""
+    round of doublebuf / staleness_k is one fused_round (partial_gram,
+    mix_shard); a stale one runs its chunk Grams, then mix_from_gram (one
+    stale_mix launch with the coefficient prologue). gram_coef: never."""
     want = dict.fromkeys(launch_names, 0)
     k = dcfg.staleness if dcfg.overlap == "staleness_k" else 1
     if dcfg.overlap == "staleness1":
-        want.update(fused_round=1, partial_gram=1, gram_coef=1, stale_mix=1)
+        want.update(fused_round=1, partial_gram=1, stale_mix=1)
     elif r < k:
-        want.update(fused_round=1, partial_gram=1, gram_coef=1, mix_shard=1)
+        want.update(fused_round=1, partial_gram=1, mix_shard=1)
     else:
-        c = dcfg.overlap_chunks
-        want.update(partial_gram=c, gram_coef=c + 1, mix_from_gram=1,
+        want.update(partial_gram=dcfg.overlap_chunks, mix_from_gram=1,
                     stale_mix=1)
     return want
 
@@ -2548,7 +2759,7 @@ def _stale_against_plain(pk, ref, state):
     Gk = sum(pk.partial_gram(s[:, a:b]) for a, b in bounds)
     Gp = sum(ref.partial_gram_plain(s[:, a:b]) for a, b in bounds)
     out = torch.empty_like(s)
-    pk.mix_from_gram(s, T, c0, c1, Gk, out=out, base=q)
+    _, r_mix, _ = pk.mix_from_gram(s, T, c0, c1, Gk, out=out, base=q)
     _, rk, coef_k = pk.gram_coef(Gk[None], T, c0, c1)
     rp, coef_p = ref.gram_coef_plain(Gp, T, c0, c1)
     torch.cuda.synchronize()
@@ -2565,12 +2776,15 @@ def _stale_against_plain(pk, ref, state):
         same = ref.stale_mix_plain(s[:, a:b], T, coef_k, q[:, a:b])
         bitwise = bitwise and torch.equal(got, same)
         del got, plain, same
+    # the prologue's r is gram_coef's on the same Gram
+    bitwise = bitwise and torch.equal(r_mix, rk)
     rel = float((err / scale).max())
     abs_err = float(err.max())
     print(f"  stale application, kernels vs plain: r max rel err "
           f"{r_rel:.3e}, rows max err {rel:.3e} of their scale "
           f"(tolerance {OVERLAP_TOL}); epilogue bit-equal to the plain "
-          f"q + (mix(s) - s) on the kernel's coefficients: {bitwise}")
+          f"q + (mix(s) - s) on gram_coef's coefficients, its r to "
+          f"gram_coef's: {bitwise}")
     if not (rel <= OVERLAP_TOL and r_rel <= OVERLAP_TOL and bitwise):
         raise AssertionError("the stale application differs from plain")
     # times at the main path's shape
@@ -2729,17 +2943,16 @@ def _harness_launches(label, rounds, M):
     ``sq_dist`` and one ``apply_update`` per (worker, leaf) a round, the
     flat engine one ``fused_round`` a round; both end with the final
     ``worker_dists`` (one ``sq_dist`` per (worker, leaf)); DDP none."""
-    want = {"fused_round": 0, "partial_gram": 0, "gram_coef": 0,
-            "mix_shard": 0, "mix_from_gram": 0, "stale_mix": 0,
-            "fused_round_sharded": 0, "sq_dist": 0, "apply_update": 0}
+    from repro_torch.kernels.pullpush import pullpush as pk
+    want = dict.fromkeys(pk.LAUNCHES, 0)
     if label == "ddp":
         return want
     pair = M * MLP_LEAVES
     if label == "tree":
         want.update(sq_dist=pair * rounds + pair, apply_update=pair * rounds)
-    else:           # each fused_round is a partial_gram, gram_coef and mix
+    else:           # each fused_round is a partial_gram and a mix
         want.update({k: rounds for k in ("fused_round", "partial_gram",
-                                         "gram_coef", "mix_shard")},
+                                         "mix_shard")},
                     sq_dist=pair)
     return want
 
@@ -2796,33 +3009,22 @@ def _quickstart(pk, common):
     return out, total, workers, dev_data
 
 
-@contextlib.contextmanager
-def _kept_views(kept):
-    """Append each flat view ``ConsensusEngine.unflatten`` is handed to
-    ``kept``: ``pullpush_fused``'s fp32 result before the cast to its
-    leaves' dtypes."""
-    from repro_torch.core.engine import ConsensusEngine
-    unflatten = ConsensusEngine.unflatten
-
-    def keep(self, flat):
-        kept.append(flat)
-        return unflatten(self, flat)
-    ConsensusEngine.unflatten = keep
-    try:
-        yield
-    finally:
-        ConsensusEngine.unflatten = unflatten
-
-
 def _fused_checks(pk, ref, pullpush_fused, core_pp):
-    """(b): ``pullpush_fused`` on the card against the port's tree
-    ``pullpush`` (the sq_dist / apply_update route): the reference test's
-    near-consensus case, then yi-6b's stacked bf16 tree at 4 layers;
-    times at full width, beside the ``fused_round`` launch alone, the tree
-    route and the tree route on the plain functions."""
+    """(b): ``pullpush_fused`` (two launches over the tree's own leaves) on
+    the card: the reference test's near-consensus case against the port's
+    tree ``pullpush`` (the sq_dist / apply_update route); then yi-6b's
+    stacked bf16 tree at 4 layers, bit-equal to the route it replaced
+    (the engine's flatten, ``fused_round`` on the fp32 view, unflatten)
+    and held against the tree route; its peak memory beside that
+    route's; times at full width beside that route, each pass alone, the
+    tree route and the plain versions. Returns the leaf kernels' rows."""
     from repro_torch.configs import get_arch
-    from repro_torch.core.engine import ConsensusEngine, tree_items
+    from repro_torch.core.engine import (
+        ConsensusEngine, tree_from_items, tree_items,
+    )
     from repro_torch.models import build_model
+    want_one = dict.fromkeys(pk.LAUNCHES, 0)
+    want_one.update(leaf_gram=1, leaf_mix=1)
     gen = torch.Generator(device="cuda").manual_seed(14)
     # near consensus: M = 8, n = 4096, spread 1e-5 (coef ~ -800)
     base = torch.randn((4096,), generator=gen, device="cuda")
@@ -2840,16 +3042,14 @@ def _fused_checks(pk, ref, pullpush_fused, core_pp):
     if not (near["r_rel"] <= 1e-3 and near["max_abs"] <= 2e-3):
         raise AssertionError("pullpush_fused near consensus differs from "
                              "the tree route")
-    if one["fused_round"] != 1 or one["sq_dist"] or one["apply_update"] \
-            or one["mix_from_gram"] or one["stale_mix"]:
+    if one != want_one:
         raise AssertionError(f"pullpush_fused launched {one}; want one "
-                             "fused_round")
+                             "leaf_gram and one leaf_mix")
     del small, got, want
 
     cfg = dataclasses.replace(get_arch("yi-6b"), n_layers=LAYERS)
     M = 4
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     p = build_model(cfg).init(gen, "cuda")
     items = []
     for path, leaf in tree_items(p):
@@ -2859,24 +3059,46 @@ def _fused_checks(pk, ref, pullpush_fused, core_pp):
         items.append((path, w.to(leaf.dtype)))
         del w
     del p
-    from repro_torch.core.engine import tree_from_items
     stacked = tree_from_items(items)
     del items
-    n = sum(leaf[0].numel() for _, leaf in tree_items(stacked))
-    kept = []
+    leaves = [l for _, l in tree_items(stacked)]
+    n = sum(l[0].numel() for l in leaves)
+    tree_bytes = sum(l.numel() * l.element_size() for l in leaves)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     pk.reset_launches()
-    with _kept_views(kept):
-        got, r = pullpush_fused(stacked, 0.1, 0.5)
+    got, r = pullpush_fused(stacked, 0.1, 0.5)
     torch.cuda.synchronize()
     one = dict(pk.LAUNCHES)
-    view, = kept            # the fp32 (M, n) result before the cast
-    del kept
+    peak_new = torch.cuda.max_memory_allocated() - held
+    # the route it replaced: the engine's flatten, fused_round in place on
+    # the fp32 view, unflatten
+    eng = ConsensusEngine.from_stacked(stacked, precise=True)
+    T = eng.uniform.expand(M, M).contiguous()
+    c0 = torch.full((M,), 0.1, device="cuda")
+    c1 = torch.full((M,), -0.5, device="cuda")
+
+    def replaced():
+        flat = eng.flatten(stacked)
+        _, r_c, _ = pk.fused_round(flat, T, c0, c1, out=flat)
+        return eng.unflatten(flat), r_c, flat
+    held_c = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    want_c, r_c, view = replaced()
+    torch.cuda.synchronize()
+    peak_old = torch.cuda.max_memory_allocated() - held_c
+    bit_equal = torch.equal(r, r_c) and all(
+        torch.equal(k, w) for (_, k), (_, w) in zip(tree_items(got),
+                                                    tree_items(want_c)))
+    del want_c
     want, _ = core_pp.pullpush(stacked, 0.1, 0.5)
     center = core_pp.tree_mean0(stacked)
     r_tree = core_pp.worker_dists(stacked, center)
     coef = 0.1 - 0.5 / torch.clamp(r_tree, min=1e-12)
-    peak = torch.cuda.max_memory_allocated()
-    # the update, held in fp32: the fused view against the tree route's
+    # the update, held in fp32: the replaced route's view (the kernels'
+    # fp32 values, bit for bit, before the cast) against the tree route's
     # apply_update on an fp32 copy of each row, relative to the larger of
     # |x| and |x_A| (the two routes round T x + (1 - c)(x - T x) and
     # x + c (T x - x), so they part by ~eps32 there). ``seen``: each leaf's
@@ -2911,16 +3133,31 @@ def _fused_checks(pk, ref, pullpush_fused, core_pp):
         seen = min(seen, leaf_seen)
         off += size
     r_rel = float(((r - r_tree).abs() / r_tree).max())
-    del got, want, view, center
-    full = {"n": n, "dtypes": sorted({str(l.dtype) for _, l in
-                                      tree_items(stacked)}),
+    del want, view, center
+    torch.cuda.empty_cache()
+    # the kernels against their plain versions at full width
+    errs = ErrLog()
+    out_leaves = [k for _, k in tree_items(got)]
+    _, _, G = pk.fused_round_leaves(leaves, T, c0, c1)
+    _leaf_errs(pk, ref, errs, leaves, out_leaves, r, G, T, c0, c1)
+    del got, out_leaves
+    torch.cuda.empty_cache()
+    floor_ms = 3 * tree_bytes / HBM_BYTES_PER_S * 1e3
+    full = {"n": n, "dtypes": sorted({str(l.dtype) for l in leaves}),
+            "tree_bytes": tree_bytes, "bit_equal_to_replaced": bit_equal,
             "r_rel": r_rel, "view_rel": view_rel, "update_rel_min": seen,
             "cast_exact": cast_ok, "max_ulp": worst, "entries_differ": flips,
-            "peak_bytes": peak, "launches": one}
+            "peak_bytes_above_the_tree": peak_new,
+            "replaced_peak_bytes_above_the_tree": peak_old,
+            "launches": one}
     print(f"  pullpush_fused, yi-6b stacked at {LAYERS} layers, M = {M} "
           + json.dumps(full))
-    if one["fused_round"] != 1 or one["sq_dist"] or one["apply_update"]:
+    if one != want_one:
         raise AssertionError(f"pullpush_fused launched {one}")
+    if not bit_equal:
+        raise AssertionError("pullpush_fused at full width is not bit-equal "
+                             "to the flatten + fused_round + unflatten "
+                             "route")
     if not (r_rel <= 1e-5 and view_rel <= FUSED_VIEW_RTOL and cast_ok
             and worst <= 2.0):
         raise AssertionError("pullpush_fused at full width differs from the "
@@ -2928,14 +3165,35 @@ def _fused_checks(pk, ref, pullpush_fused, core_pp):
     if seen <= 10 * FUSED_VIEW_RTOL:
         raise AssertionError(f"a leaf's update ({seen}) is too small for "
                              "the fp32 bar to see")
-    torch.cuda.empty_cache()
     ms = _time_ms(lambda: pullpush_fused(stacked, 0.1, 0.5), reps=5,
                   warm=1)
-    eng = ConsensusEngine.from_stacked(stacked, precise=True)
+    replaced_ms = _time_ms(replaced, reps=5, warm=1)
+    torch.cuda.empty_cache()
+    # each pass alone, on one prepared table (launches not counted here)
+    gram, mix, *_ = pk._leaf_launches(leaves, pk.leaf_table(leaves), T, c0,
+                                      c1, 1e-12)
+    gram_ms = _time_ms(gram)
+    mix_ms = _time_ms(mix)
+    del gram, mix
+    torch.cuda.empty_cache()
+
+    def flatten():
+        return torch.cat([l.reshape(M, -1).float() for l in leaves], dim=1)
+
+    def gram_plain():
+        G_ = ref.partial_gram_plain(flatten())
+        return ref.gram_coef_plain(G_, T, c0, c1)
+
+    coef_k = c0 + c1 / torch.clamp(r, min=1e-12)
+
+    def mix_plain():
+        f = ref.mix_shard_plain(flatten(), T, coef_k)
+        return [p_.reshape(l.shape).to(l.dtype) for p_, l in zip(
+            f.split([l[0].numel() for l in leaves], dim=1), leaves)]
+    gram_plain_ms = _time_ms(gram_plain, reps=3, warm=1)
+    mix_plain_ms = _time_ms(mix_plain, reps=3, warm=1)
+    torch.cuda.empty_cache()
     flat = eng.flatten(stacked)
-    T = eng.uniform.expand(M, M)
-    c0 = torch.full((M,), 0.1, device="cuda")
-    c1 = torch.full((M,), -0.5, device="cuda")
     alone = _time_ms(lambda: pk.fused_round(flat, T, c0, c1, out=flat),
                      reps=5, warm=1)
     del flat, eng
@@ -2945,16 +3203,40 @@ def _fused_checks(pk, ref, pullpush_fused, core_pp):
     with _plain_pair(core_pp, ref):
         plain_ms = _time_ms(lambda: core_pp.pullpush(stacked, 0.1, 0.5),
                             reps=3, warm=1)
-    full.update(pullpush_fused_ms=ms, fused_round_ms=alone,
-                flatten_unflatten_ms=ms - alone, tree_route_ms=tree_ms,
-                plain_ms=plain_ms)
-    print(f"  pullpush_fused {ms:.4f} ms, its fused_round alone "
-          f"{alone:.4f} ms: flatten + unflatten {ms - alone:.4f} ms a call; "
-          f"the tree route {tree_ms:.4f} ms, on the plain functions "
-          f"{plain_ms:.4f} ms")
-    del stacked
+    full.update(pullpush_fused_ms=ms, replaced_ms=replaced_ms,
+                leaf_gram_ms=gram_ms, leaf_mix_ms=mix_ms,
+                fused_round_on_the_view_ms=alone,
+                two_pass_floor_ms=floor_ms,
+                one_pass_bound_ms=2 * tree_bytes / HBM_BYTES_PER_S * 1e3,
+                tree_route_ms=tree_ms, plain_ms=plain_ms)
+    print(f"  pullpush_fused {ms:.4f} ms (leaf_gram {gram_ms:.4f} + "
+          f"leaf_mix {mix_ms:.4f}) against the two-pass floor "
+          f"{floor_ms:.4f} ms ({100 * floor_ms / ms:.1f}%); the replaced "
+          f"flatten + fused_round + unflatten {replaced_ms:.4f} ms (its "
+          f"fused_round alone {alone:.4f}); peak bytes above the tree "
+          f"{peak_new} against {peak_old}; the tree route {tree_ms:.4f} ms, "
+          f"on the plain functions {plain_ms:.4f} ms")
+    small_w = 4 * (M * M + 3 * M)
+    ops = 2 * M * M * n
+    rows = {}
+    for name, (kms, pms, nbytes) in {
+            "leaf_gram": (gram_ms, gram_plain_ms,
+                          tree_bytes + small_w + M * M * 4),
+            "leaf_mix": (mix_ms, mix_plain_ms, 2 * tree_bytes + small_w)
+    }.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_FLOPS * 1e3
+        rows[name] = {
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": LEAF_REPLACES[name], "launches": 0,
+            "max_abs_err": errs.abs[name], "max_rel_err": errs.rel[name],
+            "tol_rel": TOL, "ms": kms, "plain_ms": pms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+    del stacked, leaves
     torch.cuda.empty_cache()
-    return {"near": near, "full": full}
+    return {"near": near, "full": full, "rows": rows}
 
 
 def _measures_checks(common, workers, data):
@@ -3034,6 +3316,9 @@ def _fast_suites(pk):
         raise AssertionError(f"non-finite rows: {bad}")
     if launches["fused_round"] <= 0 or launches["sq_dist"] <= 0:
         raise AssertionError(f"the --fast suites launched {launches}")
+    bad = _merged_launched(launches, "the --fast suites")
+    if bad:
+        raise AssertionError("; ".join(bad))
     return {"seconds": secs, "launches": launches, "rows": n_rows}
 
 
@@ -3107,11 +3392,11 @@ SUP_DISK = 40e9                # free disk the resume point needs
 SH_BAR = {"2x1": 2e-5, "1x2": 1e-3}
 SH_METRIC_BAR = 1e-5           # relative, each round's consensus_dist
 # the kernels the sharded rounds of (b) must launch
-SHARDED_KERNELS = ("fused_round_sharded", "partial_gram", "gram_coef",
-                   "mix_shard", "fused_round", "mix_from_gram", "stale_mix")
+SHARDED_KERNELS = ("fused_round_sharded", "partial_gram", "mix_shard",
+                   "fused_round", "mix_from_gram", "stale_mix")
 # those the staleness_k case must launch: its fill round's consensus, the
-# stale round's chunk Grams and coefficients
-RING_KERNELS = ("partial_gram", "gram_coef")
+# stale round's chunk Grams and its mix from their Gram
+RING_KERNELS = ("partial_gram", "mix_from_gram")
 HIER_ULP = 1.0                 # (d): eps32 * max(|x|, 1) an entry
 
 
@@ -3260,7 +3545,17 @@ def _sharded_kernel_rank(rank, world, single):
     want = pk.mix_shard(x, T, coef1)
     err1 = float((_row_err(out, want) / _row_absmax(want)).max())
     r_err = float(((r - r1).abs() / r1.abs()).max())
-    del want
+    # the launch sequence it replaced: block partials, gram_coef's sum,
+    # the all-reduce, gram_coef on the completed Gram, mix_shard
+    ws = pk._launch_partial_gram(x, pk._vec(x), tail=False)
+    o_G, _, _ = pk.gram_coef(ws, T, c0, c1)
+    o_G = mm.all_reduce(o_G, g)
+    _, o_r, o_coef = pk.gram_coef(o_G[None], T, c0, c1)
+    pk.mix_shard(x, T, o_coef, out=want)
+    torch.cuda.synchronize()
+    old_seq = torch.equal(G, o_G) and torch.equal(r, o_r) \
+        and _equal(out, want)
+    del want, ws
     reduce = lambda G_: mm.all_reduce(G_, g)
     plain = torch.empty_like(x)
     p_out, p_r, _ = ref.fused_round_sharded_plain(x, T, c0, c1, reduce,
@@ -3284,16 +3579,20 @@ def _sharded_kernel_rank(rank, world, single):
         if turn == rank:
             coef = c0 + c1 / torch.clamp(r, min=1e-12)
             launches = {
-                "partial_gram (with gram_coef's sum)":
+                "partial_gram (with its summing tail)":
                     _time_ms(lambda: pk.partial_gram(x)),
-                "gram_coef (one block)":
+                "mix_shard with the coefficient prologue":
+                    _time_ms(lambda: pk.mix_from_gram(x, T, c0, c1, G,
+                                                      out=out)),
+                "gram_coef alone (one block; no longer launched)":
                     _time_ms(lambda: pk.gram_coef(G[None], T, c0, c1)),
                 "mix_shard": _time_ms(lambda: pk.mix_shard(x, T, coef,
                                                            out=out))}
         torch.cuda.synchronize()
     torch.distributed.barrier()
     return {"rank": rank, "n_local": n_loc, "err_vs_single": err1,
-            "r_err_vs_single": r_err, "max_abs_err_vs_plain": perr,
+            "r_err_vs_single": r_err, "bit_equal_to_old_sequence": old_seq,
+            "max_abs_err_vs_plain": perr,
             "max_rel_err_vs_plain": perr / pscale, "r_err_vs_plain": prerr,
             "ms_alone": alone_ms, "ms_both_ranks": both_ms,
             "plain_ms_alone": plain_ms, "all_reduce_ms": ar_ms,
@@ -3798,6 +4097,9 @@ def phase_sharded(pk, ref, resume_path=None):
                      f"{worst:.3e} / r {r_worst:.3e} > {SHARD_TOL}")
     if max(res["max_rel_err_vs_plain"] for res in a) > TOL:
         fails.append("(a) fused_round_sharded against its plain version")
+    if not all(res["bit_equal_to_old_sequence"] for res in a):
+        fails.append("(a) fused_round_sharded is not bit-equal to the "
+                     "launch sequence it replaced")
     totals, by_overlap = {}, {}
     for key in b[0]:
         runs = [res[key] for res in b]
@@ -3849,6 +4151,7 @@ def phase_sharded(pk, ref, resume_path=None):
         if by_overlap["staleness_k"].get(name, 0) == 0:
             fails.append(f"(b) {name} was not launched by the sharded "
                          "staleness_k rounds")
+    fails += _merged_launched(totals, "(b) the sharded rounds")
     resume = [o["resume"] for o in out]
     if resume_path:
         print("  (b) resume point of 2x1 staleness_k after round 2, by rank "
@@ -4103,6 +4406,7 @@ def phase_supervised(pk, resume_point):
           f"{len({r['loss'] for r in ranks}) == 1}; launcher seconds "
           f"{[round(r['seconds'], 1) for r in ranks]}; launches (all "
           f"ranks) {json.dumps(a_launch)}")
+    fails += _merged_launched(a_launch, "(a) the chaos replay")
     if seq != pinned["event_seq"] or counters != pinned["counters"] \
             or final_batch != pinned["final_batch"]:
         fails.append("(a) the chaos replay differs from "
@@ -4156,9 +4460,11 @@ def phase_supervised(pk, resume_point):
     if f"(round {SUP_STOP})" not in text_b or not t_b["load_s"]:
         fails.append(f"(b) the second half did not resume at round "
                      f"{SUP_STOP}")
-    for name in ("fused_round", "partial_gram", "gram_coef", "stale_mix"):
+    for name in ("fused_round", "partial_gram", "mix_from_gram",
+                 "stale_mix"):
         if b_launch.get(name, 0) == 0:
             fails.append(f"(b) {name} was not launched")
+    fails += _merged_launched(b_launch, "(b) the supervised run")
     secs["b"] = time.perf_counter() - t0
     # (c) train, then serve the trained checkpoint
     t0 = time.perf_counter()
@@ -4219,15 +4525,17 @@ FAMILY_CHECK_S = 1024        # (0): one sequence, fp32, 1 MoE / 2 dense layers
 # (d): (config, layers or None for the full depth, config fields set for
 # training, local-step learning rate). seamless-m4t-medium cut 12 + 12 ->
 # 6 + 6 layers (the run's time limit); zamba2-7b cut 81 -> 18 layers
-# (n = 1,604,578,608, a 25.7 GB view); xlstm-350m at its 24 blocks on the
-# chunkwise mLSTM (xlstm_chunk = 16): the published per-step recurrence
-# keeps every step's (B, 4, 512, 512) fp32 matrix memory for the backward
-# pass, > 100 GB at seq 64, batch 8, 18 mLSTM blocks. At LR = 0.3 its SGD
-# diverges in either mLSTM form (its gradient norm is ~130 at the seeded
-# init); it trains at 0.01
+# (n = 1,604,578,608, a 25.7 GB view); xlstm-350m cut 24 -> 12 blocks (9
+# mLSTM + 3 sLSTM, the 3:1 pattern kept; the run's time limit: its plain
+# sLSTM loop under autograd is most of the phase) on the chunkwise mLSTM
+# (xlstm_chunk = 16): the published per-step recurrence keeps every step's
+# (B, 4, 512, 512) fp32 matrix memory for the backward pass, > 100 GB at
+# seq 64, batch 8, 18 mLSTM blocks. At LR = 0.3 its SGD diverges in either
+# mLSTM form (its gradient norm is ~130 at the seeded init); it trains at
+# 0.01
 FAMILY_TRAIN = (("seamless-m4t-medium", 6, {"n_enc_layers": 6}, LR),
                 ("internvl2-2b", 12, {}, LR), ("zamba2-7b", 18, {}, LR),
-                ("xlstm-350m", None, {"xlstm_chunk": 16}, 0.01))
+                ("xlstm-350m", 12, {"xlstm_chunk": 16}, 0.01))
 FAMILY_ROUNDS = 2
 # swa_attention at every shape this phase's serving paths launch it, bf16
 # (B, H, Hkv, Sq, Skv, hd, window, cap, causal); the census of (a)-(c)
@@ -4552,6 +4860,9 @@ def _train_family(pk, name, layers, over, lr):
         raise AssertionError(f"{cfg.name}: fused_round launched "
                              f"{launches['fused_round']} times for "
                              f"{stages * len(rounds)} consensus stages")
+    bad = _merged_launched(launches, f"{cfg.name}'s training")
+    if bad:
+        raise AssertionError("; ".join(bad))
     return d, launches
 
 
@@ -4624,7 +4935,7 @@ TUNE_REPS = 1
 TUNE_MEM_TOL = 4 << 20      # allocated bytes a probe may leave behind
 # the kernels every feasible doublebuf probe launches: its stale rounds'
 # chunk Grams, coefficients and mix with the stale epilogue
-TUNE_KERNELS = ("partial_gram", "gram_coef", "mix_from_gram", "stale_mix")
+TUNE_KERNELS = ("partial_gram", "mix_from_gram", "stale_mix")
 # (b): the smoke launcher, searched under an injected frontier, then
 # replayed from the plan it wrote
 TUNE_ARGV = ["--arch", "yi-6b", "--smoke", "--workers", "4", "--tau", "2",
@@ -4740,6 +5051,8 @@ def _tune_search(pk):
         if p.ok and any(r["launches"].get(k, 0) == 0 for k in TUNE_KERNELS):
             fails.append(f"feasible probe {r['batch']},{r['tau']},"
                          f"{r['chunks']} launched {r['launches']}")
+        fails += _merged_launched(r["launches"], f"probe {r['batch']},"
+                                  f"{r['tau']},{r['chunks']}")
     if fails:
         raise AssertionError("phase 18(a): " + "; ".join(fails))
     return out
@@ -4860,19 +5173,26 @@ def main(argv=None):
 
 def _partial(only, pk, ref, swa, swa_attention_plain, secs):
     """``--phases``: phase 1, then the phases named, alone."""
-    if not only <= {2, 15, 16, 17, 18} or (16 in only and 15 not in only):
-        raise SystemExit("--phases: any of 2, 15, 16, 17, 18 (phase 16 "
+    if not only <= {2, 14, 15, 16, 17, 18} or (16 in only
+                                               and 15 not in only):
+        raise SystemExit("--phases: any of 2, 14, 15, 16, 17, 18 (phase 16 "
                          "resumes from phase 15's resume point: 15,16)")
     for ph in sorted(only):
         t0 = time.perf_counter()
         print(f"phase {ph} (partial run)")
         if ph == 2:
-            rows = phase_kernels(pk, ref)
+            rows, leaf_errs = phase_kernels(pk, ref)
             print("  kernels " + json.dumps(list(rows.values())))
+            print("  leaf kernels' errors (abs, rel) "
+                  + json.dumps(leaf_errs))
         elif ph == 15:
             res = phase_sharded(pk, ref, RESUME_POINT if 16 in only
                                 else None)
             print("  fused_round_sharded " + json.dumps(res["row"]))
+        elif ph == 14:
+            res = phase_harness(pk, ref)
+            print("  pullpush_fused " + json.dumps(res["fused"]["full"]))
+            print("  leaf kernels " + json.dumps(res["fused"]["rows"]))
         elif ph == 16:
             phase_supervised(pk, RESUME_POINT)
         elif ph == 18:
@@ -4892,7 +5212,7 @@ def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
     """Phases 2-17, the kernels record and the contract's last line."""
     print("phase 2: kernels against their plain versions")
     t0 = time.perf_counter()
-    rows = phase_kernels(pk, ref)
+    rows, leaf_errs = phase_kernels(pk, ref)
     secs["kernels"] = time.perf_counter() - t0
 
     print("phase 3: the slice (yi-6b, full width)")
@@ -4984,6 +5304,15 @@ def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
                 "MLP harness: quickstart + --fast suites (phase 14)"] = n
             rows[name]["launches"] += n
     rows["fused_round"]["pullpush_fused"] = harness["fused"]["full"]
+    for name, row in harness["fused"]["rows"].items():
+        # errors: phase 2's small trees and the full-width tree
+        row["max_abs_err"] = max(row["max_abs_err"], leaf_errs[name][0])
+        row["max_rel_err"] = max(row["max_rel_err"], leaf_errs[name][1])
+        n = harness["fused"]["full"]["launches"][name]
+        row["launches_by_path"] = {
+            "pullpush_fused, yi-6b stacked bf16 tree (phase 14b)": n}
+        row["launches"] = n
+        rows[name] = row
 
     print("phase 15: the sharded round on torch.distributed ranks")
     t0 = time.perf_counter()

@@ -3,32 +3,42 @@
 Replaces ``src/repro/kernels/pullpush/pullpush.py``:
 
 * ``fused_round`` ← ``fused_round`` (``_fused_round_kernel``): one
-  consensus stage. The TPU's single two-phase ``pallas_call`` becomes three
-  launches on the current stream — ``partial_gram``, ``gram_coef``,
-  ``mix_shard`` — because Hopper blocks cannot wait on each other the way
-  TPU grid steps run in order (``csrc/pullpush.cu`` says how).
+  consensus stage. The TPU's single two-phase ``pallas_call`` becomes two
+  launches on the current stream — ``partial_gram``, whose last block to
+  finish runs the coefficient phase (``_coef``), then ``mix_shard`` —
+  because Hopper blocks cannot wait on each other the way TPU grid steps
+  run in order (``csrc/pullpush.cu`` says how).
 * ``partial_gram`` ← ``partial_gram`` (``_partial_gram_kernel``):
   block-centered Gram of a column shard, or of a column chunk
-  ``x[:, a:b]`` read in place (its rows lie ``x.stride(0)`` floats apart).
-  Bound: memory, R·n·4 bytes read.
+  ``x[:, a:b]`` read in place (its rows lie ``x.stride(0)`` floats apart),
+  summed in the same launch. Bound: memory, R·n·4 bytes read.
 * ``mix_shard`` ← ``mix_shard`` (``_mix_kernel``): the uniform gap-form
   mix with given coefficients. Bound: memory, 2·R·n·4 bytes (read +
   write).
 * ``mix_from_gram`` ← ``mix_from_gram``: a stage whose Gram is given (the
-  summed ``partial_gram`` chunks of the overlap modes): ``gram_coef`` on
-  the Gram as a one-block workspace, then one ``mix_shard`` launch — or,
-  with ``base``, one ``stale_mix`` launch.
+  summed ``partial_gram`` chunks of the overlap modes): one ``mix_shard``
+  launch — or, with ``base``, one ``stale_mix`` launch — whose blocks
+  compute the coefficients from the Gram in their prologue.
 * ``fused_round_sharded`` ← ``fused_round_sharded`` (a composite over
   ``partial_gram`` and ``mix_shard`` with a ``lax.psum`` between them):
   the stage on one rank's (R, n_local) column shard — ``pp_partial_gram``
-  and ``gram_coef``'s fixed-order sum, the (R, R) Gram's all-reduce over
-  the column group (``launch.mesh.all_reduce``), then one ``gram_coef``
-  launch on the completed Gram and one ``mix_shard`` (or ``stale_mix``)
-  launch. Bound: memory, 3·R·n_local·4 bytes (x read for the Gram, read
-  and written by the mix).
+  with its summing tail, the (R, R) Gram's all-reduce over the column
+  group (``launch.mesh.all_reduce``), then one ``mix_shard`` (or
+  ``stale_mix``) launch with the coefficient prologue. Bound: memory,
+  3·R·n_local·4 bytes (x read for the Gram, read and written by the mix).
+* ``gram_coef`` ← the ``_coef`` phase of ``_fused_round_kernel``, alone:
+  one block sums a stack of partial Grams in a fixed order and computes r
+  and coef. No stage launches it: the partial-Gram tail and the mix
+  prologue run its code, and it stays as their standalone counterpart.
 * ``stale_mix``: the overlap modes' stale epilogue ``q + (mix(s) − s)``
   (``src/repro/train/trainer.py:387, :449``, three (R, n) passes there)
   as one pass. Bound: memory, 3·R·n·4 bytes (s and q read, out written).
+* ``fused_round_leaves`` ← ``src/repro/kernels/pullpush/ops.py``'s
+  ``pullpush_fused`` (flatten, ``fused_round``, unflatten): the same two
+  passes on a worker-stacked tree's own leaves, read in place as float32
+  or bfloat16 through a device table of the leaves (``leaf_table``), each
+  result rounded to its leaf's dtype into a new tree — no (M, n) fp32
+  view. Bound: memory, the tree read twice and written once.
 * ``sq_dist`` ← ``sq_dist`` (``_sq_dist_kernel``): ``Σ (x − a)²`` of two
   (n,) vectors, fp32 accumulation, in a fixed order (two launches: block
   partials into a scratch buffer, then one block adds them). Bound:
@@ -54,20 +64,24 @@ shared library is built from ``csrc/pullpush.cu`` with ``nvcc`` on first
 CUDA use (``build()``, through ``kernels/_build.py``), never at import.
 ``LAUNCHES`` counts kernel launches per kernel; ``fused_round``,
 ``fused_round_sharded``, ``mix_from_gram`` and ``sq_dist`` count their
-calls (each is more than one launch).
+calls (each is more than one launch, or a launch counted under
+``mix_shard`` / ``stale_mix``).
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from pathlib import Path
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.pullpush.ref import (
-    apply_plain, fused_round_plain, fused_round_sharded_plain,
-    gram_coef_plain, mix_from_gram_plain, mix_shard_plain,
-    partial_gram_plain, sq_dist_plain, stale_mix_plain,
+    apply_plain, fused_round_leaves_plain, fused_round_plain,
+    fused_round_sharded_plain, gram_coef_plain, gram_sum_plain,
+    mix_from_gram_plain, mix_shard_plain, partial_gram_plain, sq_dist_plain,
+    stale_mix_plain,
 )
 
 MAX_ROWS = 32          # the kernels keep one column of every row in registers
@@ -80,20 +94,29 @@ PAIR_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = {"fused_round": 0, "partial_gram": 0, "gram_coef": 0,
             "mix_shard": 0, "mix_from_gram": 0, "stale_mix": 0,
-            "fused_round_sharded": 0, "sq_dist": 0, "apply_update": 0}
+            "fused_round_sharded": 0, "leaf_gram": 0, "leaf_mix": 0,
+            "sq_dist": 0, "apply_update": 0}
 
 
 def _bind(lib):
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.pp_partial_gram.argtypes = [vp, i32, i64, i64, vp, i32, i32, vp]
-    lib.pp_gram_coef.argtypes = [vp, i32, i32, vp, vp, vp, ctypes.c_float,
-                                 vp, vp, vp, vp]
+    f32 = ctypes.c_float
+    # (..., ticket, T, c0, c1, eps, G, r, coef, stream)
+    tail = [vp, vp, vp, vp, f32, vp, vp, vp, vp]
+    lib.pp_partial_gram.argtypes = [vp, i32, i64, i64, vp, i32, i32] + tail
+    lib.pp_leaf_gram.argtypes = [vp, i32, i32, i64, vp, i32, i32] + tail
+    lib.pp_gram_coef.argtypes = [vp, i32, i32, vp, vp, vp, f32, vp, vp, vp,
+                                 vp]
     lib.pp_mix.argtypes = [vp, i32, i64, vp, vp, vp, i32, i32, vp]
     lib.pp_stale_mix.argtypes = [vp, i32, i64, vp, vp, vp, vp, i32, i32, vp]
+    lib.pp_mix_from_gram.argtypes = [vp, i32, i64, vp, vp, vp, vp, f32, vp,
+                                     vp, vp, vp, i32, i32, vp]
+    lib.pp_leaf_mix.argtypes = [vp, i32, i32, i64, vp, vp, i32, i32, vp]
     lib.pp_sq_dist.argtypes = [vp, i32, vp, i32, i64, vp, i32, i32, vp, vp]
     lib.pp_apply.argtypes = [vp, i32, vp, i32, vp, vp, i64, i32, i32, vp]
-    for fn in (lib.pp_partial_gram, lib.pp_gram_coef, lib.pp_mix,
-               lib.pp_stale_mix, lib.pp_sq_dist, lib.pp_apply):
+    for fn in (lib.pp_partial_gram, lib.pp_leaf_gram, lib.pp_gram_coef,
+               lib.pp_mix, lib.pp_stale_mix, lib.pp_mix_from_gram,
+               lib.pp_leaf_mix, lib.pp_sq_dist, lib.pp_apply):
         fn.restype = i32
     lib.pp_error_string.argtypes = [i32]
     lib.pp_error_string.restype = ctypes.c_char_p
@@ -227,31 +250,64 @@ def _raise_if(code, what):
     _build.raise_if(build(), code, what)
 
 
-def _launch_partial_gram(flat, vec):
-    """partial-Gram kernel -> (nblk, R, R) workspace of block partials."""
+_TICKETS = {}
+
+
+def _ticket(t):
+    """The partial-Gram tail's ticket for PyTorch's current stream on t's
+    device: one zeroed unsigned int a stream, which the last block sets
+    back to 0, so launches on one stream take turns with it and launches
+    on two streams never share one."""
+    key = (t.device.index, torch.cuda.current_stream(t.device).cuda_stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros((1,), dtype=torch.int32, device=t.device)
+    return _TICKETS[key]
+
+
+def _opt(t):
+    return ctypes.c_void_p(None) if t is None else _ptr(t)
+
+
+def _coef_outputs(R, device):
+    """G, r and coef of the coefficient phase, fresh."""
+    f = dict(dtype=torch.float32, device=device)
+    return (torch.empty((R, R), **f), torch.empty((R,), **f),
+            torch.empty((R,), **f))
+
+
+def _launch_partial_gram(flat, vec, T=None, c0=None, c1=None, eps=1e-12,
+                         *, tail=True):
+    """The partial-Gram kernel. With ``tail`` its last block sums the
+    block partials into G and, given T, computes r and coef: returns
+    ``(G, r, coef)`` (r and coef None without T). Without, the (nblk, R,
+    R) workspace of block partials, for ``gram_coef``."""
     lib = build()
     R, n = flat.shape
     nblk = _grid(flat, vec)
     ws = torch.empty((nblk, R, R), dtype=torch.float32, device=flat.device)
+    G = r = coef = ticket = None
+    if tail:
+        G, r, coef = _coef_outputs(R, flat.device)
+        if T is None:
+            r = coef = None
+        ticket = _ticket(flat)
     LAUNCHES["partial_gram"] += 1
-    _raise_if(lib.pp_partial_gram(_ptr(flat), R, n, _ld(flat), _ptr(ws),
-                                  nblk, vec, _stream(flat)), "partial_gram")
-    return ws
+    _raise_if(lib.pp_partial_gram(
+        _ptr(flat), R, n, _ld(flat), _ptr(ws), nblk, vec, _opt(ticket),
+        _opt(T), _opt(c0), _opt(c1), float(eps), _opt(G), _opt(r),
+        _opt(coef), _stream(flat)), "partial_gram")
+    return (G, r, coef) if tail else ws
 
 
 def _launch_gram_coef(ws, T=None, c0=None, c1=None, eps=1e-12):
     """Fixed-order sum of the partials into G; with T also r and coef."""
     lib = build()
     nblk, R, _ = ws.shape
-    G = torch.empty((R, R), dtype=torch.float32, device=ws.device)
-    r = torch.empty((R,), dtype=torch.float32, device=ws.device)
-    coef = torch.empty((R,), dtype=torch.float32, device=ws.device)
-    null = ctypes.c_void_p(None)
+    G, r, coef = _coef_outputs(R, ws.device)
     LAUNCHES["gram_coef"] += 1
     _raise_if(lib.pp_gram_coef(
-        _ptr(ws), nblk, R, null if T is None else _ptr(T),
-        null if c0 is None else _ptr(c0), null if c1 is None else _ptr(c1),
-        float(eps), _ptr(G), _ptr(r), _ptr(coef), _stream(ws)), "gram_coef")
+        _ptr(ws), nblk, R, _opt(T), _opt(c0), _opt(c1), float(eps), _ptr(G),
+        _ptr(r), _ptr(coef), _stream(ws)), "gram_coef")
     return G, r, coef
 
 
@@ -272,6 +328,24 @@ def _launch_mix(flat, T, coef, out, base=None):
                                    _ptr(base), _ptr(out), nblk, vec,
                                    _stream(flat)), "stale_mix")
     return out
+
+
+def _launch_mix_from_gram(flat, T, c0, c1, G, eps, out, base=None):
+    """The mix (or with ``base`` the stale epilogue) whose blocks compute
+    the coefficients from the given Gram G in their prologue: one launch,
+    counted as ``mix_shard`` / ``stale_mix``. Returns ``(r, coef)``."""
+    lib = build()
+    R, n = flat.shape
+    vec = _vec(*(t for t in (flat, out, base) if t is not None))
+    nblk = _grid(flat, vec)
+    _, r, coef = _coef_outputs(R, flat.device)
+    name = "mix_shard" if base is None else "stale_mix"
+    LAUNCHES[name] += 1
+    _raise_if(lib.pp_mix_from_gram(
+        _ptr(flat), R, n, _ptr(T), _ptr(G), _ptr(c0), _ptr(c1), float(eps),
+        _opt(base), _ptr(out), _ptr(r), _ptr(coef), nblk, vec,
+        _stream(flat)), name)
+    return r, coef
 
 
 # ---------------------------------------------------------------------------
@@ -319,8 +393,7 @@ def fused_round(flat, T, c0, c1, eps=1e-12, out=None, base=None):
                                    base=base)
     LAUNCHES["fused_round"] += 1
     with torch.cuda.device(flat.device):
-        ws = _launch_partial_gram(flat, _vec(flat))
-        G, r, coef = _launch_gram_coef(ws, T, c0, c1, eps)
+        G, r, coef = _launch_partial_gram(flat, _vec(flat), T, c0, c1, eps)
         _launch_mix(flat, T, coef, out, base)
     return out, r, G
 
@@ -348,10 +421,9 @@ def fused_round_sharded(flat, T, c0, c1, *, group, eps=1e-12, out=None,
                                          out=out, base=base)
     LAUNCHES["fused_round_sharded"] += 1
     with torch.cuda.device(flat.device):
-        G, _, _ = _launch_gram_coef(_launch_partial_gram(flat, _vec(flat)))
+        G, _, _ = _launch_partial_gram(flat, _vec(flat))
         G = reduce(G)
-        _, r, coef = _launch_gram_coef(G[None], T, c0, c1, eps)
-        _launch_mix(flat, T, coef, out, base)
+        r, _ = _launch_mix_from_gram(flat, T, c0, c1, G, eps, out, base)
     return out, r, G
 
 
@@ -366,14 +438,16 @@ def partial_gram(flat, *, vec=None):
     if flat.device.type == "cpu":
         return partial_gram_plain(flat)
     with torch.cuda.device(flat.device):
-        G, _, _ = _launch_gram_coef(_launch_partial_gram(flat, vec))
+        G, _, _ = _launch_partial_gram(flat, vec)
     return G
 
 
 def gram_coef(ws, T, c0, c1, eps=1e-12):
-    """The middle launch of ``fused_round`` on its own: sum a (nblk, R, R)
-    stack of partial Grams in a fixed order into G, then ``r`` and
-    ``coef`` as in ``fused_round``. Returns ``(G, r, coef)``."""
+    """The coefficient phase on its own: sum a (nblk, R, R) stack of
+    partial Grams in a fixed order (``ref.gram_sum_plain``'s) into G,
+    then ``r`` and ``coef`` as in ``fused_round``, in one block. The
+    stages run the same code in the partial-Gram tail or the mix
+    prologue. Returns ``(G, r, coef)``."""
     if not isinstance(ws, torch.Tensor) or ws.dim() != 3 \
             or ws.shape[1] != ws.shape[2] or ws.dtype != torch.float32:
         raise ValueError("ws must be a float32 (nblk, R, R) tensor")
@@ -383,7 +457,7 @@ def gram_coef(ws, T, c0, c1, eps=1e-12):
     c0 = _small(c0, (R,), ws)
     c1 = _small(c1, (R,), ws)
     if ws.device.type == "cpu":
-        G = ws.sum(0)
+        G = gram_sum_plain(ws)
         return (G, *gram_coef_plain(G, T, c0, c1, eps))
     with torch.cuda.device(ws.device):
         return _launch_gram_coef(ws.contiguous(), T, c0, c1, eps)
@@ -426,10 +500,10 @@ def stale_mix(flat, T, coef, base, out=None):
 def mix_from_gram(flat, T, c0, c1, G, eps=1e-12, out=None, base=None):
     """A consensus stage whose column contraction already happened: ``G``
     is a completed block-centered (or plain) Gram, e.g. the sum of
-    per-chunk ``partial_gram`` calls. ``gram_coef`` takes G as a one-block
-    workspace for ``r`` and ``coef``; then one ``mix_shard`` launch, or
-    with ``base`` one ``stale_mix`` launch (``out = base + (mix(flat) -
-    flat)``). ``out`` defaults to a new buffer and may be ``flat`` (or
+    per-chunk ``partial_gram`` calls. One ``mix_shard`` launch, or with
+    ``base`` one ``stale_mix`` launch (``out = base + (mix(flat) -
+    flat)``), whose blocks compute ``r`` and ``coef`` from G first, as
+    ``gram_coef`` does on G as a one-block workspace. ``out`` defaults to a new buffer and may be ``flat`` (or
     ``base``). Returns ``(out, r, G)`` like ``fused_round``."""
     _check_flat(flat)
     R = flat.shape[0]
@@ -444,9 +518,144 @@ def mix_from_gram(flat, T, c0, c1, G, eps=1e-12, out=None, base=None):
                                    base=base)
     LAUNCHES["mix_from_gram"] += 1
     with torch.cuda.device(flat.device):
-        _, r, coef = _launch_gram_coef(G[None], T, c0, c1, eps)
-        _launch_mix(flat, T, coef, out, base)
+        r, _ = _launch_mix_from_gram(flat, T, c0, c1, G, eps, out, base)
     return out, r, G
+
+
+# ---------------------------------------------------------------------------
+# the stage on a worker-stacked tree's own leaves (pullpush_fused)
+# ---------------------------------------------------------------------------
+
+LEAF_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_COPY_STREAMS = {}     # device index -> the leaf tables' copy stream
+LEAF_FIELDS = 5        # kLeafFields: src, dst, size, off, bf16
+
+
+@dataclass(frozen=True)
+class LeafTable:
+    """The virtual (M, n) view of a worker-stacked tree, as the flatten
+    order lays it out: leaf i holds columns ``offsets[i]`` ..
+    ``offsets[i] + sizes[i] - 1``; ``bf16[i]`` is its dtype flag (1
+    bfloat16, 0 float32). ``vec``: the columns a thread step of the leaf
+    kernels, ``_vec`` of a fresh (M, n) fp32 view, so that they run
+    ``fused_round``'s grid and column-to-thread map on it."""
+    M: int
+    n: int
+    vec: int
+    offsets: Tuple[int, ...]
+    sizes: Tuple[int, ...]
+    bf16: Tuple[int, ...]
+
+    def packed(self, srcs, dsts):
+        """The (L, 5) int64 rows ``(src, dst, size, off, bf16)`` of the
+        leaves with elements, on the leaves' device. On the card the copy
+        runs on a stream of its own, which the current stream waits for
+        on the device: a copy from pageable memory may wait for its
+        stream's queue, and the current one holds the last call's passes."""
+        rows = torch.tensor(
+            [(s.data_ptr(), d.data_ptr(), size, off, flag)
+             for s, d, size, off, flag in zip(
+                 srcs, dsts, self.sizes, self.offsets, self.bf16) if size],
+            dtype=torch.int64)
+        dev = srcs[0].device
+        if dev.type != "cuda":
+            return rows
+        key = dev.index
+        if key not in _COPY_STREAMS:
+            _COPY_STREAMS[key] = torch.cuda.Stream(dev)
+        side, main = _COPY_STREAMS[key], torch.cuda.current_stream(dev)
+        with torch.cuda.stream(side):
+            tab = rows.to(dev, non_blocking=True)
+        main.wait_stream(side)
+        tab.record_stream(main)
+        return tab
+
+
+def leaf_table(leaves):
+    """Check the leaves of a worker-stacked tree (each (M, ...), float32 or
+    bfloat16, all on one device, 1 <= M <= 32) and lay out their virtual
+    (M, n) view."""
+    if not leaves or not all(isinstance(l, torch.Tensor) and l.dim() >= 1
+                             for l in leaves):
+        raise ValueError("expected the (M, ...) leaves of a worker-stacked "
+                         "tree")
+    for l in leaves:
+        if l.dtype not in LEAF_DTYPES:
+            raise TypeError(f"leaves must be float32 or bfloat16, got "
+                            f"{l.dtype}")
+    dev = leaves[0].device
+    if any(l.device != dev for l in leaves):
+        raise ValueError("the leaves lie on different devices")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    M = leaves[0].shape[0]
+    if any(l.shape[0] != M for l in leaves):
+        raise ValueError("the leaves stack different numbers of workers")
+    if not 1 <= M <= MAX_ROWS:
+        raise ValueError(f"{M} workers; the kernels take 1..{MAX_ROWS}")
+    sizes = tuple(l[0].numel() for l in leaves)
+    offsets, o = [], 0
+    for size in sizes:
+        offsets.append(o)
+        o += size
+    if o < 1:
+        raise ValueError("the leaves have no columns")
+    return LeafTable(M=M, n=o, vec=4 if M <= 8 and o % 4 == 0 else 1,
+                     offsets=tuple(offsets), sizes=sizes,
+                     bf16=tuple(LEAF_DTYPES[l.dtype] for l in leaves))
+
+
+def _leaf_launches(leaves, table, T, c0, c1, eps):
+    """The two leaf launches on one prepared table, as two calls ``gram()``
+    and ``mix()`` (counted by the caller), and what they write: returns
+    ``(gram, mix, outs, r, G)``. Every tensor a launch reads stays alive
+    with the closures."""
+    lib = build()
+    M, dev = table.M, leaves[0].device
+    srcs = [l.contiguous() for l in leaves]
+    outs = [torch.empty(l.shape, dtype=l.dtype, device=dev) for l in leaves]
+    tab = table.packed(srcs, outs)
+    rows = tab.shape[0]
+    nblk = _blocks(dev, table.n // table.vec)
+    ws = torch.empty((nblk, M, M), dtype=torch.float32, device=dev)
+    G, r, coef = _coef_outputs(M, dev)
+    ticket = _ticket(ws)
+
+    def gram():
+        _raise_if(lib.pp_leaf_gram(
+            _ptr(tab), rows, M, table.n, _ptr(ws), nblk, table.vec,
+            _ptr(ticket), _ptr(T), _ptr(c0), _ptr(c1), float(eps), _ptr(G),
+            _ptr(r), _ptr(coef), _stream(ws)), "leaf_gram")
+
+    def mix():
+        _raise_if(lib.pp_leaf_mix(
+            _ptr(tab), rows, M, table.n, _ptr(T), _ptr(coef), nblk,
+            table.vec, _stream(ws)), "leaf_mix")
+    return gram, mix, outs, r, G
+
+
+def fused_round_leaves(leaves, T, c0, c1, eps=1e-12):
+    """``fused_round`` on the virtual (M, n) view of a worker-stacked
+    tree's leaves (each (M, ...), float32 or bfloat16), read in place:
+    two launches, the partial Gram (with its coefficient tail) and the
+    mix, which rounds each result to its leaf's dtype into a new leaf.
+    The same bits as ``fused_round`` on the flattened fp32 view followed
+    by a cast of each leaf's columns, without making that view. Returns
+    ``(new leaves, r, G)``."""
+    table = leaf_table(leaves)
+    M = table.M
+    T = _small(T, (M, M), leaves[0])
+    c0 = _small(c0, (M,), leaves[0])
+    c1 = _small(c1, (M,), leaves[0])
+    if leaves[0].device.type == "cpu":
+        return fused_round_leaves_plain(leaves, T, c0, c1, eps)
+    with torch.cuda.device(leaves[0].device):
+        gram, mix, outs, r, G = _leaf_launches(leaves, table, T, c0, c1, eps)
+        LAUNCHES["leaf_gram"] += 1
+        gram()
+        LAUNCHES["leaf_mix"] += 1
+        mix()
+    return outs, r, G
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,9 @@ holds each kernel against. They mirror the phases of the reference
 * ``partial_gram_plain`` — block-centered Gram: every column is shifted by
   its row-0 value (``e = x - x[0]``), so entries are O(spread^2) and every
   zero-sum quadratic form of G is free of cancellation;
+* ``gram_sum_plain`` — the kernels' fixed-order sum of a stack of block
+  partials into G (``gram_coef_kernel``, the partial-Gram tail), every
+  addition rounded on its own: the kernel's bits;
 * ``gram_coef_plain`` — ``r_i = ||x_i - T_i x||`` from the zero-sum form
   ``(e_i - T_i)^T G (e_i - T_i)`` and ``coef = c0 + c1 / max(r, eps)``;
 * ``mix_shard_plain`` — the uniform gap form ``tx + (1 - c)(x - tx)``,
@@ -20,6 +23,10 @@ holds each kernel against. They mirror the phases of the reference
 * ``mix_from_gram_plain`` — a stage from a given Gram
   (``pullpush.py::mix_from_gram``): ``gram_coef_plain``, then the mix or
   the stale epilogue;
+* ``fused_round_leaves_plain`` — the stage on a worker-stacked tree's
+  leaves (``pullpush.py::fused_round_leaves``): the leaves flattened into
+  one fp32 (M, n) view, ``fused_round_plain``, each leaf's columns cast
+  back to its dtype;
 * ``fused_round_sharded_plain`` — a stage on one column shard
   (``pullpush.py::fused_round_sharded``): ``partial_gram_plain``, the
   Gram completed over the column group by ``reduce``, then
@@ -42,6 +49,7 @@ from __future__ import annotations
 import torch
 
 PLAIN_CHUNK = 1 << 22
+COEF_THREADS = 1024    # kCoefThreads: the fixed-order sum's slots
 
 
 def partial_gram_plain(flat):
@@ -53,6 +61,27 @@ def partial_gram_plain(flat):
         e = x - x[0:1]
         G += e @ e.T
     return G
+
+
+def gram_sum_plain(ws):
+    """(nblk, R, R) block partials -> (R, R) G in the kernels' order: C =
+    COEF_THREADS // R^2 chunks (at least one); chunk ch adds the blocks
+    ch, ch + C, ... in turn, then the C chunk sums are added in chunk
+    order. Each fp32 addition is rounded on its own, as on the card."""
+    nblk, R, _ = ws.shape
+    RR = R * R
+    C = max(COEF_THREADS // RR, 1)
+    steps = -(-nblk // C)
+    # padded with zeros: 0 + s = s for every sum that starts at +0
+    pad = torch.zeros((steps * C, RR), dtype=torch.float32, device=ws.device)
+    pad[:nblk] = ws.reshape(nblk, RR)
+    part = torch.zeros((C, RR), dtype=torch.float32, device=ws.device)
+    for k in range(steps):
+        part = part + pad[k * C:(k + 1) * C]
+    G = torch.zeros((RR,), dtype=torch.float32, device=ws.device)
+    for ch in range(C):
+        G = G + part[ch]
+    return G.reshape(R, R)
 
 
 def gram_coef_plain(G, T, c0, c1, eps=1e-12):
@@ -129,6 +158,18 @@ def fused_round_plain(flat, T, c0, c1, eps=1e-12, out=None):
     G = partial_gram_plain(flat)
     r, coef = gram_coef_plain(G, T, c0, c1, eps)
     return mix_shard_plain(flat, T, coef, out=out), r, G
+
+
+def fused_round_leaves_plain(leaves, T, c0, c1, eps=1e-12):
+    """``fused_round_plain`` on the leaves' (M, n) fp32 view, each leaf's
+    columns cast back to its dtype: returns ``(new leaves, r, G)``."""
+    M = leaves[0].shape[0]
+    flat = torch.cat([l.reshape(M, -1).to(torch.float32) for l in leaves],
+                     dim=1)
+    out, r, G = fused_round_plain(flat, T, c0, c1, eps, out=flat)
+    parts = torch.split(out, [l[0].numel() for l in leaves], dim=1)
+    return [p.reshape(l.shape).to(l.dtype)
+            for p, l in zip(parts, leaves)], r, G
 
 
 def sq_dist_plain(x, a):

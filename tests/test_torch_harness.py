@@ -54,13 +54,13 @@ def _torch_tree(tree):
 # pullpush_fused
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("use_kernel", [None, True])
+@pytest.mark.parametrize("use_kernel", [None, True, False])
 def test_pullpush_fused_matches_reference(use_kernel):
     """``tests/test_kernels.py::test_pullpush_fused_matches_core``'s tree:
-    the port's wrapper (the engine's precise stage, or ``fused_round``'s
-    plain version) against the reference's (its Pallas kernel in
-    interpret mode) and against the port's tree ``pullpush``, at that
-    test's 1e-5."""
+    the port's wrapper (the kernel route's plain version by default, the
+    engine's precise stage with ``use_kernel=False``) against the
+    reference's (its Pallas kernel in interpret mode) and against the
+    port's tree ``pullpush``, at that test's 1e-5."""
     key = jax.random.PRNGKey(0)
     jstacked = {"w": jax.random.normal(key, (4, 33, 65)),
                 "b": jax.random.normal(jax.random.fold_in(key, 1), (4, 17))}
@@ -79,7 +79,7 @@ def test_pullpush_fused_matches_reference(use_kernel):
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize("use_kernel", [None, True])
+@pytest.mark.parametrize("use_kernel", [None, True, False])
 def test_pullpush_fused_exact_near_consensus(use_kernel):
     """``tests/test_engine.py::test_pullpush_fused_exact_near_consensus``:
     workers 1e-5 apart, coef ~ -800; both routes keep plain Eq. 5 (no
@@ -101,8 +101,8 @@ def test_pullpush_fused_exact_near_consensus(use_kernel):
 
 
 def test_pullpush_fused_keeps_each_leaf_dtype():
-    """A bf16 leaf goes through the fp32 view and comes back bf16, within
-    one bf16 rounding of the tree route (``apply_update`` on bf16 rows)."""
+    """A bf16 leaf is mixed in fp32 and comes back bf16, within one bf16
+    rounding of the tree route (``apply_update`` on bf16 rows)."""
     g = torch.Generator().manual_seed(3)
     stacked = {"a": torch.randn(4, 300, generator=g).to(torch.bfloat16),
                "b": torch.randn(4, 7, 5, generator=g)}
@@ -118,8 +118,8 @@ def test_pullpush_fused_keeps_each_leaf_dtype():
 
 def test_pullpush_fused_launches_nothing_on_cpu():
     """On a CPU tree the wrapper runs the plain route: no launch is
-    counted (a CUDA tree counts exactly one ``fused_round``; chip_smoke.py
-    phase 14 pins it)."""
+    counted (a CUDA tree counts one ``leaf_gram`` and one ``leaf_mix``;
+    chip_smoke.py phase 14 pins it)."""
     pk.reset_launches()
     stacked = {"w": torch.randn(4, 64)}
     pullpush_fused(stacked, 0.1, 0.5)
