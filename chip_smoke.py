@@ -307,9 +307,9 @@ Phases (any failure raises, and the script exits non-zero):
    launcher at ``SERVE_LAYERS``' depth, 4 requests, 8 new tokens
    (seamless's requests carry their frames). (d) Training at full width on
    the flat engine's kernel mode, as phase 3 (M = 4, tau 4, seq 64, batch
-   8, 2 rounds; ``FAMILY_TRAIN``): seamless-m4t-medium cut to 6 + 6 of its
+   8, 2 rounds; ``FAMILY_TRAIN``): seamless-m4t-medium cut to 4 + 4 of its
    12 + 12 layers, internvl2-2b to 12 of 24, zamba2-7b to 18 of 81 on the
-   plain SSD route, xlstm-350m to 12 of its 24 blocks on the plain sLSTM
+   plain SSD route, xlstm-350m to 8 of its 24 blocks on the plain sLSTM
    loop and the chunkwise mLSTM (``xlstm_chunk = 16``) at learning rate 0.01,
    the round batches carrying frames / the prefix; round ms, consensus
    ms, peak memory, ``fused_round`` launches. ``python3 chip_smoke.py
@@ -333,6 +333,26 @@ Phases (any failure raises, and the script exits non-zero):
    (``RoundClock.describe()``), finite losses, batch 3 chosen. ``python3
    chip_smoke.py --phases 18`` runs phase 1 and this phase alone (``2``
    and ``14`` run phase 2 and phase 14 alone).
+19. Launch analysis against the card (``launch/roofline.py``,
+   ``validate.py``, ``dryrun.py``). (a) Phase 3's round (yi-6b, 4
+   layers, M = 4, tau 4) traced on meta by ``analyze_step``: each
+   kernel's calls must equal phase 3's launches a round; the modelled
+   round (``roofline`` / ``overlap_model`` on the counted flops and
+   bytes) is printed beside phase 3's measured round and their ratio.
+   (b) ``torch.cuda.memory_allocated()`` between phase 12's rounds
+   within 1% of ``validate``'s formula (params bf16 + momentum fp32) x
+   M, else the buffer that differs is named; the tree engine's
+   persistent state builds at the largest yi-6b depth whose formula fits
+   the card's ``total_memory``, the next depth raises a real
+   ``OutOfMemoryError``, and 0 B are left allocated (this part runs
+   before phase 2, while the process holds the least of the card: see
+   ``_state_against_total_memory``). (c) The dry-run CLI
+   (yi-6b ``train_4k`` at 1 and 32 nodes, gemma2-2b ``decode_32k``) into
+   a fresh directory and the ``roofline`` suite row on it. (d)
+   ``--sharded --autotune`` of the smoke config under torchrun on two
+   ranks: both ranks print the sha256 of the plan file rank 0 writes,
+   and rank 1 probes nothing. ``python3 chip_smoke.py --phases 19`` runs
+   phase 1, phases 3 and 12 (whose numbers it reads) and this phase.
 
 It prints a ``kernels`` line, the ``{"kernels": [...]}`` record and, last,
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -341,6 +361,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -366,6 +387,9 @@ MAIN_R, MAIN_N = 4, 1_216_385_024
 # the slice's depth and local-step learning rate (the launcher's default);
 # PERF.md records the numbers of this depth and rate
 LAYERS, LR = 4, 0.3
+# phases 3 and 12 (and 19's trace of phase 3's round): workers, tau,
+# steps, sequence length, batch a worker
+SLICE_RUN = (4, 4, 16, 64, 8)
 TOL = 1e-4          # max abs error relative to the output's scale
 SOURCE = "src/repro_torch/kernels/pullpush/csrc/pullpush.cu"
 # H100 SXM dense bf16 and TF32 tensor-core peaks (NVIDIA's data sheet)
@@ -865,23 +889,14 @@ def phase_kernels(pk, ref):
           + f", event ms {times['gram_coef'][0]}")
     print("  replaced launch sequences, ms " + json.dumps(sequences)
           + f"; fused_round (2 launches) {times['fused_round'][0]}")
-    nblk = ws.shape[0]
-    small = 4 * (R * R + 3 * R)              # T, c0/c1/coef, r
-    work = {   # (bytes: inputs once + outputs once, fp32 operations)
-        "fused_round": (2 * R * n * 4 + small + R * R * 4,
-                        2 * (2 * R * R * n)),
-        "partial_gram": (R * n * 4 + R * R * 4, 2 * R * R * n),
-        "gram_coef": (nblk * R * R * 4 + small + R * R * 4,
-                      nblk * R * R + 4 * R ** 3),
-        "mix_shard": (2 * R * n * 4 + small, 2 * R * R * n),
-    }
+    # bytes (inputs once, outputs once) and fp32 operations: pk.cost
+    work = {name: pk.cost(name, R, n, nblk=ws.shape[0]) for name in times}
     del x, out, ws
     torch.cuda.empty_cache()
     rows = {}
     for name, (ms, plain_ms, lib_ms) in times.items():
-        nbytes, ops = work[name]
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / FP32_FLOPS * 1e3
+        t_bytes = work[name]["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = work[name]["flops"] / FP32_FLOPS * 1e3
         rows[name] = {
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": 0,
@@ -909,7 +924,7 @@ def phase_slice(pk):
     import repro_torch.train.trainer as trainer_mod
 
     cfg = dataclasses.replace(get_arch("yi-6b"), n_layers=LAYERS)
-    M, tau, steps, seq, batch = 4, 4, 16, 64, 8
+    M, tau, steps, seq, batch = SLICE_RUN
     print(f"  config {cfg.name}: d_model {cfg.d_model}, heads "
           f"{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
           f"{cfg.vocab_size}, layers {cfg.n_layers}, dtype {cfg.dtype}; "
@@ -997,7 +1012,7 @@ def phase_slice(pk):
     print("  mean of rounds 1.. " + json.dumps(summary))
     del state, step
     torch.cuda.empty_cache()
-    return launches, dict(summary, peak_bytes=peak)
+    return launches, dict(summary, peak_bytes=peak, rounds=len(rounds))
 
 
 def phase_launcher(pk):
@@ -1021,23 +1036,15 @@ def phase_launcher(pk):
 # phase 5: the attention kernel
 # ---------------------------------------------------------------------------
 
-def _in_band_pairs(Sq, Skv, causal, window):
-    """(q, k) pairs the mask keeps, counted for these shapes."""
-    qp = np.arange(Sq)
-    lo = np.maximum(qp - window + 1, 0) if window > 0 else np.zeros_like(qp)
-    hi = np.minimum(qp, Skv - 1) if causal else np.full_like(qp, Skv - 1)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
-def _attn_bound(case, dtype):
-    """Least time in ms: 4 hd FLOPs per in-band pair per (b, h) over the
-    peak of the inputs' type, or q, k, v read once and the output written
-    once over the memory rate, whichever is larger."""
+def _attn_bound(swa, case, dtype):
+    """Least time in ms: ``swa.cost`` (4 hd FLOPs per in-band pair per (b,
+    h); q, k, v read once and the output written once) over the peak of
+    the inputs' type and the memory rate, whichever is larger."""
     B, H, Hkv, Sq, Skv, hd, window, cap, causal = case
-    flops = _in_band_pairs(Sq, Skv, causal, window) * 4 * hd * B * H
+    work = swa.cost(B, H, Hkv, Sq, Skv, hd, window=window, causal=causal,
+                    esize=torch.finfo(dtype).bits // 8)
+    flops, nbytes = work["flops"], work["bytes"]
     peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
-    esize = torch.finfo(dtype).bits // 8
-    nbytes = esize * hd * (2 * B * H * Sq + 2 * B * Hkv * Skv)
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes"), flops
@@ -1087,7 +1094,7 @@ def _attn_case(swa, plain, case, dtype, gen, name, plain_reps=20):
         raise AssertionError(f"swa_attention {name} {dtype}: largest error "
                              f"over its row's scale {rel:.3e} > {tol}")
     del got
-    bound, bound_by, flops = _attn_bound(case, dtype)
+    bound, bound_by, flops = _attn_bound(swa, case, dtype)
     row = {"case": name, "shape": list(case), "dtype": str(dtype)[6:],
            "max_abs_err": err, "max_rel_err": rel, "tol_rel": tol,
            "ms": _time_ms(lambda: swa.swa_attention(q, k, v, **kw)),
@@ -1455,26 +1462,16 @@ def _ssd_check(name, errs, got, want):
                                  f"{err:.3e} > {TOL} x {scale:.3e}")
 
 
-def _ssd_bound(Bt, S, H, P, N, L):
+def _ssd_bound(mk, Bt, S, H, P, N, L):
     """Least time in ms for ``ssd_chunks_seq`` on S tokens in chunks of L:
-    x, B, C, a read once and y, states written once over the memory rate,
-    or the operations the function needs over the peak of the route,
-    whichever is larger. A chunk of v tokens has v (v + 1) / 2 causal
-    (t, s) pairs; per pair y = (G o decay) x needs 2 P FLOPs per head and
-    S = G o decay one multiply per head, G = C B^T needs 2 N once per (b,
-    chunk) (it does not depend on the head), and the state x^T (B o rem)
-    needs 2 P N per token and head. Pairs with s > t and tokens past S
-    need nothing. The kernel's route takes each product in 3xTF32 (three
-    TF32 passes on the tensor cores), so its operations bound is 3 x the
-    FLOPs over the TF32 peak; the fp32 CUDA-core figure (the first
+    ``mk.cost``'s bytes (x, B, C, a read once, y and the states written
+    once) over the memory rate, or its FLOPs over the peak of the route,
+    whichever is larger. The kernel's route takes each product in 3xTF32
+    (three TF32 passes on the tensor cores), so its operations bound is 3
+    x the FLOPs over the TF32 peak; the fp32 CUDA-core figure (the first
     kernel's route) and one TF32 pass are kept beside it."""
-    nc = -(-S // L)
-    pairs = sum(v * (v + 1) // 2 for v in (min(L, S - c * L)
-                                            for c in range(nc)))
-    nbytes = 4 * (2 * Bt * S * H * P + Bt * H * nc * P * N
-                  + 2 * Bt * S * N + Bt * S * H)
-    flops = (Bt * H * (2 * P * pairs + pairs + 2 * P * N * S)
-             + Bt * 2 * N * pairs)
+    work = mk.cost(Bt, S, H, P, N, L)
+    nbytes, flops = work["bytes"], work["flops"]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 3 * flops / TF32_FLOPS * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
@@ -1566,7 +1563,7 @@ def phase_ssd(mk, ssd_ref):
     ms = _time_ms(lambda: mk.ssd_chunks_seq(xh, B_, C_, a, L))
     plain_ms = _time_ms(lambda: ssd_ref.ssd_chunks_seq_plain(xh, B_, C_, a,
                                                              L))
-    bound = _ssd_bound(Bt, S, H, P, N, L)
+    bound = _ssd_bound(mk, Bt, S, H, P, N, L)
     row = {"name": "ssd_chunks", "route": "cuda", "source": SSD_SOURCE,
            "replaces": SSD_REPLACES, "launches": 0,
            "product_route": "mma.sync m16n8k8 tf32, 3xTF32",
@@ -1588,7 +1585,8 @@ def phase_ssd(mk, ssd_ref):
             lambda: mk.ssd_chunks_seq(xh, B_, C_, a, L))
         row[f"plain_ms_{name}"] = _time_ms(
             lambda: ssd_ref.ssd_chunks_seq_plain(xh, B_, C_, a, L))
-        row[f"bound_ms_{name}"] = _ssd_bound(Bt, S, H, P, N, L)["bound_ms"]
+        row[f"bound_ms_{name}"] = _ssd_bound(mk, Bt, S, H, P, N,
+                                             L)["bound_ms"]
         print(f"  checked and timed {name} {(Bt, S, H, P, N, L)}: "
               f"{row[f'ms_{name}']:.4f} ms")
     row["max_abs_err"] = max(e for e, _ in errs)
@@ -1601,6 +1599,16 @@ def phase_ssd(mk, ssd_ref):
 # ---------------------------------------------------------------------------
 # phase 8: serving zamba2-7b
 # ---------------------------------------------------------------------------
+
+def _release_graph(states):
+    """Detach state tensors that a plain route updated in place with a
+    gradient recorded: each one's graph saved the tensor itself, a cycle
+    of C++ references that outlives the call and that Python's collector
+    cannot see (it held the block's parameters and activations, 640 MB by
+    phase 12, until the process ended)."""
+    for t in states:
+        t.detach_()
+
 
 def _mamba_route_check(mk, cfg):
     """(0) One Mamba2 block at full width in fp32, S = 1024, with non-zero
@@ -1634,6 +1642,7 @@ def _mamba_route_check(mk, cfg):
         if not err <= 1e-4 * scale:
             raise AssertionError(f"mamba kernel route {name}: {err:.3e} > "
                                  f"1e-4 x {scale:.3e}")
+    _release_graph(plain_state.values())
     print("  (0) mamba block, kernel route vs plain, full width, fp32, "
           "S=1024, carried states: [max abs err, scale] " + json.dumps(out))
 
@@ -1863,13 +1872,13 @@ def _slstm_errs(got, want):
             for a, b in zip((h,) + tuple(st), (wh,) + tuple(wst))]
 
 
-def _slstm_bound(B, T, H, P):
-    """Least time in ms: 2 B T H P 4P FLOP for h @ R over the fp32 peak,
-    or g_in, R and the state read once and h and the final state written
-    once over the memory rate, whichever is larger."""
-    flops = 2 * B * T * H * P * 4 * P
-    nbytes = 4 * (B * T * H * 4 * P + H * P * 4 * P + B * T * H * P
-                  + 8 * B * H * P)
+def _slstm_bound(sk, B, T, H, P):
+    """Least time in ms: ``sk.cost``'s FLOPs (2 B T H P 4P for h @ R) over
+    the fp32 peak, or its bytes (g_in, R and the state read once, h and
+    the final state written once) over the memory rate, whichever is
+    larger."""
+    work = sk.cost(B, T, H, P)
+    flops, nbytes = work["flops"], work["bytes"]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), t_bytes, t_ops, flops
@@ -2009,7 +2018,7 @@ def phase_slstm(sk, sref):
             run = lambda: sk.slstm_steps(g, R, st)  # noqa: E731
             row = {"shape": list(shape), "events_ms": _time_ms(run),
                    "device_ms": _device_ms(run),
-                   "bound_ms": _slstm_bound(*shape)[0]}
+                   "bound_ms": _slstm_bound(sk, *shape)[0]}
             row["us_per_step"] = row["device_ms"] / shape[1] * 1e3
             row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
             shapes[name] = row
@@ -2025,7 +2034,7 @@ def phase_slstm(sk, sref):
             exchange[what] = t_ms / T * 1e3
         print("  h exchange alone, us a step at the serving geometry "
               f"(H = {H}, T = {T}): " + json.dumps(exchange))
-    bound, bound_by, t_bytes, t_ops, flops = _slstm_bound(B, T, H, P)
+    bound, bound_by, t_bytes, t_ops, flops = _slstm_bound(sk, B, T, H, P)
     row = {"name": "slstm_steps", "route": "cuda", "source": SLSTM_SOURCE,
            "replaces": SLSTM_REPLACES, "launches": 0,
            "max_abs_err": max(e for e, _ in errs),
@@ -2082,6 +2091,7 @@ def _xlstm_route_checks(sk, cfg):
     check("slstm out", got, want)
     for name, a, b in zip("cnhm", state, plain_state):
         check(f"slstm {name}", a, b)
+    _release_graph(plain_state)
 
     p = xlstm.init_mlstm(gen, cfg, torch.float32, device="cuda")
     x = torch.randn((1, 512, cfg.d_model), generator=gen, device="cuda")
@@ -2351,12 +2361,16 @@ def phase_pair(pk, ref):
                     kern = lambda: pk.sq_dist(x, a)
                     plain = lambda: ref.sq_dist_plain(x, a)
                     lib = lambda: torch.dist(x, a) ** 2
-                    nbytes = n * (x.element_size() + a.element_size())
+                    nbytes = pk.cost("sq_dist", 1, n,
+                                     x_bytes=x.element_size(),
+                                     a_bytes=a.element_size())["bytes"]
                 else:
                     kern = lambda: pk.apply_update(x, a, coef, out=out)
                     plain = lambda: ref.apply_plain(x, a, coef, out=out)
                     lib = lambda: torch.lerp(x, a, coef, out=out)
-                    nbytes = n * (2 * x.element_size() + a.element_size())
+                    nbytes = pk.cost("apply_update", 1, n,
+                                     x_bytes=x.element_size(),
+                                     a_bytes=a.element_size())["bytes"]
                 key = f"{n} {str(xd)[6:]}/{str(ad)[6:]}"
                 timing[key] = {
                     "ms": _time_ms(kern), "plain_ms": _time_ms(plain),
@@ -2425,7 +2439,8 @@ def _timed_rounds(trainer_mod, step, box, batches, label):
                    "consensus_dist": float(m["consensus_dist"]),
                    "round_ms": round_ms, "consensus_ms": cons_ms,
                    "local_ms": round_ms - cons_ms,
-                   "peak_bytes": torch.cuda.max_memory_allocated()}
+                   "peak_bytes": torch.cuda.max_memory_allocated(),
+                   "allocated_bytes": torch.cuda.memory_allocated()}
             rounds.append(row)
             print(f"  {label} round " + json.dumps(row))
     finally:
@@ -2467,7 +2482,7 @@ def phase_tree(pk, ref):
     import repro_torch.train.trainer as trainer_mod
 
     cfg = dataclasses.replace(get_arch("yi-6b"), n_layers=LAYERS)
-    M, tau, steps, seq, batch = 4, 4, 16, 64, 8
+    M, tau, steps, seq, batch = SLICE_RUN
     model = build_model(cfg)
     dcfg = DPPFConfig(alpha=0.1, lam=0.5, tau=tau, consensus="simple_avg",
                       engine="tree")
@@ -2480,6 +2495,7 @@ def phase_tree(pk, ref):
           f"batch={batch} lr={LR}")
 
     torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated()    # earlier phases' buffers
     state = init_train_state(model.init, opt, dcfg, M, gen, device="cuda")
     leaves = tree_items(state.params)
     n = sum(leaf[0].numel() for _, leaf in leaves)
@@ -2490,6 +2506,12 @@ def phase_tree(pk, ref):
     L = len(leaves)
     print(f"  stacked tree: {L} leaves, {n} parameters a worker, dtypes "
           f"{sorted({str(leaf.dtype) for _, leaf in leaves})}")
+    # the persistent state's buffers, for phase 19(b)
+    state_bytes = {k: sum(t.numel() * t.element_size()
+                          for _, t in tree_items(v))
+                   for k, v in (("params", state.params),
+                                ("momentum", state.opt),
+                                ("consensus state", state.cstate))}
     step = make_round_step(model.loss, opt, dcfg, clock=clock)
     batches = [lambda spec=spec: make_round_batch(
         task, 0, M, spec.tau, spec.start, batch, cfg, device="cuda")
@@ -2572,7 +2594,9 @@ def phase_tree(pk, ref):
     del new_k, new_p, stacked
     torch.cuda.empty_cache()
     return {"eq5": eq5, "easgd": ez, "rounds": rounds, "easgd_round":
-            erounds, "peak_bytes": peak, "plain_round_r_rel": r_rel,
+            erounds, "peak_bytes": peak, "state_bytes": state_bytes,
+            "base_bytes": base_bytes, "n": n, "M": M,
+            "plain_round_r_rel": r_rel,
             "plain_round_sq_rel": sq_rel, "plain_round_ulp": worst}
 
 
@@ -2806,18 +2830,16 @@ def _stale_against_plain(pk, ref, state):
     }
     strided_ms = _time_ms(lambda: pk.partial_gram(s[:, a:b]))
     contiguous_ms = _time_ms(lambda: pk.partial_gram(contiguous))
-    chunk_bound = (R * (b - a) * 4 + R * R * 4) / HBM_BYTES_PER_S * 1e3
+    chunk_bound = pk.cost("partial_gram", R, b - a)["bytes"] \
+        / HBM_BYTES_PER_S * 1e3
     print(f"  partial_gram on a 4-chunk column slice ({R}, {b - a}) of the "
           f"({R}, {n}) view: strided {strided_ms:.4f} ms, contiguous copy "
           f"{contiguous_ms:.4f} ms, bound {chunk_bound:.4f} ms (bytes)")
-    small = 4 * (R * R + 3 * R)
-    nbytes = {"stale_mix": 3 * R * n * 4 + small,
-              "mix_from_gram": 3 * R * n * 4 + small + R * R * 4}
-    ops = 3 * R * R * n
     rows = {}
     for name, (ms, plain_ms, lib_ms) in times.items():
-        t_bytes = nbytes[name] / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / FP32_FLOPS * 1e3
+        work = pk.cost(name, R, n, base=True)    # with the fresh view q
+        t_bytes = work["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = work["flops"] / FP32_FLOPS * 1e3
         rows[name] = {
             "name": name, "route": "cuda", "source": STALE_SOURCE,
             "replaces": STALE_REPLACES[name], "launches": 0,
@@ -3216,16 +3238,12 @@ def _fused_checks(pk, ref, pullpush_fused, core_pp):
           f"fused_round alone {alone:.4f}); peak bytes above the tree "
           f"{peak_new} against {peak_old}; the tree route {tree_ms:.4f} ms, "
           f"on the plain functions {plain_ms:.4f} ms")
-    small_w = 4 * (M * M + 3 * M)
-    ops = 2 * M * M * n
     rows = {}
-    for name, (kms, pms, nbytes) in {
-            "leaf_gram": (gram_ms, gram_plain_ms,
-                          tree_bytes + small_w + M * M * 4),
-            "leaf_mix": (mix_ms, mix_plain_ms, 2 * tree_bytes + small_w)
-    }.items():
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / FP32_FLOPS * 1e3
+    for name, (kms, pms) in {"leaf_gram": (gram_ms, gram_plain_ms),
+                             "leaf_mix": (mix_ms, mix_plain_ms)}.items():
+        work = pk.cost(name, M, n, leaf_bytes=tree_bytes)
+        t_bytes = work["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = work["flops"] / FP32_FLOPS * 1e3
         rows[name] = {
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": LEAF_REPLACES[name], "launches": 0,
@@ -4192,10 +4210,9 @@ def phase_sharded(pk, ref, resume_path=None):
     if fails:
         raise AssertionError("phase 15: " + "; ".join(fails))
     r0 = a[0]
-    bound_bytes = 3 * MAIN_R * n_loc * 4
-    ops = 2 * (2 * MAIN_R * MAIN_R * n_loc)
-    t_bytes = bound_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS * 1e3
+    work = pk.cost("fused_round_sharded", MAIN_R, n_loc)
+    t_bytes = work["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = work["flops"] / FP32_FLOPS * 1e3
     row = {
         "name": "fused_round_sharded", "route": "cuda",
         "source": SHARDED_SOURCE, "replaces": SHARDED_REPLACES,
@@ -4524,18 +4541,18 @@ FAMILY_CHECK_S = 1024        # (0): one sequence, fp32, 1 MoE / 2 dense layers
 # (d): (config, depth) trained at full width on the flat engine's kernels
 # (d): (config, layers or None for the full depth, config fields set for
 # training, local-step learning rate). seamless-m4t-medium cut 12 + 12 ->
-# 6 + 6 layers (the run's time limit); zamba2-7b cut 81 -> 18 layers
-# (n = 1,604,578,608, a 25.7 GB view); xlstm-350m cut 24 -> 12 blocks (9
-# mLSTM + 3 sLSTM, the 3:1 pattern kept; the run's time limit: its plain
+# 4 + 4 layers (the run's time limit); zamba2-7b cut 81 -> 18 layers
+# (n = 1,604,578,608, a 25.7 GB view); xlstm-350m cut 24 -> 8 blocks (6
+# mLSTM + 2 sLSTM, the 3:1 pattern kept; the run's time limit: its plain
 # sLSTM loop under autograd is most of the phase) on the chunkwise mLSTM
 # (xlstm_chunk = 16): the published per-step recurrence keeps every step's
 # (B, 4, 512, 512) fp32 matrix memory for the backward pass, > 100 GB at
 # seq 64, batch 8, 18 mLSTM blocks. At LR = 0.3 its SGD diverges in either
 # mLSTM form (its gradient norm is ~130 at the seeded init); it trains at
 # 0.01
-FAMILY_TRAIN = (("seamless-m4t-medium", 6, {"n_enc_layers": 6}, LR),
+FAMILY_TRAIN = (("seamless-m4t-medium", 4, {"n_enc_layers": 4}, LR),
                 ("internvl2-2b", 12, {}, LR), ("zamba2-7b", 18, {}, LR),
-                ("xlstm-350m", 12, {"xlstm_chunk": 16}, 0.01))
+                ("xlstm-350m", 8, {"xlstm_chunk": 16}, 0.01))
 FAMILY_ROUNDS = 2
 # swa_attention at every shape this phase's serving paths launch it, bf16
 # (B, H, Hkv, Sq, Skv, hd, window, cap, causal); the census of (a)-(c)
@@ -5117,6 +5134,262 @@ def phase_autotune(pk):
     return {"a": a, "b": b, "seconds": secs}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: launch analysis against the card
+# ---------------------------------------------------------------------------
+
+INSPECT_TOL = 0.01        # (b): allocated bytes against validate's formula
+DRYRUNS = (["--arch", "yi-6b", "--shape", "train_4k", "--nodes", "1,32"],
+           ["--arch", "gemma2-2b", "--shape", "decode_32k", "--nodes", "1"])
+TUNE_SHARDED_ARGV = ["--arch", "yi-6b", "--smoke", "--d-model", "32",
+                     "--layers", "1", "--workers", "4", "--tau", "2",
+                     "--steps", "2", "--seq", "16", "--batch", "1",
+                     "--max-batch", "4", "--probe-budget", "4",
+                     "--tune-oom-above", "2", "--overlap", "doublebuf",
+                     "--autotune", "--sharded"]
+
+
+def _census_of_the_slice(pk, launches, slice_res):
+    """(a): phase 3's round traced on meta (``launch.roofline.
+    analyze_step``); each kernel's calls against phase 3's launches a
+    round, and the modelled round beside the measured one."""
+    from repro_torch.configs import DPPFConfig, get_arch
+    from repro_torch.launch import roofline as rf
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import (
+        RoundClock, init_train_state, make_round_step,
+    )
+    cfg = dataclasses.replace(get_arch("yi-6b"), n_layers=LAYERS)
+    M, tau, steps, seq, batch = SLICE_RUN
+    model = build_model(cfg)
+    dcfg = DPPFConfig(alpha=0.1, lam=0.5, tau=tau, consensus="simple_avg",
+                      engine="flat")
+    opt = make_optimizer("sgd", momentum=0.9, weight_decay=1e-3)
+    clock = RoundClock.from_config(dcfg, base_lr=LR, total_steps=steps)
+    t0 = time.perf_counter()
+    state = init_train_state(model.init, opt, dcfg, M, None, device="meta")
+    step = make_round_step(model.loss, opt, dcfg, clock=clock)
+    b = {k: torch.empty((tau, M, batch, seq), dtype=torch.int64,
+                        device="meta") for k in ("tokens", "labels")}
+    ana = rf.analyze_step(step, state, b)
+    trace_s = time.perf_counter() - t0
+    calls = {k: v["calls"] for k, v in ana["kernels"].items()}
+    rounds = slice_res["rounds"]
+    per_round = {k: v / rounds for k, v in launches.items() if v}
+    print(f"  (a) phase 3's round traced on meta in {trace_s:.2f} s: "
+          f"flops {ana['flops']:.6e}, bytes {ana['bytes']:.6e}, kernels "
+          + json.dumps(ana["kernels"]) + f"; phase 3's launches a round "
+          + json.dumps(per_round))
+    if calls != per_round:
+        raise AssertionError(f"(a) the trace counts {calls}, phase 3 "
+                             f"launched {per_round} a round")
+    terms = rf.roofline(ana["flops"], ana["bytes"], ana["collectives"])
+    model_ms = rf.overlap_model(terms, ana["collective_axis_bytes"],
+                                R=M)["exact_s"] * 1e3
+    measured = slice_res["round_ms"]
+    print(f"  (a) modelled round {model_ms:.3f} ms (compute "
+          f"{terms['compute_s'] * 1e3:.3f} + memory "
+          f"{terms['memory_s'] * 1e3:.3f}, on {rf.PEAK_FLOPS:.3e} FLOP/s "
+          f"and {rf.HBM_BW:.3e} B/s), measured {measured:.3f} ms (phase "
+          f"3, mean of rounds 1..): measured / modelled "
+          f"{measured / model_ms:.3f}")
+    return {"calls": calls, "trace_s": trace_s, "flops": ana["flops"],
+            "bytes": ana["bytes"], "model_ms": model_ms,
+            "measured_ms": measured, "ratio": measured / model_ms}
+
+
+def _persistent_state(cfg, M, opt):
+    """The tree engine's persistent state of ``M`` workers on the card, as
+    the trainer holds it: each stacked leaf in its dtype and the
+    optimizer's state (``opt.init``). Its bytes; freed on return."""
+    from repro_torch.core.engine import tree_from_items, tree_items
+    from repro_torch.launch.specs import param_specs
+    params = tree_from_items([
+        (path, torch.empty((M,) + tuple(leaf.shape), dtype=leaf.dtype,
+                           device="cuda"))
+        for path, leaf in tree_items(param_specs(cfg))])
+    mom = opt.init(params, workers=M)
+    torch.cuda.synchronize()
+    return sum(t.numel() * t.element_size()
+               for tree in (params, mom) for _, t in tree_items(tree))
+
+
+def _state_against_total_memory(M=SLICE_RUN[0]):
+    """(b), the card's memory: the tree engine's persistent state of ``M``
+    workers builds at the largest yi-6b depth whose ``launch.validate``
+    formula fits the card's ``total_memory``, the next depth raises a real
+    OutOfMemoryError, and nothing is left allocated. It runs before phase
+    2 (or, with ``--phases 19``, before phases 3 and 12): by phase 19 the
+    CUDA context and the libraries the earlier phases load hold about 2.1
+    GiB of the card outside PyTorch's allocator (0.7 GiB after phase 12
+    alone; both measured on an H100 80GB HBM3), and 17 layers need all but
+    1.7 GiB of it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import validate
+    from repro_torch.optim import make_optimizer
+    total = torch.cuda.get_device_properties(0).total_memory
+    yi = get_arch("yi-6b")
+    need = lambda L: validate.state_gb(dataclasses.replace(
+        yi, n_layers=L).param_count(), 1) * 1e9 * M
+    fit = max(L for L in range(1, yi.n_layers + 1) if need(L) <= total)
+    opt = make_optimizer("sgd", momentum=0.9, weight_decay=1e-3)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    free = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    built = _persistent_state(dataclasses.replace(yi, n_layers=fit), M,
+                              opt)
+    t_fit = time.perf_counter() - t0
+    oom = ""
+    try:
+        _persistent_state(dataclasses.replace(yi, n_layers=fit + 1), M,
+                          opt)
+    except torch.cuda.OutOfMemoryError as e:
+        oom = str(e).splitlines()[0]
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - before
+    print(f"  (b) total_memory {total} bytes ({free} free, {before} "
+          f"allocated): {fit} layers need {need(fit):.0f} and built "
+          f"({built} bytes, {t_fit:.2f} s); {fit + 1} layers need "
+          f"{need(fit + 1):.0f}: {oom or 'built'}; {left} bytes left "
+          "allocated")
+    if not oom:
+        raise AssertionError(f"(b) {fit + 1} layers built past the card")
+    if abs(built - need(fit)) > INSPECT_TOL * need(fit) or left:
+        raise AssertionError(f"(b) the state built {built} bytes against "
+                             f"{need(fit):.0f}; {left} bytes left")
+    return {"total_memory": total, "free_before": free, "fit_layers": fit,
+            "fit_bytes": built, "oom": oom, "left_bytes": left}
+
+
+def _formula_against_allocation(tree_res):
+    """(b), the allocation: the bytes phase 12's round holds between
+    rounds against ``launch.validate``'s formula (params bf16 + momentum
+    fp32, per worker) x M, within 1%; else the buffer that differs is
+    named."""
+    from repro_torch.launch import validate
+    n, M, base = tree_res["n"], tree_res["M"], tree_res["base_bytes"]
+    want = validate.state_gb(n, 1) * 1e9 * M
+    # allocated between rounds less what was allocated before phase 12
+    # built its state
+    got = [r["allocated_bytes"] - base for r in tree_res["rounds"]]
+    worst = max(abs(g - want) / want for g in got)
+    free = torch.cuda.mem_get_info()[0]
+    print(f"  (b) phase 12 between rounds: allocated {got} bytes above the "
+          f"{base} allocated before its state was built, against the "
+          f"formula's {want:.0f} (params bf16 + momentum fp32 x {M} "
+          f"workers): largest difference {worst:.3%}; the card has {free} "
+          "bytes free now")
+    if worst > INSPECT_TOL:
+        parts = tree_res["state_bytes"]
+        named = {"params": 2 * n * M, "momentum": 4 * n * M,
+                 "consensus state": 0}
+        off = {k: parts[k] - named[k] for k in parts if parts[k] != named[k]}
+        off["other buffers"] = max(got) - sum(parts.values())
+        raise AssertionError(f"(b) allocated bytes {got} differ from the "
+                             f"formula's {want:.0f} by more than "
+                             f"{INSPECT_TOL:.0%}; buffers that differ "
+                             f"(bytes): {off}")
+    return {"allocated": got, "base_bytes": base, "formula": want,
+            "worst": worst, "free_now": free}
+
+
+def _planner_and_report():
+    """(c): the dry-run CLI over H100 nodes into a fresh directory, then the
+    ``roofline`` suite row on it."""
+    import contextlib as ctx
+    import io
+    import tempfile
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.launch import dryrun
+    base = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(base, exist_ok=True)
+    out = tempfile.mkdtemp(prefix="dryrun19_", dir=base)
+    t0 = time.perf_counter()
+    for argv in DRYRUNS:
+        buf = io.StringIO()
+        try:
+            with ctx.redirect_stdout(buf):
+                dryrun.main(argv + ["--out", out])
+        except SystemExit as e:
+            raise AssertionError("(c) the dry-run failed:\n"
+                                 + buf.getvalue()[-3000:]) from e
+        print("\n".join("  (c) " + l for l in buf.getvalue().splitlines()
+                        if l.startswith(("[", "all", "round plan"))))
+    t_dry = time.perf_counter() - t0
+    buf = io.StringIO()
+    with ctx.redirect_stdout(buf):
+        recs = bench_run.suites(roofline_dir=out)["roofline"]()
+    rows = buf.getvalue().splitlines()
+    print("\n".join("  (c) " + l for l in rows))
+    shutil.rmtree(out, ignore_errors=True)
+    kinds = [l.split(",")[0] for l in rows]
+    if len(recs) != 3 or kinds.count("roofline") != 3 \
+            or kinds.count("roofline_overlap") != 2:
+        raise AssertionError(f"(c) {len(recs)} records, rows {kinds}")
+    return {"seconds": t_dry, "records": [
+        {k: r[k] for k in ("arch", "shape", "mesh", "mode", "roofline",
+                           "hlo_flops_per_dev", "hlo_bytes_per_dev",
+                           "lower_s", "kernels")} for r in recs]}
+
+
+def _launcher_autotune_sharded():
+    """(d): ``--sharded --autotune`` under torchrun on two ranks: both
+    print the same plan (the sha256 of its JSON, that of the file rank 0
+    writes) and rank 1 probes nothing."""
+    import hashlib
+    import re
+    base = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(base, exist_ok=True)
+    plan = os.path.join(base, "plan19.json")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+           *TUNE_SHARDED_ARGV, "--tune-plan", plan]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=600, cwd=ROOT)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError("torchrun --sharded --autotune failed:\n"
+                             + proc.stdout[-3000:] + proc.stderr[-3000:])
+    seen = {int(r): (h, int(n)) for r, h, n in re.findall(
+        r"autotune rank (\d): plan sha256 ([0-9a-f]{64}), probes here "
+        r"(\d+)", proc.stdout)}
+    text = open(plan).read()
+    sha = hashlib.sha256(text.encode()).hexdigest()
+    chose = [l for l in proc.stdout.splitlines()
+             if l.startswith("autotune: chose")]
+    print(f"  (d) torchrun --sharded --autotune, 2 ranks, {secs:.1f} s: "
+          f"{chose}; ranks {seen}; the plan file's sha256 {sha}")
+    if sorted(seen) != [0, 1] or seen[0][0] != sha or seen[1][0] != sha \
+            or seen[1][1] != 0 \
+            or seen[0][1] != json.loads(text)["probes_used"]:
+        raise AssertionError(f"(d) ranks {seen}, plan sha256 {sha}")
+    return {"seconds": secs, "ranks": seen, "chose": chose}
+
+
+def phase_launch_analysis(pk, launches, slice_res, tree_res, memory):
+    """Phase 19. ``memory``: ``_state_against_total_memory``'s result, run
+    first in the script (its docstring says why)."""
+    secs, out = {}, {}
+    print("  (b) at the start of the run: " + json.dumps(memory))
+    for part, fn in (
+            ("a", lambda: _census_of_the_slice(pk, launches, slice_res)),
+            ("b", lambda: dict(_formula_against_allocation(tree_res),
+                               **memory)),
+            ("c", _planner_and_report),
+            ("d", _launcher_autotune_sharded)):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        secs[part] = time.perf_counter() - t0
+    print("  phase 19 seconds " + json.dumps(secs))
+    out["seconds"] = secs
+    return out
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description="the port's smoke run on one "
@@ -5173,10 +5446,11 @@ def main(argv=None):
 
 def _partial(only, pk, ref, swa, swa_attention_plain, secs):
     """``--phases``: phase 1, then the phases named, alone."""
-    if not only <= {2, 14, 15, 16, 17, 18} or (16 in only
-                                               and 15 not in only):
-        raise SystemExit("--phases: any of 2, 14, 15, 16, 17, 18 (phase 16 "
-                         "resumes from phase 15's resume point: 15,16)")
+    if not only <= {2, 14, 15, 16, 17, 18, 19} or (16 in only
+                                                   and 15 not in only):
+        raise SystemExit("--phases: any of 2, 14, 15, 16, 17, 18, 19 "
+                         "(phase 16 resumes from phase 15's resume point: "
+                         "15,16; 19 runs phases 3 and 12 first)")
     for ph in sorted(only):
         t0 = time.perf_counter()
         print(f"phase {ph} (partial run)")
@@ -5197,6 +5471,11 @@ def _partial(only, pk, ref, swa, swa_attention_plain, secs):
             phase_supervised(pk, RESUME_POINT)
         elif ph == 18:
             phase_autotune(pk)
+        elif ph == 19:
+            memory = _state_against_total_memory()
+            launches, slice_res = phase_slice(pk)
+            tree = phase_tree(pk, ref)
+            phase_launch_analysis(pk, launches, slice_res, tree, memory)
         else:
             fam = phase_families(pk, swa, swa_attention_plain)
             print("  swa_attention at phase 17's shapes "
@@ -5209,13 +5488,20 @@ def _partial(only, pk, ref, swa, swa_attention_plain, secs):
 
 def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
            secs, t_start):
-    """Phases 2-17, the kernels record and the contract's last line."""
+    """Phases 2-19, the kernels record and the contract's last line."""
+    held = {}      # bytes allocated as each phase starts
+    print("phase 19(b), first: the persistent state against total_memory")
+    t0 = time.perf_counter()
+    memory = _state_against_total_memory()
+    secs["state vs total_memory"] = time.perf_counter() - t0
     print("phase 2: kernels against their plain versions")
+    held[2] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     rows, leaf_errs = phase_kernels(pk, ref)
     secs["kernels"] = time.perf_counter() - t0
 
     print("phase 3: the slice (yi-6b, full width)")
+    held[3] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     launches, none_mode = phase_slice(pk)
     secs["slice"] = time.perf_counter() - t0
@@ -5223,26 +5509,31 @@ def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
         row["launches"] = launches[name]
 
     print("phase 4: the launcher")
+    held[4] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     phase_launcher(pk)
     secs["launcher"] = time.perf_counter() - t0
 
     print("phase 5: swa_attention against its plain version")
+    held[5] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     rows["swa_attention"] = phase_attention(swa, swa_attention_plain)
     secs["attention"] = time.perf_counter() - t0
 
     print("phase 6: serving gemma2-2b (full width, full depth)")
+    held[6] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     by_path = {"gemma2-2b serving": phase_serving(swa)}
     secs["serving"] = time.perf_counter() - t0
 
     print("phase 7: ssd_chunks against its plain version")
+    held[7] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     rows["ssd_chunks"] = phase_ssd(mk, ssd_ref)
     secs["ssd"] = time.perf_counter() - t0
 
     print("phase 8: serving zamba2-7b (full width, full depth)")
+    held[8] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     zamba = phase_zamba2(swa, mk)
     secs["zamba2"] = time.perf_counter() - t0
@@ -5256,11 +5547,13 @@ def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
     rows["ssd_chunks"]["launches"] = zamba["ssd_chunks"]
 
     print("phase 9: slstm_steps against its plain version")
+    held[9] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     rows["slstm_steps"] = phase_slstm(sk, slstm_ref)
     secs["slstm"] = time.perf_counter() - t0
 
     print("phase 10: serving xlstm-350m (full width, full depth)")
+    held[10] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     xl = phase_xlstm(sk)
     secs["xlstm"] = time.perf_counter() - t0
@@ -5268,11 +5561,13 @@ def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
     rows["slstm_steps"]["launches"] = xl
 
     print("phase 11: sq_dist and apply_update against their plain versions")
+    held[11] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     rows.update(phase_pair(pk, ref))
     secs["pair"] = time.perf_counter() - t0
 
     print("phase 12: the tree path (yi-6b, full width)")
+    held[12] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     tree = phase_tree(pk, ref)
     secs["tree"] = time.perf_counter() - t0
@@ -5283,6 +5578,7 @@ def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
         rows[name]["launches"] = tree["eq5"][name] + tree["easgd"][name]
 
     print("phase 13: the overlap modes (yi-6b, full width)")
+    held[13] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     overlap = phase_overlap(pk, ref, none_mode)
     secs["overlap"] = time.perf_counter() - t0
@@ -5295,6 +5591,7 @@ def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
         rows[name]["launches"] += overlap["launches"][name]
 
     print("phase 14: the paper's harness and measures")
+    held[14] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     harness = phase_harness(pk, ref)
     secs["harness"] = time.perf_counter() - t0
@@ -5315,6 +5612,7 @@ def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
         rows[name] = row
 
     print("phase 15: the sharded round on torch.distributed ranks")
+    held[15] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     sharded = phase_sharded(pk, ref, RESUME_POINT)
     secs["sharded"] = time.perf_counter() - t0
@@ -5331,6 +5629,7 @@ def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
                     rows[name]["launches"] += n
 
     print("phase 16: the fault-tolerant round loop")
+    held[16] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     sup = phase_supervised(pk, RESUME_POINT)
     secs["supervised"] = time.perf_counter() - t0
@@ -5344,6 +5643,7 @@ def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
                 rows[name]["launches"] += n
 
     print("phase 17: the MoE, enc-dec and vlm families")
+    held[17] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     fam = phase_families(pk, swa, swa_attention_plain)
     secs["families"] = time.perf_counter() - t0
@@ -5357,6 +5657,7 @@ def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
             rows[name]["launches"] += sum(by_path.values())
 
     print("phase 18: the autotune search")
+    held[18] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     tune = phase_autotune(pk)
     secs["autotune"] = time.perf_counter() - t0
@@ -5367,8 +5668,15 @@ def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
             if n and name in rows:
                 rows[name].setdefault("launches_by_path", {})[label] = n
                 rows[name]["launches"] += n
+
+    print("phase 19: launch analysis against the card")
+    held[19] = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    phase_launch_analysis(pk, launches, none_mode, tree, memory)
+    secs["launch analysis"] = time.perf_counter() - t0
     secs["total"] = time.perf_counter() - t_start
     print("phase seconds " + json.dumps(secs))
+    print("allocated bytes as each phase starts " + json.dumps(held))
 
     record = list(rows.values())
     print("kernels " + json.dumps([

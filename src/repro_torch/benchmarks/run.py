@@ -7,8 +7,10 @@ the card unless ``--device cpu`` is given.
   PYTHONPATH=src python -m repro_torch.benchmarks.run [--fast] \
       [--only table2,...] [--device cuda|cpu]
 
-``microbench`` and ``roofline`` are not ported yet: they raise, so a run
-that includes them exits non-zero (leave them out with ``--only``).
+``microbench`` is not ported yet: it raises, so a run that includes it
+exits non-zero (leave it out with ``--only``). ``roofline`` reads the
+dry-run records of ``repro_torch.launch.dryrun`` (``results/dryrun_torch``
+unless ``suites(roofline_dir=...)`` names another directory).
 """
 from __future__ import annotations
 
@@ -68,8 +70,9 @@ ARTIFACTS = {
         "Tables 3-4 (M axis)", "repro_torch/benchmarks/ablate_workers.py",
         "worker-count scaling of the push edge and width M-robustness"),
     "roofline": (
-        "—", "benchmarks/roofline_report.py",
-        "per-(arch x shape x mesh) roofline (not yet ported)"),
+        "—", "repro_torch/benchmarks/roofline_report.py",
+        "per-(arch x shape x H100 node count) roofline from the dry-run "
+        "records"),
 }
 
 NOT_PORTED = "not yet ported"
@@ -81,14 +84,17 @@ def _not_ported(name):
     return fn
 
 
-def suites(fast=False, device="cuda"):
+def suites(fast=False, device="cuda", roofline_dir=None):
     """``{name: callable}`` in the reference's order, with its budgets
-    (``fast``: the reference's ``--fast`` ones)."""
+    (``fast``: the reference's ``--fast`` ones). ``roofline_dir``: where
+    the ``roofline`` row reads its dry-run records."""
     from repro_torch.benchmarks import (
         ablate_schedule, ablate_second_term, ablate_workers, d2_theorem2,
-        fig2_valley_collapse, table1_sharpness, table2_comm,
-        table3_softconsensus, table4_sam, table5_noniid, theorem1_width,
+        fig2_valley_collapse, roofline_report, table1_sharpness,
+        table2_comm, table3_softconsensus, table4_sam, table5_noniid,
+        theorem1_width,
     )
+    from repro_torch.launch.dryrun import OUT
     d = dict(device=device)
     return {
         "microbench": _not_ported("microbench"),
@@ -113,7 +119,7 @@ def suites(fast=False, device="cuda"):
             steps=150 if fast else 400, **d),
         "table1": lambda: table1_sharpness.run(steps=120 if fast else 300,
                                                **d),
-        "roofline": _not_ported("roofline"),
+        "roofline": lambda: roofline_report.run(roofline_dir or OUT),
     }
 
 

@@ -25,7 +25,8 @@ reference:
   (``GRAM_NOISE_FACTOR``).
 * precise: exact gap-space stages (one extra (R, n) buffer).
 
-``use_kernel`` defaults to True exactly when the tensors are on ``cuda``.
+``use_kernel`` defaults to True exactly when the tensors are on ``cuda``,
+or on ``meta``, where launch analysis traces what the card runs.
 fp32 matmuls run at full precision: TF32 would break the fast path's
 eps32-derived floor, so it is switched off when this module is imported.
 
@@ -190,7 +191,7 @@ class ConsensusEngine:
         from repro_torch.core.methods import get_method
         aux = get_method(method).aux_rows
         device = leaves[0].device
-        kw.setdefault("use_kernel", device.type == "cuda")
+        kw.setdefault("use_kernel", device.type in ("cuda", "meta"))
         kw.setdefault("device", str(device))
         layout = FlatLayout(paths=tuple(p for p, _ in items), shapes=shapes,
                             dtypes=tuple(_dtype_name(l.dtype) for l in leaves),

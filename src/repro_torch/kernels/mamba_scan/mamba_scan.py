@@ -21,8 +21,10 @@ Two entry points share one launch:
 
 The wrappers check their inputs before they dispatch, on either device.
 For tensors on the CPU they run the plain version from ``ref.py``; for
-CUDA tensors they launch the kernel or raise: there is no fallback. The
-shared library is built from ``csrc/mamba_scan.cu`` at first CUDA use
+CUDA tensors they launch the kernel or raise: there is no fallback; on
+the ``meta`` device (launch analysis) they launch nothing, return empty
+outputs and record the call at its ``cost()`` with the active
+``launch.census.Census``. The shared library is built from ``csrc/mamba_scan.cu`` at first CUDA use
 (``build()``, through ``kernels/_build.py``), never at import.
 ``LAUNCHES["ssd_chunks"]`` counts kernel launches.
 """
@@ -40,6 +42,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.mamba_scan.ref import (
     ssd_chunks_plain, ssd_chunks_seq_plain,
 )
+from repro_torch.launch.census import record_kernel
 
 # the kernel's tiles: L in 8-row tiles, P in m16 tiles, N in n8 tiles
 MAX_L, MAX_P, MAX_N = 128, 64, 64
@@ -136,6 +139,27 @@ def reset_launches():
     LAUNCHES["ssd_chunks"] = 0
 
 
+def cost(Bt, S, H, P, N, L):
+    """The work of one call on S tokens in chunks of L: ``{"flops",
+    "bytes"}``, x, B, C, a read once and y, states written once, and the
+    FLOPs the function needs. A chunk of v tokens has v (v + 1) / 2
+    causal (t, s) pairs; per pair y = (G o decay) x needs 2 P FLOPs per
+    head and S = G o decay one multiply per head, G = C B^T needs 2 N
+    once per (b, chunk) (it does not depend on the head), and the state
+    x^T (B o rem) needs 2 P N per token and head. Pairs with s > t and
+    tokens past S need nothing. ``chip_smoke.py``'s bound takes the
+    kernel's route, each product in 3xTF32, as 3 x these FLOPs over the
+    TF32 peak."""
+    nc = -(-S // L)
+    pairs = sum(v * (v + 1) // 2 for v in (min(L, S - c * L)
+                                            for c in range(nc)))
+    nbytes = 4 * (2 * Bt * S * H * P + Bt * H * nc * P * N
+                  + 2 * Bt * S * N + Bt * S * H)
+    flops = (Bt * H * (2 * P * pairs + pairs + 2 * P * N * S)
+             + Bt * 2 * N * pairs)
+    return {"flops": flops, "bytes": nbytes}
+
+
 def build():
     """Compile ``csrc/mamba_scan.cu`` (once per source hash) and load it.
     Returns the ``ctypes.CDLL``."""
@@ -174,7 +198,7 @@ def _check_dims(x, L, P, N):
                          f"takes L <= {MAX_L} in multiples of {L_STEP}, "
                          f"P <= {MAX_P} in multiples of {P_STEP} and "
                          f"N <= {MAX_N} in multiples of {N_STEP}")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {x.device}")
 
 
@@ -190,6 +214,10 @@ def _launch(x, sx, B_, sb, C_, sc, a_log, sa, y, sy, st, sst, dims,
     Tokens ``c * L + l >= t_valid`` read as zero and their rows of y are
     not written."""
     Bt, H, nc, L, P, N = dims
+    if x.device.type == "meta":
+        record_kernel("ssd_chunks", cost(Bt, int(t_valid), H, P, N, L),
+                      (x, B_, C_, a_log), (y, st))
+        return y, st
     geo = geometry(Bt, int(t_valid), H, L, P, N)
     lib = build()
     strides = (ctypes.c_longlong * 22)(*sx, *sb, *sc, *sa, *sy, *sst)

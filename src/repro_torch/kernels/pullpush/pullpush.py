@@ -57,9 +57,13 @@ registers, no padded copy of the (R, n) matrix (the reference pads it,
 which at the main path's width would be 19.5 GB of extra traffic), and
 ``out=flat`` writes the mix in place.
 
-Every wrapper checks its inputs before it dispatches, on either device.
+Every wrapper checks its inputs before it dispatches, on any device.
 For tensors on the CPU it runs the plain version from ``ref.py``; for a
-CUDA tensor it launches the kernel or raises — there is no fallback. The
+CUDA tensor it launches the kernel or raises — there is no fallback; on
+the ``meta`` device (launch analysis, ``launch/roofline.py``) it launches
+nothing: it returns empty outputs of the kernel's shapes and records each
+launch, and each wrapper ``LAUNCHES`` counts, with the active
+``launch.census.Census``, at its ``cost()``. The
 shared library is built from ``csrc/pullpush.cu`` with ``nvcc`` on first
 CUDA use (``build()``, through ``kernels/_build.py``), never at import.
 ``LAUNCHES`` counts kernel launches per kernel; ``fused_round``,
@@ -69,6 +73,7 @@ calls (each is more than one launch, or a launch counted under
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from dataclasses import dataclass
 from pathlib import Path
@@ -77,6 +82,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch.census import record_kernel
 from repro_torch.kernels.pullpush.ref import (
     apply_plain, fused_round_leaves_plain, fused_round_plain,
     fused_round_sharded_plain, gram_coef_plain, gram_sum_plain,
@@ -88,6 +94,7 @@ MAX_ROWS = 32          # the kernels keep one column of every row in registers
 THREADS = 256          # kThreads in csrc/pullpush.cu
 BLOCKS_PER_SM = 8      # grid of the two streaming kernels: 8 x 256 threads/SM
 
+NUM_SMS = 132          # H100 SXM: the grid a trace on meta assumes
 GROUP = 8              # kGroup: elements a thread step of the vector kernels
 # dtype codes of the C interface of sq_dist / apply_update
 PAIR_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -132,6 +139,56 @@ def reset_launches():
         LAUNCHES[k] = 0
 
 
+def cost(kernel, R, n, *, base=False, nblk=1, leaf_bytes=0, x_bytes=4,
+         a_bytes=4):
+    """The work of one call of ``kernel`` (a ``LAUNCHES`` name) on an (R,
+    n) fp32 view: ``{"flops", "bytes"}``, the bytes it must move (each
+    input read once, each output written once) and its fp32 operations.
+    ``chip_smoke.py``'s bounds divide them by the card's rates. ``base``:
+    the stale epilogue's variant (q read too); ``nblk``: ``gram_coef``'s
+    partial Grams; ``leaf_bytes``: the tree of ``leaf_gram`` /
+    ``leaf_mix`` (whose (R, n) is its virtual view); ``x_bytes`` /
+    ``a_bytes``: the element sizes of ``sq_dist`` / ``apply_update``'s
+    (n,) vectors."""
+    small = 4 * (R * R + 3 * R)              # T, c0 / c1 / coef, r
+    gram = R * R * 4
+    k = 3 if base else 2                     # (R, n) passes of a mix
+    table = {
+        "fused_round": (k * R * n * 4 + small + gram,
+                        2 * R * R * n + k * R * R * n),
+        "fused_round_sharded": ((k + 1) * R * n * 4,
+                                2 * R * R * n + k * R * R * n),
+        "partial_gram": (R * n * 4 + gram, 2 * R * R * n),
+        "gram_coef": (nblk * gram + small + gram, nblk * R * R + 4 * R ** 3),
+        "mix_shard": (2 * R * n * 4 + small, 2 * R * R * n),
+        "stale_mix": (3 * R * n * 4 + small, 3 * R * R * n),
+        "mix_from_gram": (k * R * n * 4 + small + gram, k * R * R * n),
+        "leaf_gram": (leaf_bytes + small + gram, 2 * R * R * n),
+        "leaf_mix": (2 * leaf_bytes + small, 2 * R * R * n),
+        "sq_dist": (n * (x_bytes + a_bytes), 3 * n),
+        "apply_update": (n * (2 * x_bytes + a_bytes), 3 * n),
+    }
+    if kernel not in table:
+        raise ValueError(f"unknown kernel {kernel!r}")
+    nbytes, flops = table[kernel]
+    return {"flops": flops, "bytes": nbytes}
+
+
+def _count(name, t, work):
+    """One call of wrapper ``name`` on ``t``'s device: counted in
+    ``LAUNCHES`` on the card, recorded with the census on meta."""
+    if t.device.type == "meta":
+        record_kernel(name, work)
+    else:
+        LAUNCHES[name] += 1
+
+
+def _on(t):
+    """The device context of a launch: the card's, or none on meta."""
+    return torch.cuda.device(t.device) if t.is_cuda \
+        else contextlib.nullcontext()
+
+
 def build():
     """Compile ``csrc/pullpush.cu`` (once per source hash) and load it
     (``kernels/_build.py``). Returns the ``ctypes.CDLL``;
@@ -163,7 +220,7 @@ def _check_flat(flat, name="flat", *, strided=False):
                          f"1..{MAX_ROWS}")
     if n < 1:
         raise ValueError(f"{name} has no columns")
-    if flat.device.type not in ("cpu", "cuda"):
+    if flat.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {flat.device}")
 
 
@@ -224,6 +281,8 @@ _SM_COUNT = {}
 def _blocks(device, groups):
     """Grid of a grid-stride kernel over ``groups`` thread steps: one
     step a thread, at most BLOCKS_PER_SM blocks of THREADS a multiprocessor."""
+    if device.type == "meta":
+        return max(1, min(-(-groups // THREADS), BLOCKS_PER_SM * NUM_SMS))
     dev = device.index if device.index is not None \
         else torch.cuda.current_device()
     if dev not in _SM_COUNT:
@@ -281,7 +340,6 @@ def _launch_partial_gram(flat, vec, T=None, c0=None, c1=None, eps=1e-12,
     block partials into G and, given T, computes r and coef: returns
     ``(G, r, coef)`` (r and coef None without T). Without, the (nblk, R,
     R) workspace of block partials, for ``gram_coef``."""
-    lib = build()
     R, n = flat.shape
     nblk = _grid(flat, vec)
     ws = torch.empty((nblk, R, R), dtype=torch.float32, device=flat.device)
@@ -290,6 +348,12 @@ def _launch_partial_gram(flat, vec, T=None, c0=None, c1=None, eps=1e-12,
         G, r, coef = _coef_outputs(R, flat.device)
         if T is None:
             r = coef = None
+    if flat.device.type == "meta":
+        record_kernel("partial_gram", cost("partial_gram", R, n),
+                      (flat, T, c0, c1), (G, r, coef) if tail else (ws,))
+        return (G, r, coef) if tail else ws
+    lib = build()
+    if tail:
         ticket = _ticket(flat)
     LAUNCHES["partial_gram"] += 1
     _raise_if(lib.pp_partial_gram(
@@ -301,9 +365,13 @@ def _launch_partial_gram(flat, vec, T=None, c0=None, c1=None, eps=1e-12,
 
 def _launch_gram_coef(ws, T=None, c0=None, c1=None, eps=1e-12):
     """Fixed-order sum of the partials into G; with T also r and coef."""
-    lib = build()
     nblk, R, _ = ws.shape
     G, r, coef = _coef_outputs(R, ws.device)
+    if ws.device.type == "meta":
+        record_kernel("gram_coef", cost("gram_coef", R, 0, nblk=nblk),
+                      (ws, T, c0, c1), (G, r, coef))
+        return G, r, coef
+    lib = build()
     LAUNCHES["gram_coef"] += 1
     _raise_if(lib.pp_gram_coef(
         _ptr(ws), nblk, R, _opt(T), _opt(c0), _opt(c1), float(eps), _ptr(G),
@@ -313,8 +381,12 @@ def _launch_gram_coef(ws, T=None, c0=None, c1=None, eps=1e-12):
 
 def _launch_mix(flat, T, coef, out, base=None):
     """``mix_shard``'s kernel, or with ``base`` the stale epilogue's."""
-    lib = build()
     R, n = flat.shape
+    if flat.device.type == "meta":
+        name = "mix_shard" if base is None else "stale_mix"
+        record_kernel(name, cost(name, R, n), (flat, T, coef, base), (out,))
+        return out
+    lib = build()
     vec = _vec(*(t for t in (flat, out, base) if t is not None))
     nblk = _grid(flat, vec)
     if base is None:
@@ -334,12 +406,17 @@ def _launch_mix_from_gram(flat, T, c0, c1, G, eps, out, base=None):
     """The mix (or with ``base`` the stale epilogue) whose blocks compute
     the coefficients from the given Gram G in their prologue: one launch,
     counted as ``mix_shard`` / ``stale_mix``. Returns ``(r, coef)``."""
-    lib = build()
     R, n = flat.shape
-    vec = _vec(*(t for t in (flat, out, base) if t is not None))
-    nblk = _grid(flat, vec)
     _, r, coef = _coef_outputs(R, flat.device)
     name = "mix_shard" if base is None else "stale_mix"
+    if flat.device.type == "meta":
+        record_kernel(name, cost("mix_from_gram", R, n,
+                                 base=base is not None),
+                      (flat, T, G, c0, c1, base), (out, r, coef))
+        return r, coef
+    lib = build()
+    vec = _vec(*(t for t in (flat, out, base) if t is not None))
+    nblk = _grid(flat, vec)
     LAUNCHES[name] += 1
     _raise_if(lib.pp_mix_from_gram(
         _ptr(flat), R, n, _ptr(T), _ptr(G), _ptr(c0), _ptr(c1), float(eps),
@@ -391,8 +468,9 @@ def fused_round(flat, T, c0, c1, eps=1e-12, out=None, base=None):
         G = partial_gram_plain(flat)
         return mix_from_gram_plain(flat, T, c0, c1, G, eps, out=out,
                                    base=base)
-    LAUNCHES["fused_round"] += 1
-    with torch.cuda.device(flat.device):
+    _count("fused_round", flat, cost("fused_round", R, flat.shape[1],
+                                     base=base is not None))
+    with _on(flat):
         G, r, coef = _launch_partial_gram(flat, _vec(flat), T, c0, c1, eps)
         _launch_mix(flat, T, coef, out, base)
     return out, r, G
@@ -419,8 +497,10 @@ def fused_round_sharded(flat, T, c0, c1, *, group, eps=1e-12, out=None,
     if flat.device.type == "cpu":
         return fused_round_sharded_plain(flat, T, c0, c1, reduce, eps,
                                          out=out, base=base)
-    LAUNCHES["fused_round_sharded"] += 1
-    with torch.cuda.device(flat.device):
+    _count("fused_round_sharded", flat,
+           cost("fused_round_sharded", R, flat.shape[1],
+                base=base is not None))
+    with _on(flat):
         G, _, _ = _launch_partial_gram(flat, _vec(flat))
         G = reduce(G)
         r, _ = _launch_mix_from_gram(flat, T, c0, c1, G, eps, out, base)
@@ -437,7 +517,7 @@ def partial_gram(flat, *, vec=None):
     vec = _vec(flat, want=vec)
     if flat.device.type == "cpu":
         return partial_gram_plain(flat)
-    with torch.cuda.device(flat.device):
+    with _on(flat):
         G, _, _ = _launch_partial_gram(flat, vec)
     return G
 
@@ -459,7 +539,7 @@ def gram_coef(ws, T, c0, c1, eps=1e-12):
     if ws.device.type == "cpu":
         G = gram_sum_plain(ws)
         return (G, *gram_coef_plain(G, T, c0, c1, eps))
-    with torch.cuda.device(ws.device):
+    with _on(ws):
         return _launch_gram_coef(ws.contiguous(), T, c0, c1, eps)
 
 
@@ -473,7 +553,7 @@ def mix_shard(flat, T, coef, out=None):
     out = _check_out(out, flat)
     if flat.device.type == "cpu":
         return mix_shard_plain(flat, T, coef, out=out)
-    with torch.cuda.device(flat.device):
+    with _on(flat):
         return _launch_mix(flat, T, coef, out)
 
 
@@ -493,7 +573,7 @@ def stale_mix(flat, T, coef, base, out=None):
     out = _check_out(out, flat, base)
     if flat.device.type == "cpu":
         return stale_mix_plain(flat, T, coef, base, out=out)
-    with torch.cuda.device(flat.device):
+    with _on(flat):
         return _launch_mix(flat, T, coef, out, base)
 
 
@@ -516,8 +596,9 @@ def mix_from_gram(flat, T, c0, c1, G, eps=1e-12, out=None, base=None):
     if flat.device.type == "cpu":
         return mix_from_gram_plain(flat, T, c0, c1, G, eps, out=out,
                                    base=base)
-    LAUNCHES["mix_from_gram"] += 1
-    with torch.cuda.device(flat.device):
+    _count("mix_from_gram", flat, cost("mix_from_gram", R, flat.shape[1],
+                                       base=base is not None))
+    with _on(flat):
         r, _ = _launch_mix_from_gram(flat, T, c0, c1, G, eps, out, base)
     return out, r, G
 
@@ -586,7 +667,7 @@ def leaf_table(leaves):
     dev = leaves[0].device
     if any(l.device != dev for l in leaves):
         raise ValueError("the leaves lie on different devices")
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
     M = leaves[0].shape[0]
     if any(l.shape[0] != M for l in leaves):
@@ -649,6 +730,17 @@ def fused_round_leaves(leaves, T, c0, c1, eps=1e-12):
     c1 = _small(c1, (M,), leaves[0])
     if leaves[0].device.type == "cpu":
         return fused_round_leaves_plain(leaves, T, c0, c1, eps)
+    if leaves[0].device.type == "meta":
+        outs = [torch.empty_like(l) for l in leaves]
+        G, r, coef = _coef_outputs(M, leaves[0].device)
+        tree = sum(l.numel() * l.element_size() for l in leaves)
+        record_kernel("leaf_gram", cost("leaf_gram", M, table.n,
+                                        leaf_bytes=tree),
+                      (*leaves, T, c0, c1), (G, r, coef))
+        record_kernel("leaf_mix", cost("leaf_mix", M, table.n,
+                                       leaf_bytes=tree),
+                      (*leaves, T, coef), outs)
+        return outs, r, G
     with torch.cuda.device(leaves[0].device):
         gram, mix, outs, r, G = _leaf_launches(leaves, table, T, c0, c1, eps)
         LAUNCHES["leaf_gram"] += 1
@@ -671,7 +763,7 @@ def _check_vec(v, name):
         raise ValueError(f"{name} must be contiguous")
     if v.numel() < 1:
         raise ValueError(f"{name} is empty")
-    if v.device.type not in ("cpu", "cuda"):
+    if v.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {v.device}")
 
 
@@ -697,6 +789,13 @@ def sq_dist(x, a):
     _check_pair(x, a)
     if x.device.type == "cpu":
         return sq_dist_plain(x, a)
+    if x.device.type == "meta":
+        out = torch.empty((), dtype=torch.float32, device="meta")
+        record_kernel("sq_dist", cost("sq_dist", 1, x.numel(),
+                                      x_bytes=x.element_size(),
+                                      a_bytes=a.element_size()),
+                      (x, a), (out,))
+        return out
     lib = build()
     n = x.numel()
     vec8 = _vec8(x, a)
@@ -751,6 +850,12 @@ def apply_update(x, a, coef, *, out=None):
     out = _check_vec_out(out, x, a)
     if x.device.type == "cpu":
         return apply_plain(x, a, coef, out=out)
+    if x.device.type == "meta":
+        record_kernel("apply_update", cost("apply_update", 1, x.numel(),
+                                           x_bytes=x.element_size(),
+                                           a_bytes=a.element_size()),
+                      (x, a, coef), (out,))
+        return out
     lib = build()
     n = x.numel()
     vec8 = _vec8(x, a) and out.data_ptr() % 16 == 0

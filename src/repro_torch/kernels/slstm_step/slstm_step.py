@@ -20,7 +20,10 @@ update), else into new tensors.
 
 The wrapper checks its inputs before it dispatches, on either device. For
 tensors on the CPU it runs the plain version from ``ref.py``; for CUDA
-tensors it launches the kernel or raises: there is no fallback. The shared
+tensors it launches the kernel or raises: there is no fallback; on the
+``meta`` device (launch analysis) it launches nothing, returns empty
+outputs and records the call at its ``cost()`` with the active
+``launch.census.Census``. The shared
 library is built from ``csrc/slstm_step.cu`` at first CUDA use
 (``build()``, through ``kernels/_build.py``), never at import.
 ``LAUNCHES["slstm_steps"]`` counts kernel launches.
@@ -36,6 +39,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.slstm_step.ref import slstm_steps_ref
+from repro_torch.launch.census import record_kernel
 
 HEAD_DIMS = (8, 16, 32, 128, 512)   # the kernel's template instances
 
@@ -112,6 +116,17 @@ def reset_launches():
     LAUNCHES["slstm_steps"] = 0
 
 
+def cost(B, T, H, P):
+    """The work of one call: ``{"flops", "bytes"}``, 2 B T H P 4P FLOP
+    for h @ R, and g_in, R and the state read once and h and the final
+    state written once. ``chip_smoke.py``'s bound divides them by the
+    fp32 peak and the memory rate."""
+    flops = 2 * B * T * H * P * 4 * P
+    nbytes = 4 * (B * T * H * 4 * P + H * P * 4 * P + B * T * H * P
+                  + 8 * B * H * P)
+    return {"flops": flops, "bytes": nbytes}
+
+
 def build():
     """Compile ``csrc/slstm_step.cu`` (once per source hash) and load it.
     Returns the ``ctypes.CDLL``."""
@@ -180,7 +195,7 @@ def _check(g_in, R, state, out_state):
     if g_in.stride(-1) != 1 or not all(t.is_contiguous() for t in ts[1:]):
         raise ValueError("g_in's last axis, R and the state must be "
                          "contiguous")
-    if g_in.device.type not in ("cpu", "cuda"):
+    if g_in.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {g_in.device}")
     if g_in.device.type == "cuda" and R.data_ptr() % 16:
         raise ValueError("R must start on a 16-byte boundary (the kernel "
@@ -207,6 +222,10 @@ def slstm_steps(g_in, R, state, out_state=None):
     out = torch.empty((B, T, H, P), dtype=torch.float32, device=g_in.device)
     final = (tuple(out_state) if out_state is not None else
              tuple(torch.empty_like(t) for t in state))
+    if g_in.device.type == "meta":
+        record_kernel("slstm_steps", cost(B, T, H, P), (g_in, R, *state),
+                      (out, *final))
+        return out, final
     geo = (ctypes.c_int * 5)(*geometry(P, B).c_args())
     lib = build()
     strides = (ctypes.c_longlong * 6)(*g_in.stride()[:3], *out.stride()[:3])

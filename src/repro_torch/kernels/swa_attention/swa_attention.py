@@ -16,7 +16,10 @@ and strides of whole 16-byte units, so a bf16 input that is not on the CPU
 must have both, or the wrapper raises (the model's views from ``qkv_proj``
 do). The wrapper checks its inputs before it dispatches, on either device.
 For tensors on the CPU it runs the plain version from ``ref.py``; for CUDA
-tensors it launches the kernel or raises: there is no fallback. The shared
+tensors it launches the kernel or raises: there is no fallback; on the
+``meta`` device (launch analysis) it launches nothing, returns an empty
+output and records the call at its ``cost()`` with the active
+``launch.census.Census``. The shared
 library is built from ``csrc/swa_attention.cu`` at first CUDA use
 (``build()``, through ``kernels/_build.py``), never at import.
 ``LAUNCHES["swa_attention"]`` counts kernel launches of either route.
@@ -24,12 +27,14 @@ library is built from ``csrc/swa_attention.cu`` at first CUDA use
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.swa_attention.ref import swa_attention_plain
+from repro_torch.launch.census import record_kernel
 
 HEAD_DIMS = (64, 112, 128, 256)   # the kernel's template instances
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -58,6 +63,27 @@ SOURCE = _build.Source("swa_attention", Path(__file__).resolve().parent
 
 def reset_launches():
     LAUNCHES["swa_attention"] = 0
+
+
+@functools.lru_cache(maxsize=256)
+def in_band_pairs(Sq, Skv, causal, window):
+    """(q, k) pairs the mask keeps, counted for these shapes."""
+    total = 0
+    for q in range(Sq):
+        lo = max(q - window + 1, 0) if window > 0 else 0
+        hi = min(q, Skv - 1) if causal else Skv - 1
+        total += max(hi - lo + 1, 0)
+    return total
+
+
+def cost(B, H, Hkv, Sq, Skv, hd, *, window=0, causal=True, esize=2):
+    """The work of one call: ``{"flops", "bytes"}``, 4 hd FLOPs per
+    in-band (q, k) pair per (b, h), and q, k, v read once and the output
+    written once (``esize`` bytes an element). ``chip_smoke.py``'s bound
+    divides them by the peak of the inputs' type and the memory rate."""
+    flops = in_band_pairs(Sq, Skv, causal, window) * 4 * hd * B * H
+    nbytes = esize * hd * (2 * B * H * Sq + 2 * B * Hkv * Skv)
+    return {"flops": flops, "bytes": nbytes}
 
 
 def build():
@@ -112,7 +138,7 @@ def _check(q, k, v, window, cap):
         _check_tma(ts)
     if int(window) < 0 or float(cap) < 0:
         raise ValueError(f"window {window} and cap {cap} must be >= 0")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
 
 
@@ -127,10 +153,15 @@ def swa_attention(q, k, v, *, causal=True, window=0, cap=0.0):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("swa_attention has no backward kernel: call it "
                            "under torch.no_grad()")
-    lib = build()
     B, H, Sq, hd = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    if q.device.type == "meta":
+        record_kernel("swa_attention", cost(
+            B, H, Hkv, Sq, Skv, hd, window=int(window), causal=bool(causal),
+            esize=q.element_size()), (q, k, v), (out,))
+        return out
+    lib = build()
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q, k, v, out) for s in t.stride()[:3]))
     with torch.cuda.device(q.device):

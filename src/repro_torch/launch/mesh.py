@@ -28,8 +28,15 @@ is made on the host beside the parts. A collective that fails raises.
 The column rule (``flat_col_axes``, ``flat_col_entry``,
 ``flat_view_spec``) is the reference's, as pure functions of the mesh
 shape. Not here, as in the reference they serve only GSPMD or the TPU:
-``param_shardings``, ``batch_shardings``, ``serve_shardings`` and
-``make_production_mesh``.
+``param_shardings``, ``batch_shardings`` and ``serve_shardings``.
+
+``VirtualMesh`` is one rank's view of a mesh of any size with no
+processes behind it: the same axes, coordinates and groups, whose
+collectives return ``meta`` tensors of the right shapes. Every collective
+records its kind, ranks and result bytes with the active
+``launch.census.Census`` (real and virtual groups alike), so launch
+analysis counts a step's traffic without running it;
+``make_production_mesh`` lays H100 nodes out as the dry-run's meshes.
 
 All builders are functions: importing this module starts nothing.
 """
@@ -45,6 +52,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import MeshPlan
+from repro_torch.launch import census
 
 FLAT_AXES = ("data", "model")
 HIER_AXES = ("data", "fsdp", "model")
@@ -54,6 +62,9 @@ HIER_AXES = ("data", "fsdp", "model")
 STAGED = {"bytes": 0, "seconds": 0.0}
 _POOL = {}          # (numel, dtype) -> free host staging buffers
 STAGE_BYTES = 1 << 28  # a blocking gather stages pieces of this size
+
+VIRTUAL = "virtual"     # the backend name of a VirtualMesh's groups
+CARDS_PER_NODE = 8      # H100 cards a node, all to all on NVLink
 
 HOW_TO_START = ("start one process per rank, e.g. torchrun "
                 "--nproc-per-node N -m repro_torch.launch.train --sharded "
@@ -134,9 +145,9 @@ def transport(device=None) -> dict:
 
 class Group:
     """One axis group of a mesh as this rank sees it: its process group
-    (``None`` for a group of one), its size, this rank's index in it
-    (``lin_index`` over the group's axes) and its members' global ranks
-    in that order."""
+    (``None`` for a group of one, or of a ``VirtualMesh``), its size, this
+    rank's index in it (``lin_index`` over the group's axes) and its
+    members' global ranks in that order."""
 
     def __init__(self, pg, size: int, index: int, backend: str, ranks):
         self.pg, self.size, self.index, self.backend = pg, size, index, backend
@@ -229,10 +240,28 @@ def all_gather(x, group: Group, dim: int = 0, *, async_op: bool = False):
     the gathered tensor."""
     if group.size == 1:
         return done(x) if async_op else x
+    _record("all-gather", x.numel() * group.size, x, group)
+    if group.backend == VIRTUAL:
+        out = x.new_empty(_gathered_shape(x, group.size, dim))
+        return done(out) if async_op else out
     if not async_op and x.dim() == 2 and _staging(group, x) \
             and x.numel() * x.element_size() > STAGE_BYTES:
         return _gather_in_pieces(x, group, dim)
     return _gather(x, group, dim, async_op)
+
+
+def _gathered_shape(x, size, dim):
+    shape = list(x.shape)
+    shape[dim] *= size
+    return shape
+
+
+def _record(kind, numel, like, group, count=1):
+    """Record ``count`` collectives whose results together hold ``numel``
+    elements of ``like``'s dtype with the active census."""
+    c = census.active()
+    if c is not None:
+        c.collective(kind, numel * like.element_size(), group.ranks, count)
 
 
 def _gather(x, group, dim, async_op):
@@ -289,6 +318,11 @@ def ring_gather(x, group: Group, dim: int = 0, *, axes=("data",),
     if len(tuple(axes)) != 1:
         return all_gather(x, group, dim, async_op=async_op)
     w, idx, ranks = group.size, group.index, group.ranks
+    # R - 1 hops, each one block's bytes
+    _record("collective-permute", (w - 1) * x.numel(), x, group, w - 1)
+    if group.backend == VIRTUAL:
+        out = x.new_empty(_gathered_shape(x, w, dim))
+        return done(out) if async_op else out
     staged = _staging(group, x)
     step = x.shape[dim]
     shape = list(x.shape)
@@ -336,6 +370,9 @@ def all_reduce(t, group: Group, *, async_op: bool = False):
     a ``Pending`` of it). A group of one leaves ``t`` as it is."""
     if group.size == 1:
         return done(t) if async_op else t
+    _record("all-reduce", t.numel(), t, group)
+    if group.backend == VIRTUAL:
+        return done(t) if async_op else t
     staged = _staging(group, t)
     h = _to_host(t) if staged else t.contiguous()
 
@@ -379,15 +416,20 @@ class Mesh:
         if size != world:
             raise ValueError(f"mesh {'x'.join(map(str, sizes))} has {size} "
                              f"ranks, world has {world}")
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        backend = dist.get_backend() if dist.is_initialized() else "none"
+        self._lay_out(names, sizes, rank, backend, device if device
+                      is not None else (
+                          torch.device("cuda", torch.cuda.current_device())
+                          if torch.cuda.is_available()
+                          else torch.device("cpu")))
+
+    def _lay_out(self, names, sizes, rank, backend, device):
         self.axis_names = names
         self.shape = dict(zip(names, sizes))
-        self.size = size
-        self.rank = dist.get_rank() if dist.is_initialized() else 0
-        self.backend = dist.get_backend() if dist.is_initialized() \
-            else "none"
-        self.device = torch.device(device) if device is not None else (
-            torch.device("cuda", torch.cuda.current_device())
-            if torch.cuda.is_available() else torch.device("cpu"))
+        self.size = math.prod(sizes)
+        self.rank, self.backend = rank, backend
+        self.device = torch.device(device)
         rest, self.coords = self.rank, {}
         for a in reversed(names):
             rest, self.coords[a] = divmod(rest, self.shape[a])
@@ -398,6 +440,15 @@ class Mesh:
             for axes in combinations(names, k):
                 self._groups[axes] = self._make_group(axes)
 
+    def _members(self, axes, fixed):
+        """The global ranks of the group over ``axes`` whose other axes sit
+        at ``fixed``, in ``lin_index`` order."""
+        ranks = []
+        for ac in product(*(range(self.shape[a]) for a in axes)):
+            c = dict(fixed, **dict(zip(axes, ac)))
+            ranks.append(lin_index(self.axis_names, self.shape, c))
+        return ranks
+
     def _make_group(self, axes):
         gsize = self.axis_size(axes)
         index = lin_index(axes, self.shape, self.coords)
@@ -407,10 +458,7 @@ class Mesh:
         mine = members = None
         for oc in product(*(range(self.shape[a]) for a in others)):
             fixed = dict(zip(others, oc))
-            ranks = []
-            for ac in product(*(range(self.shape[a]) for a in axes)):
-                c = dict(fixed, **dict(zip(axes, ac)))
-                ranks.append(lin_index(self.axis_names, self.shape, c))
+            ranks = self._members(axes, fixed)
             pg = dist.new_group(ranks=ranks)
             if all(fixed[a] == self.coords[a] for a in others):
                 mine, members = pg, ranks
@@ -435,6 +483,66 @@ class Mesh:
     def __repr__(self):
         return f"Mesh({self.shape}, rank={self.rank}, " \
                f"backend={self.backend!r})"
+
+
+class VirtualMesh(Mesh):
+    """Rank ``rank``'s view of a mesh of ``prod(sizes)`` ranks that has no
+    processes behind it: ``axis_names``, ``shape``, ``coords``,
+    ``lin_index`` and ``group(axes)`` as ``Mesh`` gives them, without a
+    world to check or a process group to make. Its groups' collectives
+    (``all_gather``, ``ring_gather``, ``all_reduce``) return ``meta``
+    tensors of their results' shapes and record with the active census:
+    a step traced on it issues the same collectives, with the same
+    bytes, as on the real mesh, and moves nothing."""
+
+    def __init__(self, names, sizes, *, rank: int = 0, device="meta"):
+        names, sizes = tuple(names), tuple(int(s) for s in sizes)
+        if min(sizes) < 1 or not 0 <= rank < math.prod(sizes):
+            raise ValueError(f"rank {rank} of a "
+                             f"{'x'.join(map(str, sizes))} mesh")
+        self._lay_out(names, sizes, int(rank), VIRTUAL, device)
+
+    def _make_group(self, axes):
+        others = [a for a in self.axis_names if a not in axes]
+        ranks = self._members(axes, {a: self.coords[a] for a in others})
+        return Group(None, len(ranks), lin_index(axes, self.shape,
+                                                 self.coords), VIRTUAL, ranks)
+
+    def __repr__(self):
+        return f"VirtualMesh({self.shape}, rank={self.rank})"
+
+
+PRODUCTION_PLANS = ("baseline", "hier")
+
+
+def make_production_mesh(nodes: int, *, plan: str = "baseline",
+                         rank: int = 0):
+    """``(VirtualMesh, MeshPlan)`` of ``nodes`` H100 nodes of
+    ``CARDS_PER_NODE`` cards on NVLink, as rank ``rank`` sees it (the
+    counterpart of the reference's ``launch/mesh.py:23-44``, for the
+    dry-run). ``baseline``: ``(data = nodes, model = 8)``, one DPPF worker
+    a node, the flat engine's (R, n) view in column shards over the
+    node's cards. ``hier``: ``(data = 4, fsdp = nodes * 8 / 32, model =
+    8)``, four workers each over a quarter of the cards; the node count
+    must make fsdp whole. Node counts 32 and 64 are the reference's 256-
+    and 512-chip meshes in cards (its ``(16, 16)`` pod and ``(2, 16, 16)``
+    pair of pods)."""
+    if nodes < 1:
+        raise ValueError(f"nodes must be >= 1, got {nodes}")
+    cards = nodes * CARDS_PER_NODE
+    if plan == "baseline":
+        return VirtualMesh(FLAT_AXES, (nodes, CARDS_PER_NODE), rank=rank), \
+            MeshPlan(worker_axes=("data",), model_axes=("model",))
+    if plan == "hier":
+        if cards % (4 * CARDS_PER_NODE):
+            raise ValueError(f"the hier plan needs 4 x fsdp x 8 cards: "
+                             f"{nodes} nodes ({cards} cards) do not divide "
+                             "(use a multiple of 4 nodes)")
+        return VirtualMesh(HIER_AXES, (4, cards // (4 * CARDS_PER_NODE),
+                                       CARDS_PER_NODE), rank=rank), \
+            hierarchical_plan()
+    raise ValueError(f"unknown production plan {plan!r}; "
+                     f"choose from {PRODUCTION_PLANS}")
 
 
 def make_hierarchical_mesh(workers: int, fsdp: int, model: int, *,

@@ -17,13 +17,47 @@ Hardware model, NVIDIA H100 80GB HBM3 (SXM), 700 W power limit:
   page cache (``chip_smoke.py`` phase 16(b),
   ``checkpoint.load_train_state``); the slowest of those reads.
 
-The other half of the reference's module, the static analysis of
-compiled HLO, belongs to the launch-analysis tools and is not here.
+The other half of the reference's module counts a compiled step's work
+from its HLO (``analyze_hlo``). Here ``analyze_step`` counts one call of a
+step from a trace: the step runs on ``meta`` tensors (nothing is
+allocated or launched) under a ``TorchDispatchMode`` that sees every op
+PyTorch dispatches, its backward and rematerialized forwards included;
+the kernel wrappers and the mesh's collectives record into the active
+``launch.census.Census``. Its keys are ``analyze_hlo``'s, under its
+conventions:
+
+* ``flops``: matmul-class ops only (``mm``, ``addmm``, ``bmm``,
+  ``baddbmm``, ``_scaled_mm``, fused attention), 2 M N K, by
+  ``torch.utils.flop_counter``'s formulas: the reference's ``dot`` rule.
+  Elementwise work and the kernels' own operations are not counted
+  there (a kernel's are under ``kernels``).
+* ``bytes``: each op's operands plus its results. Views, reshapes and
+  allocations are skipped, as ``_SKIP_BYTES_OPS`` skips parameters,
+  bitcasts and tuples; a kernel counts as a ``custom-call``, its operands'
+  and results' bytes. These are bytes before any fusion (PyTorch runs op
+  by op), so they read above XLA's fused count; they are not held against
+  the reference's.
+* ``collectives`` / ``collective_axis_bytes``: the mesh's collectives
+  with their result bytes by kind and by axis (``model``, ``data``,
+  ``mixed``, ``unknown``), as ``launch/mesh.py`` records them from a
+  ``VirtualMesh`` or a real one.
+* ``kernels`` (new): ``{name: {"calls", "flops", "bytes"}}``, each
+  kernel wrapper's calls at its package's ``cost()``.
+
+A step with a loop (the tau local steps) is traced as it runs, so no
+trip-count correction is needed. ``peak_live_bytes`` is the largest sum
+of the tensors the trace made that were alive at once: the dispatch
+trace's peak, not an allocator's.
 """
 from __future__ import annotations
 
 import math
+import weakref
 
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.launch.census import COLLECTIVES, Census, counting
 from repro_torch.train.clock import OVERLAP_MODES
 
 PEAK_FLOPS = 989e12     # bf16 dense, H100 SXM data sheet
@@ -241,3 +275,175 @@ def supervisor_model(*, rounds: int, tau: int, work_s_per_step: float,
                           if fault_free_s > 0 else 0.0),
     }
     return {k: round(v, 6) for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# counting a traced step (the counterpart of the reference's analyze_hlo)
+# ---------------------------------------------------------------------------
+
+_aten = torch.ops.aten
+_MATMUL = {_aten.mm, _aten.addmm, _aten.bmm, _aten.baddbmm, _aten._scaled_mm,
+           _aten._scaled_dot_product_flash_attention,
+           _aten._scaled_dot_product_flash_attention_backward,
+           _aten._scaled_dot_product_efficient_attention,
+           _aten._scaled_dot_product_efficient_attention_backward,
+           _aten._flash_attention_forward, _aten._flash_attention_backward,
+           _aten._efficient_attention_forward,
+           _aten._efficient_attention_backward}
+# no data moves: allocations, aliasing and shape queries
+_SKIP_BYTES = {_aten.empty, _aten.empty_strided, _aten.empty_like,
+               _aten.new_empty, _aten.new_empty_strided, _aten._unsafe_view,
+               _aten.resize_, _aten.set_, _aten.lift_fresh, _aten.sym_size,
+               _aten.sym_stride, _aten.sym_numel, _aten.sym_storage_offset,
+               _aten.is_same_size}
+
+
+_KEYABLE = (int, float, bool, str, type(None), torch.dtype, torch.device,
+            torch.memory_format, torch.layout)
+_FUNCTIONAL = {}
+# op and input metadata -> output metadata, shared by every trace (pure
+# functions of their keys); cleared when it grows past _MEMO_MAX
+_MEMO = {}
+_MEMO_MAX = 1 << 17
+
+
+def _leaves(x, out):
+    """The leaves of nested tuples, lists and dicts (an op's arguments)."""
+    if isinstance(x, (tuple, list)):
+        for y in x:
+            _leaves(y, out)
+    elif isinstance(x, dict):
+        for y in x.values():
+            _leaves(y, out)
+    else:
+        out.append(x)
+    return out
+
+
+def _functional(func):
+    """Whether ``func`` writes none of its arguments and returns no alias
+    of one: its outputs' metadata is a function of its inputs'."""
+    got = _FUNCTIONAL.get(func)
+    if got is None:
+        schema = func._schema
+        got = _FUNCTIONAL[func] = not func.is_view and not any(
+            a.alias_info is not None
+            for a in list(schema.arguments) + list(schema.returns))
+    return got
+
+
+def _meta_of(t):
+    return tuple(t.shape), t.stride(), t.dtype
+
+
+def _empty(meta):
+    shape, stride, dtype = meta
+    return torch.empty_strided(shape, stride, dtype=dtype, device="meta")
+
+
+class _Counting(TorchDispatchMode):
+    """Adds every dispatched op's matmul flops and bytes to a census, and
+    tracks the bytes of the tensors the ops make while they live.
+
+    On ``meta`` a functional op's outputs depend only on its inputs'
+    shapes, strides and dtypes and its other arguments, so they are made
+    from a memo of the first call's (``empty_strided``) instead of running
+    the op's meta function again: a traced step repeats the same few
+    hundred ops in every layer and local step, and the meta functions of
+    elementwise ops run in Python."""
+
+    def __init__(self, census: Census):
+        super().__init__()
+        self.census = census
+        if len(_MEMO) > _MEMO_MAX:
+            _MEMO.clear()
+        self.memo = _MEMO
+
+    def _free(self, nbytes):
+        self.census.live -= nbytes
+
+    def _key(self, func, leaves):
+        key = [func]
+        for x in leaves:
+            if isinstance(x, torch.Tensor):
+                if x.device.type != "meta":
+                    return None
+                key.append(_meta_of(x))
+            elif isinstance(x, _KEYABLE):
+                key.append((type(x), x))
+            else:
+                return None
+        return tuple(key)
+
+    def _run(self, func, args, kwargs, leaves):
+        key = self._key(func, leaves) if _functional(func) else None
+        hit = self.memo.get(key) if key is not None else None
+        if hit is not None:
+            kind, metas = hit
+            if kind is None:
+                return _empty(metas)
+            return kind(_empty(m) for m in metas)
+        out = func(*args, **kwargs)
+        if key is not None:
+            if isinstance(out, torch.Tensor):
+                self.memo[key] = (None, _meta_of(out))
+            elif isinstance(out, (tuple, list)) and all(
+                    isinstance(t, torch.Tensor) for t in out):
+                self.memo[key] = (type(out), [_meta_of(t) for t in out])
+        return out
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        leaves = _leaves(kwargs, _leaves(args, []))
+        out = self._run(func, args, kwargs, leaves)
+        packet = func.overloadpacket
+        c = self.census
+        if packet in _MATMUL:
+            from torch.utils.flop_counter import flop_registry
+            c.flops += float(flop_registry[packet](*args, **kwargs,
+                                                   out_val=out))
+        if func.is_view or packet in _SKIP_BYTES:
+            return out
+        ins = [t for t in leaves if isinstance(t, torch.Tensor)]
+        outs = [t for t in _leaves(out, []) if isinstance(t, torch.Tensor)]
+        nbytes = 0
+        for t in ins:
+            nbytes += t.numel() * t.element_size()
+        for t in outs:
+            size = t.numel() * t.element_size()
+            nbytes += size
+            if any(t is a for a in ins):        # in place: nothing new
+                continue
+            c.live += size
+            if c.live > c.peak:
+                c.peak = c.live
+            weakref.finalize(t, self._free, size)
+        c.bytes += float(nbytes)
+        return out
+
+
+def _n_model(mesh):
+    return mesh.shape.get("model", 1) if mesh is not None else 1
+
+
+def analyze_step(fn, *args, mesh=None):
+    """Count one call ``fn(*args)``: ``{"flops", "bytes", "collectives",
+    "collective_axis_bytes", "kernels", "peak_live_bytes"}`` (the module
+    docstring says what each counts). Pass ``meta`` tensors (and a
+    ``launch.mesh.VirtualMesh`` for a sharded step) to count without
+    computing; on real tensors the step runs as well. ``mesh`` sizes the
+    ``model`` axis that classifies the collectives."""
+    census = Census(_n_model(mesh))
+    with counting(census), _Counting(census):
+        fn(*args)
+    return census.result()
+
+
+def collective_bytes(fn, *args, mesh):
+    """The collectives of one call ``fn(*args)`` on ``mesh`` (real or
+    virtual), ``{kind: {"bytes", "count"}}`` over ``COLLECTIVES``, as
+    ``analyze_step`` counts them, without tracing the ops."""
+    census = Census(_n_model(mesh))
+    with counting(census):
+        fn(*args)
+    return {k: dict(census.collectives[k]) for k in COLLECTIVES}

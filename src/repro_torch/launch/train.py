@@ -50,8 +50,12 @@ real round step before training (``train/autotune.py``): batches from
 N fail with a scripted OOM before it touches the device. With
 ``--tune-plan PATH`` the plan is written there; ``--tune-plan PATH`` alone
 replays a saved plan (of either package), also on a mesh. The probes run
-the single-device round with the whole fleet, so ``--autotune`` is refused
-with ``--sharded`` / ``--mesh``:
+the single-device round with the whole fleet, as the reference's do. With
+``--sharded`` / ``--mesh`` rank 0 alone searches, on its own device, and
+broadcasts the plan's JSON over the world; every rank then replays it on
+the sharded round, prints ``autotune rank R: plan sha256 H, probes here
+N`` and rank 0 alone writes ``--tune-plan``. The other ranks wait for the
+plan in that broadcast, within the process group's timeout (600 s):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \
       --workers 4 --tau 2 --steps 8 --seq 16 --batch 1 --overlap doublebuf \
@@ -61,6 +65,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
+import json
 import os
 import shutil
 import tempfile
@@ -302,10 +308,6 @@ def main(argv=None, *, device="cuda"):
     if args.autotune and not mspec.communicates:
         ap.error("--autotune searches the communication round's operating "
                  "point and needs a communicating consensus method")
-    if args.autotune and (args.sharded or args.mesh):
-        ap.error("--autotune probes the single-device round with the whole "
-                 "fleet on each rank; with --sharded/--mesh search on one "
-                 "device and replay the plan with --tune-plan")
     mesh_shape = ()
     if args.mesh:
         try:
@@ -371,7 +373,10 @@ def main(argv=None, *, device="cuda"):
 
         from repro_torch.launch import mesh as mesh_mod
         if not _can_start():
-            ap.error("--sharded/--mesh: no process group to join: "
+            ap.error("--sharded/--mesh: no process group to join"
+                     + (" (--autotune probes the single-device round on "
+                        "rank 0 and broadcasts its plan to every rank)"
+                        if args.autotune else "") + ": "
                      + mesh_mod.HOW_TO_START)
         started = not dist.is_initialized()
         device = mesh_mod.start(device)
@@ -421,20 +426,36 @@ def main(argv=None, *, device="cuda"):
                           taus=(args.tau, args.tau * 2), chunks=(1, 2, 4),
                           probe_budget=args.probe_budget,
                           overlap=args.overlap, staleness=args.staleness)
-        runner = make_round_probe_runner(
-            model.init, model.loss, opt, dcfg, args.workers,
-            lambda cand: make_round_batch(task, args.seed, args.workers,
-                                          cand.tau, 0, cand.batch, cfg,
-                                          device=device),
-            base_lr=args.lr, total_steps=args.steps, seed=args.seed,
-            device=device)
-        if args.tune_oom_above:
-            runner = inject_oom_above(runner, args.tune_oom_above)
-        model_fn = make_lm_model_fn(n_params=n_params, seq=args.seq,
-                                    workers=args.workers,
-                                    overlap=args.overlap,
-                                    staleness=args.staleness)
-        tune_plan = autotune(runner, model_fn, space)
+        probes_here = 0
+        if rank0:
+            runner = make_round_probe_runner(
+                model.init, model.loss, opt, dcfg, args.workers,
+                lambda cand: make_round_batch(task, args.seed, args.workers,
+                                              cand.tau, 0, cand.batch, cfg,
+                                              device=device),
+                base_lr=args.lr, total_steps=args.steps, seed=args.seed,
+                device=device)
+            if args.tune_oom_above:
+                runner = inject_oom_above(runner, args.tune_oom_above)
+
+            def counted(cand):
+                nonlocal probes_here
+                probes_here += 1
+                return runner(cand)
+            model_fn = make_lm_model_fn(n_params=n_params, seq=args.seq,
+                                        workers=args.workers,
+                                        overlap=args.overlap,
+                                        staleness=args.staleness)
+            tune_plan = autotune(counted, model_fn, space)
+        if mesh is not None:
+            # rank 0's plan, as its JSON, on every rank
+            box = [tune_plan.dumps() if rank0 else None]
+            if mesh.size > 1:
+                torch.distributed.broadcast_object_list(box, src=0)
+            tune_plan = TunePlan.from_dict(json.loads(box[0]))
+            print(f"autotune rank {mesh.rank}: plan sha256 "
+                  f"{hashlib.sha256(box[0].encode()).hexdigest()}, probes "
+                  f"here {probes_here}", flush=True)
         ch = tune_plan.chosen
         say(f"autotune: chose batch={ch.batch} tau={ch.tau} "
             f"chunks={ch.overlap_chunks} after {tune_plan.probes_used} "

@@ -777,6 +777,8 @@ def _agree_local_steps(mesh, fault, device):
     all_reduce(flag, mesh.group(mesh.axis_names))
     if fault:
         raise fault[0]
+    if flag.device.type == "meta":    # a traced round: no values to agree on
+        return
     if float(flag[0]) > 0:
         raise RuntimeError("the round's local steps failed on another rank"
                            + (" (out of memory)" if float(flag[1]) > 0

@@ -643,3 +643,72 @@ def local_step_fault(rank, world, p0, case, tmp, kind):
         out[run] = dict(sup.summary(),
                         params=unshard_params(st, mesh, plan).numpy().copy())
     return out
+
+
+# ---------------------------------------------------------------------------
+# launch analysis: a virtual mesh against a real one
+# (tests/test_torch_dryrun.py)
+# ---------------------------------------------------------------------------
+
+def traced_collectives(rank, world, meshes, modes, rounds=2, M=4, tau=2):
+    """For each mesh and overlap mode, ``rounds`` sharded rounds of the
+    MLP: the collectives the mesh wrappers count in this real gloo run
+    (``launch.roofline.collective_bytes``), and those of the same rounds
+    traced on ``meta`` over this rank's ``VirtualMesh`` of the same shape.
+    Returns ``{"<mesh> <mode>": [(real, virtual) a round]}``."""
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks.common import mlp_loss
+    from repro_torch.launch.mesh import VirtualMesh
+    from repro_torch.launch.roofline import collective_bytes
+    from repro_torch.train import make_sharded_round_step, shard_train_state
+    rng = np.random.default_rng(rank)
+    sizes = [DIM, WIDTH, WIDTH, NCLS]
+    p0 = {f"l{i}": {"w": rng.standard_normal(sizes[i:i + 2]).astype(
+        np.float32), "b": np.zeros(sizes[i + 1], np.float32)}
+          for i in range(3)}
+    data = mlp_batches(rounds, tau, M)
+    out = {}
+    for shape in meshes:
+        mesh, plan = make_mesh(shape)
+        vmesh = VirtualMesh(mesh.axis_names, tuple(mesh.shape.values()),
+                            rank=mesh.rank)
+        m_loc = M // mesh.axis_size(plan.worker_axes)
+        own = slice(mesh.lin_index(plan.worker_axes) * m_loc,
+                    (mesh.lin_index(plan.worker_axes) + 1) * m_loc)
+        for mode in modes:
+            dkw = dict(alpha=0.2, lam=0.4, tau=tau, consensus="simple_avg",
+                       engine="flat", overlap=mode)
+            st, opt, dcfg = _port_state(p0, dkw, M, "kernel")
+            runs = []
+            for m, device in ((mesh, "cpu"), (vmesh, "meta")):
+                state = st if device == "cpu" else _meta_state(p0, opt,
+                                                               dcfg, M)
+                state = shard_train_state(state, m, plan, dcfg=dcfg)
+                step = make_sharded_round_step(mlp_loss, opt, dcfg, mesh=m,
+                                               plan=plan, base_lr=0.05,
+                                               total_steps=40)
+                counts = []
+                for r in range(rounds):
+                    x, y = data[r]
+                    b = {"x": torch.tensor(x[:, own]).to(device),
+                         "y": torch.tensor(y[:, own],
+                                           dtype=torch.int64).to(device)}
+                    box = []
+                    counts.append(collective_bytes(
+                        lambda s, bb: box.append(step(s, bb)), state, b,
+                        mesh=m))
+                    state = box[0][0]
+                runs.append(counts)
+            out[f"{shape} {mode}"] = list(zip(*runs))
+    return out
+
+
+def _meta_state(p0, opt, dcfg, M):
+    """The whole flat-engine state of the MLP ``p0`` (numpy) on ``meta``."""
+    import torch
+    from repro_torch.train import init_train_state
+    init = lambda gen, device: {
+        l: {k: torch.empty(v.shape, device="meta") for k, v in d.items()}
+        for l, d in p0.items()}
+    return init_train_state(init, opt, dcfg, M, None, device="meta")

@@ -117,3 +117,28 @@ def test_autotune_and_roofline_import_alone():
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+
+
+def test_launch_analysis_modules_import_alone():
+    """The launch-analysis modules (``launch/specs.py``, ``validate.py``,
+    ``dryrun.py``, ``census.py`` and ``benchmarks/roofline_report.py``)
+    are among the walked ones and import alone in a fresh interpreter
+    without JAX or the JAX package; importing the dry-run runs nothing."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    mods = ("launch/specs.py", "launch/validate.py", "launch/dryrun.py",
+            "launch/census.py", "benchmarks/roofline_report.py")
+    for rel in mods:
+        assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
+    names = ", ".join("repro_torch." + m[:-3].replace("/", ".")
+                      for m in mods)
+    code = (f"import sys; import {names}; "
+            "from repro_torch.launch import roofline as rf; "
+            "assert all(hasattr(rf, n) for n in ('analyze_step', "
+            "'collective_bytes')); "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "assert not bad, bad")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout == ""

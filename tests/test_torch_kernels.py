@@ -162,8 +162,15 @@ def test_guards_run_before_dispatch_and_build(monkeypatch):
         pk.fused_round(torch.zeros((40, 8), device="meta"),
                        torch.zeros((40, 40)), 0.0, 0.0)
     with pytest.raises(ValueError):
-        pk.mix_shard(torch.zeros((4, 8), device="meta"),
+        pk.mix_shard(torch.zeros((4, 16), device="meta")[:, ::2],
                      torch.zeros((4, 4)), torch.zeros(4))
+    # a good meta input reaches the meta branch (launch analysis): an
+    # empty output, nothing built or launched
+    before = dict(pk.LAUNCHES)
+    out = pk.mix_shard(torch.zeros((4, 8), device="meta"),
+                       torch.zeros((4, 4)), torch.zeros(4))
+    assert out.device.type == "meta" and out.shape == (4, 8)
+    assert pk.LAUNCHES == before
     monkeypatch.undo()
     monkeypatch.setattr(_build, "_libs", {})
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
@@ -338,6 +345,11 @@ def test_pair_guards_run_before_dispatch_and_build(monkeypatch):
     monkeypatch.setattr(pk, "build", no_build)
     meta = torch.zeros(8, device="meta")
     with pytest.raises(ValueError):
-        pk.sq_dist(meta, meta)
+        pk.sq_dist(meta[None], meta[None])
     with pytest.raises(ValueError):
-        pk.apply_update(meta, meta, 0.5)
+        pk.apply_update(meta[::2], meta[::2], 0.5)
+    # good meta inputs reach the meta branch: nothing built or launched
+    before = dict(pk.LAUNCHES)
+    assert pk.sq_dist(meta, meta).shape == ()
+    assert pk.apply_update(meta, meta, 0.5).shape == (8,)
+    assert pk.LAUNCHES == before

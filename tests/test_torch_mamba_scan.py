@@ -484,7 +484,9 @@ def _z(d, *shape, dtype=torch.float32):
 def test_guards_raise_before_dispatch_and_build(monkeypatch, make, err,
                                                 match):
     """Bad inputs raise on either device (meta stands in for a card)
-    before any dispatch, launch or kernel build."""
+    before any dispatch, launch or kernel build. A good meta input gets
+    past every check to the meta branch (launch analysis): empty meta
+    outputs, nothing built or launched."""
     def no_build():
         raise AssertionError("build() reached")
     monkeypatch.setattr(ssd_mod, "build", no_build)
@@ -492,9 +494,10 @@ def test_guards_raise_before_dispatch_and_build(monkeypatch, make, err,
     for device in ("cpu", "meta"):
         with pytest.raises(err, match=match):
             ssd_chunks(*make(device))
-    with pytest.raises(ValueError, match="unsupported device"):
-        ssd_chunks(_z("meta", 1, 2, 2, 32, 16), _z("meta", 1, 2, 32, 8),
-                   _z("meta", 1, 2, 32, 8), _z("meta", 1, 2, 2, 32))
+    y, st = ssd_chunks(_z("meta", 1, 2, 2, 32, 16), _z("meta", 1, 2, 32, 8),
+                       _z("meta", 1, 2, 32, 8), _z("meta", 1, 2, 2, 32))
+    assert y.shape == (1, 2, 2, 32, 16) and st.shape == (1, 2, 2, 16, 8)
+    assert y.device.type == st.device.type == "meta"
     with pytest.raises(ValueError, match="do not agree"):
         ssd_chunks_seq(_z("cpu", 1, 40, 2, 16), _z("cpu", 1, 40, 8),
                        _z("cpu", 1, 40, 8), _z("cpu", 1, 41, 2), 32)
