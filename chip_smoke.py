@@ -66,7 +66,17 @@ Phases (any failure raises, and the script exits non-zero):
    (b) one prompt through ``make_state`` +
    ``prefill_chunk`` in chunks of 512; (c) the continuous-batching
    launcher ``repro_torch.launch.serve.main`` at full width, depth cut
-   to 2 layers (``SERVE_LAYERS``: the run's time limit).
+   to 2 layers (``SERVE_LAYERS``: the run's time limit), as every
+   launcher drill runs (``_launcher_drill``, ``DRILLS``: 4 slots, chunks
+   of 64): first (c0) the batched slot step (``serving.slot_step``, one
+   ``decode_step`` over the 4 rows) against the per-slot loop
+   (``slot_step_loop``) on a table of 4 requests at different indices,
+   one switched off, 8 teacher-forced steps (each active row's bf16
+   logits within 2e-2 of its scale, lanes equal, the inactive row bit
+   for bit; a MoE config routes each row as its own group and drops
+   nothing), then the stream, with one forward a decode step asserted
+   (a counter around ``decode_step``) and forwards, steps, tokens/s,
+   mean TTFT and decode ms a step printed.
 7. SSD kernel: ptxas's registers and spills and a ``cuobjdump -sass``
    census of every ``ssd_kernel`` instance (highest register, HMMA and
    HGMMA counts: the phase fails unless each instance runs its products
@@ -95,9 +105,9 @@ Phases (any failure raises, and the script exits non-zero):
    traced (8 new tokens) with CUDA events around each SSD scan and its
    kernel, and the share of the traced prefill taken by the ``swa*``
    kernels; (b) one prompt in chunks of 512 (carried ssm and conv states);
-   (c) the serving launcher at 6 layers (``SERVE_LAYERS``): 5 requests
-   of 256 / 512 / 1024 / 256 / 512 tokens, 4 slots, chunk 64, 16 new
-   tokens.
+   (c) the serving launcher drill at 6 layers (``SERVE_LAYERS``): 5
+   requests of 256 / 512 / 1024 / 256 / 512 tokens, 4 slots, chunk 64,
+   16 new tokens.
 9. sLSTM kernel: its launch geometry at every head dim (blocks per
    cluster, batch group, rows of R in registers and in shared memory,
    shared bytes) with ``cudaOccupancyMaxActiveClusters``' count, and
@@ -116,9 +126,10 @@ Phases (any failure raises, and the script exits non-zero):
    their first 512 steps (a strided view), before chaos amplifies
    rounding: every head held to 1e-4. Then the serving shape with a
    forget bias of 3 on every head (not the model's layout), held to 1e-4.
-   Then xlstm-350m's 512-token chunk (1, 512, 4, 512) and a B
-   above one batch group (9, 64, 4, 512), after the serving shape so that
-   its draws are those of the cases before it. Times kernel (median of 20
+   Then xlstm-350m's 512-token chunk (1, 512, 4, 512), a B
+   above one batch group (9, 64, 4, 512) and the batched slot step's
+   decode (4, 1, 4, 512, carried), after the serving shape so that
+   their draws are those of the cases before them. Times kernel (median of 20
    after 3 warm-ups) and plain version (median of 3) on the model's
    gates; then the kernel at the
    serving, chunk and decode (4, 1, 4, 512) shapes, in CUDA events around
@@ -138,10 +149,10 @@ Phases (any failure raises, and the script exits non-zero):
    then the same call traced (8 new tokens), with the share of the traced
    prefill taken by its 6 ``slstm`` kernels; (b) one prompt in chunks of
    512 (and, for information, one-shot against chunked in fp32 at 1024
-   and 4096 tokens); (c) the serving launcher on the published config
-   (``xlstm_chunk = 0``) at 4 layers (``SERVE_LAYERS``): 5 requests of
-   256 / 512 / 1024 / 256 / 512 tokens, 4 slots, chunk 64, 16 new
-   tokens.
+   and 4096 tokens); (c) the serving launcher drill on the published
+   config (``xlstm_chunk = 0``) at 4 layers (``SERVE_LAYERS``): 5
+   requests of 256 / 512 / 1024 / 256 / 512 tokens, 4 slots, chunk 64,
+   16 new tokens; every decode step's ``slstm_steps`` at B = 4, T = 1.
 
 11. The tree path's pair: ``sq_dist`` and ``apply_update`` against their
    plain versions on the cases of ``tests/test_kernels.py`` (n = 128 to
@@ -304,7 +315,7 @@ Phases (any failure raises, and the script exits non-zero):
    10, 24 and 12 + 12 + 12 launches), prefill ms, decode ms a token, peak
    memory, and for dbrx a traced prefill; (b) one prompt through
    ``make_state`` + ``prefill_chunk`` in chunks of 512; (c) the serving
-   launcher at ``SERVE_LAYERS``' depth, 4 requests, 8 new tokens
+   launcher drill at ``SERVE_LAYERS``' depth, 4 requests, 8 new tokens
    (seamless's requests carry their frames). (d) Training at full width on
    the flat engine's kernel mode, as phase 3 (M = 4, tau 4, seq 64, batch
    8, 2 rounds; ``FAMILY_TRAIN``): seamless-m4t-medium cut to 4 + 4 of its
@@ -449,6 +460,246 @@ def _serve_cut(argv):
         return serve.main(argv)
 
 
+# the launcher drills of phases 6(c), 8(c), 10(c) and 17(c): each arch's
+# request stream (requests, prompt length, new tokens; 4 slots, chunks of
+# 64) and the kernels the stream must launch. Prompts of p/2, p and 2p
+# tokens each end in a tail of up to 64 tokens fed through the decode
+# step; 5 requests (zamba2-7b, xlstm-350m) so that one is admitted
+# mid-stream
+DRILLS = {"gemma2-2b": (8, 512, 32, ("swa_attention",)),
+          "zamba2-7b": (5, 512, 16, ("ssd_chunks", "swa_attention")),
+          "xlstm-350m": (5, 512, 16, ("slstm_steps",)),
+          "dbrx-132b": (4, 256, 8, ("swa_attention",)),
+          "llama4-scout-17b-a16e": (4, 256, 8, ("swa_attention",)),
+          "internvl2-2b": (4, 256, 8, ("swa_attention",)),
+          "seamless-m4t-medium": (4, 256, 8, ("swa_attention",))}
+DRILL_SLOTS = 4
+# the card-side parity check of the batched slot step before each drill's
+# stream: prompts a slot (different indices; the vlm's and the enc-dec
+# model's requests carry their own prefix / frames), the slot switched
+# off, teacher-forced steps, and the bf16 bar (each logits row, of its
+# scale)
+PARITY_LENS = (70, 135, 200, 260)
+PARITY_OFF = 2
+PARITY_STEPS = 8
+PARITY_TOL = 2e-2
+
+
+def _drill_argv(arch):
+    requests, prompt, new, _ = DRILLS[arch]
+    return ["--arch", arch, "--requests", str(requests), "--max-slots",
+            str(DRILL_SLOTS), "--prompt-len", str(prompt), "--new-tokens",
+            str(new), "--chunk", "64"]
+
+
+def _copy_table(engine, slots):
+    """Another slot table holding the same numbers."""
+    from repro_torch.core.engine import tree_items
+    out = engine.blank_slots()
+    for (_, dst), (_, src) in zip(tree_items(out["rows"]),
+                                  tree_items(slots["rows"])):
+        dst.copy_(src)
+    for lane in ("index", "gen", "budget", "key", "active"):
+        out[lane] = slots[lane].clone()
+    return out
+
+
+def _slot_parity(launched):
+    """(c0) The batched slot step (``serving.slot_step``: one forward over
+    the 4 rows) against its plain version, the per-slot loop
+    (``slot_step_loop``), on an engine over the launcher's model and
+    weights (its own, so that the launcher's lanes keep their one
+    signature): a table with a request in each slot (PARITY_LENS prompt
+    tokens, so each row at its own index; prefix or frames of its own, a
+    vlm's rows starting at P), slot PARITY_OFF switched off,
+    PARITY_STEPS teacher-forced steps through each path on copies of the
+    table. Each active row's logits within PARITY_TOL of its scale, the
+    lanes equal, the inactive row's state bit-identical to what it held;
+    a MoE config's batched steps route every row as its own group and
+    drop no entry."""
+    from repro_torch.core.engine import tree_items
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.serving import SlotEngine, slot_step, slot_step_loop
+    model, params, cfg = launched.model, launched.params, launched.model.cfg
+    gen = torch.Generator().manual_seed(28)
+    context = "enc" if cfg.n_enc_layers else "prefix"
+
+    def batch(ctx):
+        out = {"tokens": np.zeros((1, 1), np.int32)}
+        if cfg.n_prefix:
+            out[context] = ctx((1, cfg.n_prefix, cfg.d_model))
+        return out
+    engine = SlotEngine(model, params, max_slots=DRILL_SLOTS,
+                        buf_len=launched.buf_len, window=launched.window,
+                        chunk=launched.chunk, sampling=launched.sampling,
+                        example=batch(lambda shape: np.zeros(shape,
+                                                             np.float32)))
+    slots = engine.blank_slots()
+    for s, n in enumerate(PARITY_LENS):
+        state, start = engine.request_state(batch(lambda shape: 0.02 * (
+            torch.randn(shape, generator=gen).numpy())))
+        prompt = torch.randint(0, cfg.vocab_size, (n,), generator=gen)
+        state, idx, _ = engine.prefill_chunks(state, prompt.numpy(), start)
+        slots = engine.insert(slots, state, s, idx, s - 1, 1000, 100 + s)
+    slots["active"][PARITY_OFF] = False
+    loop = _copy_table(engine, slots)
+    frozen = [t.clone() for _, t in
+              tree_items(engine.slot_state(slots, PARITY_OFF))]
+    live = [s for s in range(DRILL_SLOTS) if s != PARITY_OFF]
+    routed = []
+    orig = moe_lib.moe_mlp
+
+    def recorded(p, x, cfg_, per_row=False):
+        routed.append((per_row,
+                       moe_lib.dropped_entries(p, x, cfg_, per_row=per_row),
+                       moe_lib.dropped_entries(p, x, cfg_)))
+        return orig(p, x, cfg_, per_row=per_row)
+    worst, same = 0.0, 0
+    for _ in range(PARITY_STEPS):
+        toks = torch.randint(0, cfg.vocab_size, (DRILL_SLOTS,),
+                             generator=gen).numpy()
+        moe_lib.moe_mlp = recorded
+        try:
+            nxt, logits = slot_step(model, params, slots, toks,
+                                    engine.window, engine.sampling)
+        finally:
+            moe_lib.moe_mlp = orig
+        want, want_logits = slot_step_loop(model, params, loop, toks,
+                                           engine.window, engine.sampling)
+        got, ref = logits[live].float(), want_logits[live].float()
+        scale = ref.abs().amax(dim=-1).clamp(min=1e-30)
+        worst = max(worst, float(((got - ref).abs().amax(dim=-1)
+                                  / scale).max()))
+        same += int((nxt[live] == want[live]).sum())
+    lanes_equal = all(torch.equal(slots[k], loop[k])
+                      for k in ("index", "gen", "active"))
+    still = all(torch.equal(t, f) for (_, t), f in zip(
+        tree_items(engine.slot_state(slots, PARITY_OFF)), frozen))
+    out = {"steps": PARITY_STEPS, "max_rel_err": worst,
+           "tokens_equal": f"{same}/{PARITY_STEPS * len(live)}",
+           "lanes_equal": lanes_equal, "inactive_bit_identical": still,
+           "indices": slots["index"].tolist()}
+    if cfg.n_experts:
+        out["moe_calls_per_row"] = sum(r[0] for r in routed)
+        out["dropped_per_row"] = int(sum(int(r[1]) for r in routed))
+        out["dropped_if_one_group"] = int(sum(int(r[2]) for r in routed))
+    del slots, loop, frozen
+    print("  (c0) batched slot step vs the per-slot loop " + json.dumps(out))
+    if not worst <= PARITY_TOL:
+        raise AssertionError(f"{cfg.name}: batched step's logits differ "
+                             f"from the loop's: {worst:.3e} > {PARITY_TOL}")
+    if not (lanes_equal and still):
+        raise AssertionError(f"{cfg.name}: lanes differ or the inactive "
+                             "row moved")
+    if cfg.n_experts and (out["dropped_per_row"] or out["moe_calls_per_row"]
+                          != PARITY_STEPS * cfg.n_layers):
+        raise AssertionError(f"{cfg.name}: the batched step did not route "
+                             f"each row as its own group: {out}")
+    return out
+
+
+def _launcher_drill(arch, kernels, batched=True):
+    """(c) The continuous-batching launcher (``launch.serve.main``) at full
+    width and ``SERVE_LAYERS``' depth on ``DRILLS[arch]``'s stream, with a
+    counter around the model's ``decode_step`` and the host clock around
+    each engine step (it ends in the sampled tokens' read-back). Before
+    the warm-up stream, ``_slot_parity`` on the launcher's own engine.
+    ``kernels``: {name: kernel module} whose kernels the timed stream must
+    launch (counters zeroed just before it). Asserts one forward a decode
+    step and, for xlstm-350m, the decode's ``slstm_steps`` at B = the
+    slots. ``batched=False`` (another tree, ``tools/serve_drills.py``)
+    only measures. Returns the drill's numbers."""
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import xlstm as xlstm_lib
+    forwards, step_s, runs, out = [0], [], [], {}
+    orig_build, orig_serve = launcher.build_model, launcher.serve
+
+    def build(cfg):
+        model = orig_build(cfg)
+
+        def counted(*a, **kw):
+            forwards[0] += 1
+            return model.decode_step(*a, **kw)
+        return dataclasses.replace(model, decode_step=counted)
+
+    def serve(engine, requests, **kw):
+        if batched and not runs:
+            out["parity"] = _slot_parity(engine)
+        if len(runs) == 1:              # the timed stream
+            for m in kernels.values():
+                m.reset_launches()
+        decode = engine.decode
+
+        def timed(slots, toks):
+            t0 = time.perf_counter()
+            res = decode(slots, toks)
+            step_s.append(time.perf_counter() - t0)
+            return res
+        engine.decode = timed
+        f0, n0 = forwards[0], len(step_s)
+        try:
+            report = orig_serve(engine, requests, **kw)
+        finally:
+            del engine.decode
+        runs.append((report, forwards[0] - f0, step_s[n0:]))
+        return report
+
+    shapes = []
+    orig_slstm = getattr(xlstm_lib, "slstm_steps", None)
+
+    def slstm_probe(g_in, R, state, out_state=None):
+        shapes.append(tuple(g_in.shape[:2]))
+        return orig_slstm(g_in, R, state, out_state)
+    launcher.build_model, launcher.serve = build, serve
+    if batched and "slstm_steps" in kernels:
+        xlstm_lib.slstm_steps = slstm_probe
+    try:
+        report = _serve_cut(_drill_argv(arch))
+    finally:
+        launcher.build_model, launcher.serve = orig_build, orig_serve
+        if orig_slstm is not None:
+            xlstm_lib.slstm_steps = orig_slstm
+    (warm, warm_fw, _), (_, fw, secs) = runs
+    launches = {n: m.LAUNCHES[n] for n, m in kernels.items()}
+    requests, _, new, _ = DRILLS[arch]
+    out.update({"layers": SERVE_LAYERS[arch], "steps": report.steps,
+                "forwards": fw, "forwards_per_step": fw / report.steps,
+                "generated": report.generated,
+                "occupancy": report.occupancy, "wall_s": report.wall_s,
+                "tok_s": report.tok_s,
+                "ttft_mean_ms": report.ttft_mean_s * 1e3,
+                "decode_ms_per_step": 1e3 * statistics.mean(secs),
+                "decode_ms_median": 1e3 * statistics.median(secs),
+                "launches": launches})
+    if shapes:
+        out["slstm_decode_launch_shapes"] = sorted(set(shapes))
+    print("  (c) launcher " + json.dumps(out))
+    if sorted(report.results) != list(range(requests)) or any(
+            len(r.tokens) != new for r in report.results.values()):
+        raise AssertionError(f"{arch}: the launcher left requests "
+                             "unfinished")
+    if not all(launches.values()):
+        raise AssertionError(f"{arch}: the launcher's stream launched "
+                             f"none of some kernel: {launches}")
+    if batched and (fw != report.steps or warm_fw != warm.steps):
+        raise AssertionError(f"{arch}: {fw} forwards in {report.steps} "
+                             "decode steps, not one a step")
+    if batched and "slstm_steps" in kernels:
+        # the parity check's batched steps, the warm-up's and the timed
+        # stream's: n_slstm launches each, all at B = the slots, T = 1
+        from repro_torch.configs import get_arch
+        n_slstm = dataclasses.replace(
+            get_arch(arch), n_layers=SERVE_LAYERS[arch]).blocks().count(
+                "slstm")
+        want = n_slstm * (PARITY_STEPS + warm.steps + report.steps)
+        if set(shapes) != {(DRILL_SLOTS, 1)} or len(shapes) != want:
+            raise AssertionError(
+                f"{arch}: the batched decode launched slstm_steps "
+                f"{len(shapes)} times at {sorted(set(shapes))}, not {want} "
+                f"at B = {DRILL_SLOTS}, T = 1")
+    return out
+
+
 ATTN_SLICE = {
     "local": (4, 8, 4, SERVE_S, SERVE_S, 256, 4096, 50.0, True),
     "global": (4, 8, 4, SERVE_S, SERVE_S, 256, 0, 50.0, True),
@@ -491,11 +742,13 @@ SLSTM_CASES = (
     (2, 300, 4, 128, False),
 )
 # checked after the serving shape, so that its draws stay those above:
-# xlstm-350m's 512-token chunk (B = 1) and a B above one batch group (9 =
-# 4 + 4 + 1)
+# xlstm-350m's 512-token chunk (B = 1), a B above one batch group (9 =
+# 4 + 4 + 1), and the slot engine's batched decode step (B = max_slots
+# = 4 of the launcher drill, T = 1, a carried state)
 SLSTM_MORE_CASES = (
     (1, 512, 4, 512, False),
     (9, 64, 4, 512, True),
+    (4, 1, 4, 512, True),
 )
 SLSTM_CHUNK = 512       # the chunked prefill's launch length
 # xlstm-350m's prefill: B = 4 prompts of 4096 tokens, 4 heads of 512; its
@@ -1424,21 +1677,8 @@ def phase_serving(swa):
     del params, states, timed, model, lg, logits
     torch.cuda.empty_cache()
 
-    # (c) the continuous-batching launcher at full size
-    swa.reset_launches()
-    report = _serve_cut(["--arch", "gemma2-2b", "--requests", "8",
-                         "--max-slots", "4", "--prompt-len", "512",
-                         "--new-tokens", "32", "--chunk", "64"])
-    c = {"steps": report.steps, "generated": report.generated,
-         "occupancy": report.occupancy, "wall_s": report.wall_s,
-         "tok_s": report.tok_s, "ttft_mean_ms": report.ttft_mean_s * 1e3,
-         "swa_launches": swa.LAUNCHES["swa_attention"]}
-    print("  (c) launcher " + json.dumps(c))
-    if sorted(report.results) != list(range(8)) or any(
-            len(r.tokens) != 32 for r in report.results.values()):
-        raise AssertionError("the launcher left requests unfinished")
-    if swa.LAUNCHES["swa_attention"] == 0:
-        raise AssertionError("the launcher launched no swa_attention")
+    # (c) the continuous-batching launcher at full width
+    _launcher_drill("gemma2-2b", {"swa_attention": swa})
     torch.cuda.empty_cache()
     return launches
 
@@ -1786,28 +2026,8 @@ def phase_zamba2(swa, mk):
     del params, states, timed, model, lg, logits, toks
     torch.cuda.empty_cache()
 
-    # (c) the continuous-batching launcher at full size
-    swa.reset_launches()
-    mk.reset_launches()
-    # prompts of 256 / 512 / 1024 / 256 / 512 tokens: each ends in a
-    # 64-token tail fed one token per decode step, as the reference's
-    # scheduler does; 5 requests (cut from 8 for time) so that one is
-    # admitted mid-stream
-    report = _serve_cut(["--arch", "zamba2-7b", "--requests", "5",
-                         "--max-slots", "4", "--prompt-len", "512",
-                         "--new-tokens", "16", "--chunk", "64"])
-    c = {"steps": report.steps, "generated": report.generated,
-         "occupancy": report.occupancy, "wall_s": report.wall_s,
-         "tok_s": report.tok_s, "ttft_mean_ms": report.ttft_mean_s * 1e3,
-         "ssd_launches": mk.LAUNCHES["ssd_chunks"],
-         "swa_launches": swa.LAUNCHES["swa_attention"]}
-    print("  (c) launcher " + json.dumps(c))
-    if sorted(report.results) != list(range(5)) or any(
-            len(r.tokens) != 16 for r in report.results.values()):
-        raise AssertionError("the launcher left requests unfinished")
-    if mk.LAUNCHES["ssd_chunks"] == 0 or swa.LAUNCHES["swa_attention"] == 0:
-        raise AssertionError("the launcher launched no ssd_chunks or "
-                             "swa_attention")
+    # (c) the continuous-batching launcher at full width
+    _launcher_drill("zamba2-7b", {"ssd_chunks": mk, "swa_attention": swa})
     torch.cuda.empty_cache()
     return launches
 
@@ -2262,25 +2482,9 @@ def phase_xlstm(sk):
     torch.cuda.empty_cache()
 
     # (c) the launcher on the published config (xlstm_chunk = 0, the
-    # per-step mLSTM) at full size: prompts of 256 / 512 / 1024 / 256 /
-    # 512 tokens in chunks of 64, each ending in a 64-token tail fed one
-    # token per decode step; 5 requests, so that one is admitted
-    # mid-stream, and no more: a 64-token chunk of the per-step mLSTM
-    # makes about 15 launches per token and layer
-    sk.reset_launches()
-    report = _serve_cut(["--arch", "xlstm-350m", "--requests", "5",
-                         "--max-slots", "4", "--prompt-len", "512",
-                         "--new-tokens", "16", "--chunk", "64"])
-    c = {"steps": report.steps, "generated": report.generated,
-         "occupancy": report.occupancy, "wall_s": report.wall_s,
-         "tok_s": report.tok_s, "ttft_mean_ms": report.ttft_mean_s * 1e3,
-         "slstm_launches": sk.LAUNCHES["slstm_steps"]}
-    print("  (c) launcher " + json.dumps(c))
-    if sorted(report.results) != list(range(5)) or any(
-            len(r.tokens) != 16 for r in report.results.values()):
-        raise AssertionError("the launcher left requests unfinished")
-    if sk.LAUNCHES["slstm_steps"] == 0:
-        raise AssertionError("the launcher launched no slstm_steps")
+    # per-step mLSTM: a 64-token chunk makes about 15 launches per token
+    # and layer) at full width
+    _launcher_drill("xlstm-350m", {"slstm_steps": sk})
     torch.cuda.empty_cache()
     return launches
 
@@ -4798,23 +5002,7 @@ def _serve_family(swa, cfg, S, route):
     torch.cuda.empty_cache()
 
     # (c) the continuous-batching launcher at a cut depth
-    swa.reset_launches()
-    report = _serve_cut(["--arch", name, "--requests", "4", "--max-slots",
-                         "4", "--prompt-len", "256", "--new-tokens", "8",
-                         "--chunk", "64"])
-    c = {"layers": SERVE_LAYERS[name], "steps": report.steps,
-         "generated": report.generated, "occupancy": report.occupancy,
-         "wall_s": report.wall_s, "tok_s": report.tok_s,
-         "ttft_mean_ms": report.ttft_mean_s * 1e3,
-         "swa_launches": swa.LAUNCHES["swa_attention"]}
-    print("  (c) launcher " + json.dumps(c))
-    if sorted(report.results) != list(range(4)) or any(
-            len(r.tokens) != 8 for r in report.results.values()):
-        raise AssertionError(f"{name}: the launcher left requests "
-                             "unfinished")
-    if swa.LAUNCHES["swa_attention"] == 0:
-        raise AssertionError(f"{name}: the launcher launched no "
-                             "swa_attention")
+    c = _launcher_drill(name, {"swa_attention": swa})
     torch.cuda.empty_cache()
     return {"a": a, "b": b, "c": c, "launches": launches}
 

@@ -9,13 +9,20 @@ cache is the reference's position-tagged buffer (full length or ring);
 the port writes it in place. Attention over it takes larger blocks
 (``serve_block``): serving keeps nothing for a backward pass, and every
 block is a dozen more eager launches per layer.
+
+Positions come in two forms. A Python int start gives one set of
+positions for the whole batch, with one ``pos`` tag per buffer slot
+(prefill, training, ``generate``). A (B,) tensor of starts gives each
+row its own (the slot engine's batched decode step, as the reference's
+vmap over slots): the rows' positions are (B, S), their caches carry
+(B, buf) tags, and the mask is per row.
 """
 from __future__ import annotations
 
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.models.layers import dense_init, rope, softcap
+from repro_torch.models.layers import dense_init, rope, softcap, where_rows
 
 NEG_INF = -1e30
 _CHUNK = 1024  # kv-block size for the online softmax
@@ -69,16 +76,29 @@ def out_proj(p, o):
 # Core attention
 # ---------------------------------------------------------------------------
 
+def positions(index, S, device):
+    """Absolute positions of S tokens from their start: (S,) int32 from
+    a Python int, (B, S) from a (B,) tensor of per-row starts."""
+    ar = torch.arange(S, dtype=torch.int32, device=device)
+    if torch.is_tensor(index):
+        return index.to(torch.int32)[:, None] + ar
+    return index + ar
+
+
 def _mask(q_pos, kv_pos, causal, window):
-    """(Sq, Skv) boolean validity. kv_pos < 0 marks empty slots; ``window``
-    None or 0 disables banding."""
-    m = kv_pos[None, :] >= 0
+    """Boolean validity broadcast into the (b, k, g, q, s) scores: shared
+    positions q_pos (Sq,), kv_pos (Skv,) give a (1, 1, 1, Sq, Skv) mask,
+    per-row ones (q_pos (B, Sq), kv_pos (B, Skv) or (Skv,)) a
+    (B, 1, 1, Sq, Skv) one. kv_pos < 0 marks empty slots; ``window`` None
+    or 0 disables banding."""
+    q, kv = q_pos[..., :, None], kv_pos[..., None, :]
+    m = kv >= 0
     if causal:
-        m = m & (kv_pos[None, :] <= q_pos[:, None])
+        m = m & (kv <= q)
     if window is not None:
         w = int(window) if int(window) > 0 else 2 ** 30
-        m = m & (kv_pos[None, :] > q_pos[:, None] - w)
-    return m
+        m = m & (kv > q - w)
+    return m[:, None, None] if m.dim() == 3 else m[None, None, None]
 
 
 def serve_block(B, Sq, nq):
@@ -93,8 +113,8 @@ def attend(q, k, v, *, q_pos, kv_pos, causal=True, window=0, cap=0.0,
            block=_CHUNK):
     """GQA attention with online softmax over kv blocks of ``block`` keys.
 
-    q: (B, Sq, nq, hd); k, v: (B, Skv, nkv, hd); q_pos (Sq,), kv_pos (Skv,).
-    Returns (B, Sq, nq, hd).
+    q: (B, Sq, nq, hd); k, v: (B, Skv, nkv, hd); q_pos (Sq,) or per row
+    (B, Sq); kv_pos (Skv,) or per row (B, Skv). Returns (B, Sq, nq, hd).
     """
     B, Sq, nq, hd = q.shape
     Skv, nkv = k.shape[1], k.shape[2]
@@ -110,8 +130,7 @@ def attend(q, k, v, *, q_pos, kv_pos, causal=True, window=0, cap=0.0,
     if Skv <= block:
         s = torch.einsum("bqkgh,bskh->bkgqs", qg, kf)
         s = softcap(s, cap)
-        s = torch.where(_mask(q_pos, kv_pos, causal, window)[None, None, None],
-                        s, NEG_INF)
+        s = torch.where(_mask(q_pos, kv_pos, causal, window), s, NEG_INF)
         m = torch.amax(s, dim=-1, keepdim=True)
         p = torch.exp(s - torch.clamp(m, min=NEG_INF / 2).detach())
         l = torch.sum(p, dim=-1, keepdim=True)
@@ -130,8 +149,7 @@ def attend(q, k, v, *, q_pos, kv_pos, causal=True, window=0, cap=0.0,
     def body(m, l, acc, kch, vch, pch):
         s = torch.einsum("bqkgh,bskh->bkgqs", qg, kch)
         s = softcap(s, cap)
-        s = torch.where(_mask(q_pos, pch, causal, window)[None, None, None],
-                        s, NEG_INF)
+        s = torch.where(_mask(q_pos, pch, causal, window), s, NEG_INF)
         m_new = torch.maximum(m, torch.amax(s, dim=-1))
         # a fully-masked chunk keeps m_new at NEG_INF; clamp so
         # exp(NEG_INF - NEG_INF) does not turn masked scores into 1.0
@@ -152,7 +170,7 @@ def attend(q, k, v, *, q_pos, kv_pos, causal=True, window=0, cap=0.0,
         # rematerialized in the backward pass, as the reference's
         # jax.checkpoint'ed scan body
         m, l, acc = torch.utils.checkpoint.checkpoint(
-            body, m, l, acc, kf[:, sl], vf[:, sl], kv_pos[sl],
+            body, m, l, acc, kf[:, sl], vf[:, sl], kv_pos[..., sl],
             use_reentrant=False)
     return finish(acc / torch.clamp(l, min=1e-30)[..., None])
 
@@ -173,14 +191,23 @@ def init_cache(batch, n_kv, buf_len, head_dim, dtype, *, device):
     }
 
 
-def cache_update(cache, k_new, v_new, index: int):
+def cache_update(cache, k_new, v_new, index, active=None):
     """Write k/v for ``k_new.shape[1]`` tokens starting at absolute position
     ``index`` into the (possibly ring) buffer, IN PLACE (the reference
     returns a new cache; the port saves the copy). Returns ``cache``.
 
     Invariant: position ``p`` always lives in slot ``p % buf``, so a chunk
     write that crosses the ring seam wraps, and a later decode step
-    overwrites exactly the slot whose position expired."""
+    overwrites exactly the slot whose position expired.
+
+    ``index`` a (B,) tensor: one token a row, row b's at position
+    ``index[b]`` into slot ``index[b] % buf`` of its own row of a cache
+    whose ``pos`` is (B, buf). Rows where the (B,) bool ``active`` is
+    False keep what they held: each row's old entry is gathered and
+    written back in place of the new one, so the write touches one slot a
+    row and reads nothing back to the host."""
+    if torch.is_tensor(index):
+        return _cache_update_rows(cache, k_new, v_new, index, active)
     buf = cache["k"].shape[1]
     S = k_new.shape[1]
     if S > buf:
@@ -195,5 +222,24 @@ def cache_update(cache, k_new, v_new, index: int):
     return cache
 
 
+def _cache_update_rows(cache, k_new, v_new, index, active):
+    B, S = k_new.shape[:2]
+    if S != 1:
+        raise ValueError(f"cache_update: a per-row index writes one token a "
+                         f"row, got {S}")
+    rows = torch.arange(B, device=k_new.device)
+    pos = index.to(torch.int32)
+    slots = (pos % cache["k"].shape[1]).long()
+    k1 = where_rows(active, k_new[:, 0].to(cache["k"].dtype),
+                    cache["k"][rows, slots])
+    v1 = where_rows(active, v_new[:, 0].to(cache["v"].dtype),
+                    cache["v"][rows, slots])
+    pos = where_rows(active, pos, cache["pos"][rows, slots])
+    cache["k"][rows, slots] = k1
+    cache["v"][rows, slots] = v1
+    cache["pos"][rows, slots] = pos
+    return cache
+
+
 __all__ = ["attend", "cache_update", "init_attention", "init_cache",
-           "out_proj", "qkv_proj", "rope", "serve_block"]
+           "out_proj", "positions", "qkv_proj", "rope", "serve_block"]

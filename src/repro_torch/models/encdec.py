@@ -21,7 +21,9 @@ frames x frames), the decoder's self-attention at index 0 (causal over a
 blank cache, as ``models/transformer.py`` does) and the cross-attention of
 every prefill chunk (non-causal, chunk x frames). Decode steps and the
 training loss keep ``attend``, as the reference does in jnp (the kernel
-has no backward).
+has no backward). A decode step's ``index`` takes the two forms of
+``transformer.lm_decode_step``: per-row positions (the slot engine) come
+with per-row ``pos`` tags and the ``active`` rows.
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ from repro_torch.kernels.swa_attention import ops as swa_ops
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import embed_init, init_mlp, mlp, rms_norm
 from repro_torch.models.transformer import (
-    _embed, _head, cross_entropy, init_attn_block, stack_init,
+    _blank_start, _embed, _head, _step_index, cross_entropy, init_attn_block,
+    stack_init,
 )
 
 
@@ -94,23 +97,24 @@ def encode(cfg, params, enc_in, kernel=False):
 
 
 def _dec_block(p, x, cfg, cross_k, cross_v, cache, index, window=0,
-               kernel=False):
+               kernel=False, active=None):
     """One decoder block; with a cache, ``index`` is the chunk's first
-    absolute position (a Python int) and the cache is written in place.
+    absolute position (a Python int, or a (B,) tensor of per-row ones)
+    and the cache is written in place (in the ``active`` rows).
     ``kernel``: a serving prefill lane (the kernel at index 0 and for the
     cross-attention)."""
     B, S, _ = x.shape
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = attn.qkv_proj(p["attn"], h, cfg.n_heads, cfg.n_kv_heads,
                             cfg.head_dim)
-    pos = index + torch.arange(S, dtype=torch.int32, device=x.device)
+    pos = attn.positions(index, S, x.device)
     q = attn.rope(q, pos, cfg.rope_theta)
     k = attn.rope(k, pos, cfg.rope_theta)
     if cache is None:
         o = attn.attend(q, k, v, q_pos=pos, kv_pos=pos, causal=True)
     else:
-        attn.cache_update(cache, k, v, index)
-        if kernel and index == 0:
+        attn.cache_update(cache, k, v, index, active)
+        if kernel and _blank_start(index):
             # blank cache: attention over it is causal self-attention
             o = swa_ops.attention(q, k, v, causal=True, window=window or 0)
         else:
@@ -143,7 +147,7 @@ def _cross_kv(p, enc_out, cfg):
 
 
 def decode_stack(cfg, params, x, enc_out=None, states=None, index=0,
-                 window=0, kernel=False):
+                 window=0, kernel=False, active=None):
     """Run the decoder stack. ``states``: None (training: cross k / v from
     ``enc_out``) or ``{"self", "ck", "cv"}``, updated in place. ``window``
     bands the cached self-attention (serving ring buffer);
@@ -157,7 +161,7 @@ def decode_stack(cfg, params, x, enc_out=None, states=None, index=0,
             x = _dec_block(p, x, cfg, states["ck"][layer],
                            states["cv"][layer],
                            tree_at(states["self"], layer), index,
-                           window=window, kernel=kernel)
+                           window=window, kernel=kernel, active=active)
     return x, states
 
 
@@ -217,8 +221,12 @@ def encdec_prefill(cfg, params, tokens, buf_len, enc=None, serve_window=0):
 
 
 @torch.no_grad()
-def encdec_decode_step(cfg, params, states, token, index, serve_window=0):
+def encdec_decode_step(cfg, params, states, token, index, serve_window=0,
+                       active=None):
+    """One decode step (``index`` and ``active`` as in
+    ``transformer.lm_decode_step``). Returns (logits (B, V), states)."""
     x = _embed(params, cfg, token)
-    x, states = decode_stack(cfg, params, x, states=states, index=int(index),
-                             window=serve_window)
+    x, states = decode_stack(cfg, params, x, states=states,
+                             index=_step_index(index), window=serve_window,
+                             active=active)
     return _head(params, cfg, x)[:, 0], states

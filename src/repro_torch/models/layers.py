@@ -35,6 +35,15 @@ def embed_init(gen, shape, dtype, *, device):
     return (_randn(gen, shape, device) * 0.02).to(dtype)
 
 
+def where_rows(active, new, old):
+    """``new`` in the rows (leading axis) where the (B,) bool ``active``
+    holds, ``old`` in the others; ``new`` itself when ``active`` is None.
+    The slot engine's batched decode step freezes its inactive rows so."""
+    if active is None:
+        return new
+    return torch.where(active.view((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+
 def records_grad(*ts):
     """Whether autograd records a graph through any of ``ts``: the model's
     kernels have no backward, so their callers take a plain route then."""

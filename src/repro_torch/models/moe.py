@@ -24,7 +24,10 @@ so that no product copies its operands:
   contraction in ``cfg.moe_combine_dtype`` (fp32 in every config).
 
 Tokens are grouped per batch row; a decode step (S == 1) groups over the
-batch, so ``C`` depends on the batch there.
+batch, so ``C`` depends on the batch there, unless ``per_row``: the slot
+engine's batched step routes each row (one token) as its own group, with
+capacity ``top_k``, as the reference's vmap over slots sees each slot
+alone. ``dropped_entries`` counts what a routing drops.
 """
 from __future__ import annotations
 
@@ -59,14 +62,21 @@ def _top_k(probs, k):
     return vals[..., :k], ids[..., :k]
 
 
-def moe_mlp(p, x, cfg):
-    """x: (B, S, D) -> (out (B, S, D), aux_loss fp32 scalar)."""
+def _groups(x, per_row):
+    """(G, Tg, D) routing groups of x (B, S, D): the batch rows, or the
+    whole batch as one group for a decode step (S == 1) unless
+    ``per_row``."""
     B, S, D = x.shape
-    xg = x.reshape(1, B, D) if S == 1 else x       # decode: one group
+    return x.reshape(1, B, D) if S == 1 and not per_row else x
+
+
+def _route(p, xg, cfg):
+    """Routing of the groups xg (G, Tg, D): (probs, gates (G, Tg, K),
+    one-hot choices oh_e (G, Tg, K, E), keep (G, Tg, K) 1.0 for an entry
+    within capacity, queue positions (G, Tg, K), capacity C)."""
     G, Tg, _ = xg.shape
     E, K = cfg.n_experts, cfg.top_k
     C = _capacity(Tg, cfg)
-
     logits = xg.to(torch.float32) @ p["router"]                # (G, Tg, E)
     probs = torch.softmax(logits, dim=-1)
     gates, ids = _top_k(probs, K)                               # (G, Tg, K)
@@ -78,6 +88,24 @@ def moe_mlp(p, x, cfg):
     pos = torch.cumsum(flat, dim=1) - flat
     pos_own = (pos * flat).sum(-1).reshape(G, Tg, K).to(torch.int64)
     keep = (pos_own < C).to(torch.float32)
+    return probs, gates, oh_e, keep, pos_own, C
+
+
+def dropped_entries(p, x, cfg, per_row=False):
+    """How many (token, choice) entries ``moe_mlp`` drops at capacity on
+    x (B, S, D): a 0-d int64 tensor on x's device."""
+    keep = _route(p, _groups(x, per_row), cfg)[3]
+    return (keep == 0).sum()
+
+
+def moe_mlp(p, x, cfg, per_row=False):
+    """x: (B, S, D) -> (out (B, S, D), aux_loss fp32 scalar). ``per_row``:
+    a decode step's rows are routed one group each (the slot engine)."""
+    B, S, D = x.shape
+    xg = _groups(x, per_row)
+    G, Tg, _ = xg.shape
+    E, K = cfg.n_experts, cfg.top_k
+    probs, gates, oh_e, keep, pos_own, C = _route(p, xg, cfg)
     # a dropped entry's one-hot row is zero
     oh_c = F.one_hot(torch.clamp(pos_own, max=C - 1), C).to(torch.float32) \
         * keep[..., None]                                       # (G, Tg, K, C)

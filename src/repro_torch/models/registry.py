@@ -5,7 +5,8 @@
     init(gen, device)                           -> params (the reference's tree)
     loss(params, batch)                         -> (loss, metrics)
     prefill(params, batch, buf_len, window=0)   -> (last_logits, states)
-    decode_step(params, states, token, index, window=0) -> (logits, states)
+    decode_step(params, states, token, index, window=0, active=None)
+                                                -> (logits, states)
     make_state(params, batch, buf_len, window=0) -> (blank states, start)
     prefill_chunk(params, states, tokens, index, window=0) -> (logits, states)
 
@@ -18,6 +19,16 @@ hybrid, recurrent, and vlm with its prefix) and encoder-decoder
 token's position. The serving lanes take tensors or numpy arrays and move
 them to the parameters' device; they run without gradients and update
 ``states`` in place.
+
+``decode_step``'s ``index`` has two meanings. A Python int is one
+position for the whole batch (``generate``; a MoE decode step routes the
+batch as one group). A (B,) int array or tensor gives each row its own
+position: the slot engine's batched step over its ``max_slots`` rows, as
+the reference's vmap over slots. Then ``states`` carry per-row (B, buf)
+``pos`` tags, each row is its own MoE routing group (capacity
+``top_k``), and the rows where the (B,) bool ``active`` is False come out
+with every state unchanged. ``state_batch_axes`` says where a state
+tree's batch axis lies, leaf by leaf.
 
 ``params_from_numpy`` / ``flat_from_numpy`` / ``states_from_numpy`` carry
 the JAX package's weights and decode states (as numpy) across, so both
@@ -100,9 +111,13 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
                           buf_len, serve_window=window,
                           **{key: _context(batch, params, key)})
 
-    def decode_step(params, states, token, index, window=0):
+    def decode_step(params, states, token, index, window=0, active=None):
+        if np.ndim(index) == 1:
+            index = torch.as_tensor(index).to(dev(params))
+        if active is not None:
+            active = torch.as_tensor(active).to(dev(params), torch.bool)
         return decode_fn(cfg, params, states, _tokens(token, dev(params)),
-                         index, serve_window=window)
+                         index, serve_window=window, active=active)
 
     def make_state(params, batch, buf_len, window=0):
         return make_state_fn(cfg, params, batch["tokens"].shape[0], buf_len,
@@ -185,6 +200,21 @@ def states_from_numpy(cfg: ModelConfig, tree, *, device, dtype=None):
         want = lm.init_states(cfg, shape[lead], buf_len, dtype,
                               device="meta")
     return _tree_from_numpy(want, tree, f"state tree of {cfg.name}", device)
+
+
+def state_batch_axes(cfg: ModelConfig):
+    """``{path: axis}`` of a decode-state tree (``make_state`` /
+    ``prefill``): each leaf's batch axis, None for a ``pos`` tag, which
+    the batch shares. Read off two meta-device trees of batch 1 and 2."""
+    def meta(batch):
+        if cfg.n_enc_layers:
+            return encdec_lib.init_states(cfg, batch, 1, 1, torch.float32,
+                                          device="meta")
+        return lm.init_states(cfg, batch, 1, torch.float32, device="meta")
+    two = dict(tree_items(meta(2)))
+    return {path: next((ax for ax, (a, b) in enumerate(zip(
+                leaf.shape, two[path].shape)) if a != b), None)
+            for path, leaf in tree_items(meta(1))}
 
 
 def flat_from_numpy(layout, flat, *, device):

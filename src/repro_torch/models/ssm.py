@@ -14,7 +14,8 @@ is the hand-written CUDA ``ssd_chunks`` kernel on a card (its plain
 version on the CPU); when a gradient is recorded it runs the plain
 ``_ssd_chunked`` below, since the kernel has no backward (nor has the
 reference's). The decode branch (one token with a state) stays plain
-torch. A given state is updated in place.
+torch. A given state is updated in place; with ``active`` (the slot
+engine's batched step) only in the rows it marks True.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.mamba_scan import ops as ssd_ops
 from repro_torch.kernels.mamba_scan.ref import ssd_chunks_seq_plain
 from repro_torch.models.layers import (
-    _randn, dense_init, records_grad, rms_norm,
+    _randn, dense_init, records_grad, rms_norm, where_rows,
 )
 
 
@@ -95,9 +96,10 @@ def _ssd_chunked(xh, B_, C_, a_log, chunk, h0=None):
                                 chunk, h0)
 
 
-def mamba_forward(p, x, cfg, state=None):
+def mamba_forward(p, x, cfg, state=None, active=None):
     """x: (B, S, D). state: None (train / prefill from scratch) or
-    {"ssm": (B,H,P,N), "conv": (B,K-1,Cd)}, updated in place.
+    {"ssm": (B,H,P,N), "conv": (B,K-1,Cd)}, updated in place, in the rows
+    where the (B,) bool ``active`` holds when it is given.
     Returns (out (B,S,D), new_state)."""
     d_in, H, P = dims(cfg)
     N = cfg.ssm_state
@@ -134,8 +136,8 @@ def mamba_forward(p, x, cfg, state=None):
     out = y @ p["out_proj"]
     if state is None:
         return out, {"ssm": ssm_state, "conv": conv_state}
-    state["ssm"].copy_(ssm_state)
-    state["conv"].copy_(conv_state)
+    state["ssm"].copy_(where_rows(active, ssm_state, state["ssm"]))
+    state["conv"].copy_(where_rows(active, conv_state, state["conv"]))
     return out, state
 
 

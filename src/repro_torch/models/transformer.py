@@ -35,6 +35,12 @@ chunked scan as ``models/ssm.py`` says, sLSTM blocks their recurrence as
 ``models/xlstm.py`` says, MoE blocks their routing as ``models/moe.py``
 says. ``lm_make_state`` runs a prefix through the stack at index 0 and
 returns start ``P``, so the serving lanes stream raw tokens only.
+
+``lm_decode_step``'s ``index`` is a Python int (one position for the whole
+batch: ``generate``) or a (B,) tensor (the slot engine's batched step:
+each row its own position, cache slot, ``pos`` tags, band and MoE routing
+group, as the reference's vmap over slots gives; the (B,) bool ``active``
+freezes the rows it marks False, every state of theirs left as it was).
 """
 from __future__ import annotations
 
@@ -87,21 +93,22 @@ def init_moe_block(gen, cfg, dtype, *, device):
     }
 
 
-def _self_attention(p, h, cfg, window, cache=None, index=0):
+def _self_attention(p, h, cfg, window, cache=None, index=0, active=None):
     """Shared attention plumbing. Returns (attn output, cache). With a
     cache, ``index`` is the chunk's first absolute position (a Python
-    int) and the cache is written in place."""
+    int, or a (B,) tensor of per-row positions for one token a row) and
+    the cache is written in place (only in the ``active`` rows)."""
     S = h.shape[1]
     q, k, v = attn.qkv_proj(p, h, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
-    pos = index + torch.arange(S, dtype=torch.int32, device=h.device)
+    pos = attn.positions(index, S, h.device)
     q = attn.rope(q, pos, cfg.rope_theta)
     k = attn.rope(k, pos, cfg.rope_theta)
     if cache is None:
         o = attn.attend(q, k, v, q_pos=pos, kv_pos=pos, causal=True,
                         window=window, cap=cfg.attn_logit_softcap)
         return attn.out_proj(p, o), None
-    attn.cache_update(cache, k, v, index)
-    if index == 0:
+    attn.cache_update(cache, k, v, index, active)
+    if _blank_start(index):
         # blank cache: every slot the write left holds pos -1, so attention
         # over the cache is causal self-attention over the fresh k, v
         o = swa_ops.attention(q, k, v, causal=True, window=window or 0,
@@ -114,9 +121,25 @@ def _self_attention(p, h, cfg, window, cache=None, index=0):
     return attn.out_proj(p, o), cache
 
 
-def attn_block(p, x, cfg, window=None, cache=None, index=0):
+def _blank_start(index):
+    """Whether a chunk at ``index`` meets a blank cache: an int 0. A
+    per-row index (the slot engine's decode step) always attends over the
+    cache, as the reference's decode does."""
+    return not torch.is_tensor(index) and index == 0
+
+
+def _step_index(index):
+    """A decode step's index: a (B,) tensor of per-row positions as it
+    is, anything else as a Python int."""
+    if torch.is_tensor(index) and index.dim() == 1:
+        return index
+    return int(index)
+
+
+def attn_block(p, x, cfg, window=None, cache=None, index=0, active=None):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    o, cache = _self_attention(p["attn"], h, cfg, window, cache, index)
+    o, cache = _self_attention(p["attn"], h, cfg, window, cache, index,
+                               active)
     if "post1" in p:
         o = rms_norm(o, p["post1"], cfg.norm_eps)
     x = x + o
@@ -128,34 +151,36 @@ def attn_block(p, x, cfg, window=None, cache=None, index=0):
     return x, cache
 
 
-def moe_block(p, x, cfg, window=None, cache=None, index=0):
-    """Attention, then the MoE MLP. Returns (x, cache, aux)."""
+def moe_block(p, x, cfg, window=None, cache=None, index=0, active=None):
+    """Attention, then the MoE MLP. Returns (x, cache, aux). A per-row
+    ``index`` routes each row as its own group."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    o, cache = _self_attention(p["attn"], h, cfg, window, cache, index)
+    o, cache = _self_attention(p["attn"], h, cfg, window, cache, index,
+                               active)
     x = x + o
     m, aux = moe_lib.moe_mlp(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps),
-                             cfg)
+                             cfg, per_row=torch.is_tensor(index))
     return x + m, cache, aux
 
 
-def _apply_block_inner(kind, p, x, cfg, window, state, index):
+def _apply_block_inner(kind, p, x, cfg, window, state, index, active):
     """(x, new_state, aux): aux is None for blocks that have none."""
     if kind in ("attn", "shared_attn"):
-        return attn_block(p, x, cfg, window, state, index) + (None,)
+        return attn_block(p, x, cfg, window, state, index, active) + (None,)
     if kind == "moe":
-        return moe_block(p, x, cfg, window, state, index)
+        return moe_block(p, x, cfg, window, state, index, active)
     if kind == "mamba":
-        out, state = ssm_lib.mamba_forward(p, x, cfg, state)
+        out, state = ssm_lib.mamba_forward(p, x, cfg, state, active)
     elif kind == "mlstm":
-        out, state = xlstm_lib.mlstm_forward(p, x, cfg, state)
+        out, state = xlstm_lib.mlstm_forward(p, x, cfg, state, active)
     elif kind == "slstm":
-        out, state = xlstm_lib.slstm_forward(p, x, cfg, state)
+        out, state = xlstm_lib.slstm_forward(p, x, cfg, state, active)
     else:
         raise ValueError(f"unknown block kind {kind!r}")
     return x + out, state, None
 
 
-def _apply_block(kind, p, x, cfg, window, state=None, index=0):
+def _apply_block(kind, p, x, cfg, window, state=None, index=0, active=None):
     """Dispatch. Returns (x, new_state, aux). With ``cfg.remat`` (and no
     state) the block body is rematerialized in the backward pass
     (activation checkpointing); a MoE block's aux leaves the checkpoint
@@ -163,12 +188,12 @@ def _apply_block(kind, p, x, cfg, window, state=None, index=0):
     if cfg.remat and state is None:
         def body(pp, xx):
             out, _, aux = _apply_block_inner(kind, pp, xx, cfg, window,
-                                             None, index)
+                                             None, index, None)
             return out if aux is None else (out, aux)
         res = torch.utils.checkpoint.checkpoint(body, p, x,
                                                 use_reentrant=False)
         return (res[0], None, res[1]) if kind == "moe" else (res, None, None)
-    return _apply_block_inner(kind, p, x, cfg, window, state, index)
+    return _apply_block_inner(kind, p, x, cfg, window, state, index, active)
 
 
 _INIT = {
@@ -287,10 +312,12 @@ def _serve_windows(cfg, serve_window):
     return ws
 
 
-def run_blocks(blocks, x, cfg, states=None, index=0, serve_window=0):
+def run_blocks(blocks, x, cfg, states=None, index=0, serve_window=0,
+               active=None):
     """Execute the block stack. Returns (x, states, aux), aux the fp32 sum
     of the blocks' aux losses (0 without MoE blocks); ``states`` (if
-    given) are updated in place, layer by layer."""
+    given) are updated in place, layer by layer (with ``active``, only
+    their rows it marks True)."""
     windows = _serve_windows(cfg, serve_window)
     pat, n_cycles, rem = _cycles(cfg)
     total = None
@@ -304,7 +331,7 @@ def run_blocks(blocks, x, cfg, states=None, index=0, serve_window=0):
             st = None if states is None else tree_at(states, layer)
             x, _, aux = _apply_block(pat[0][0],
                                      tree_at(blocks["stack"], layer), x,
-                                     cfg, window, st, index)
+                                     cfg, window, st, index, active)
             add(aux)
     else:
         shared = blocks.get("shared")
@@ -321,7 +348,8 @@ def run_blocks(blocks, x, cfg, states=None, index=0, serve_window=0):
                     tree_at(blocks["cycle"][name], c)
                 st = None if states is None else \
                     tree_at(states["cycle"][name], c)
-            x, _, aux = _apply_block(kind, p, x, cfg, window, st, index)
+            x, _, aux = _apply_block(kind, p, x, cfg, window, st, index,
+                                     active)
             add(aux)
     if total is None:
         total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -439,10 +467,16 @@ def lm_prefill_chunk(cfg, params, states, tokens, index, serve_window=0):
 
 
 @torch.no_grad()
-def lm_decode_step(cfg, params, states, token, index, serve_window=0):
+def lm_decode_step(cfg, params, states, token, index, serve_window=0,
+                   active=None):
     """One decode step. token: (B, 1) int; index: the token's absolute
-    position. Returns (logits (B, V), states)."""
+    position, a Python int for the whole batch, or a (B,) int tensor on
+    the parameters' device, one a row (then ``states`` hold per-row
+    (B, buf) ``pos`` tags, each row is its own MoE routing group, and
+    the rows where the (B,) bool ``active`` is False keep every state).
+    Returns (logits (B, V), states)."""
     x = _embed(params, cfg, token)
     x, states, _ = run_blocks(params["blocks"], x, cfg, states=states,
-                              index=int(index), serve_window=serve_window)
+                              index=_step_index(index),
+                              serve_window=serve_window, active=active)
     return _head(params, cfg, x)[:, 0], states

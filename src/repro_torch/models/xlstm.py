@@ -10,7 +10,9 @@ Routes:
 
 * sLSTM: with no gradient recorded (the serving lanes) the recurrence
   runs ``kernels.slstm_step.ops.slstm_scan``, the hand-written CUDA
-  ``slstm_steps`` kernel on a card (its plain version on the CPU); when a
+  ``slstm_steps`` kernel on a card (its plain version on the CPU; with
+  ``active`` the kernel's ``slstm_steps`` writes a fresh final state and
+  only the active rows are copied back); when a
   gradient is recorded it runs the plain ``slstm_steps_ref`` loop, since
   the kernel has no backward (nor has the reference's). The reference's
   own ``slstm_forward`` runs its scan inline and never reaches its kernel
@@ -20,7 +22,9 @@ Routes:
   the reference has no kernel for either.
 
 A given state is updated in place (``run_blocks`` ignores returned
-states); with no state a fresh one is made and returned.
+states), in the rows where ``active`` holds when it is given (the slot
+engine's batched step); with no state a fresh one is made and
+returned.
 """
 from __future__ import annotations
 
@@ -29,8 +33,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.slstm_step import ops as slstm_ops
 from repro_torch.kernels.slstm_step.ref import slstm_steps_ref
+from repro_torch.kernels.slstm_step.slstm_step import slstm_steps
 from repro_torch.models.layers import (
-    _randn, dense_init, records_grad, rms_norm,
+    _randn, dense_init, records_grad, rms_norm, where_rows,
 )
 
 NEG_INF = -1e30
@@ -42,10 +47,11 @@ def dims(cfg):
     return d_in, H, d_in // H
 
 
-def _write(state, new):
-    """Copy ``new`` into the given state tuple in place; returns it."""
+def _write(state, new, active=None):
+    """Copy ``new`` into the given state tuple in place (into the rows
+    ``active`` marks True, when given); returns it."""
     for dst, src in zip(state, new):
-        dst.copy_(src)
+        dst.copy_(where_rows(active, src, dst))
     return state
 
 
@@ -163,9 +169,9 @@ def _mlstm_chunked(q, k, v, i_raw, f_raw, state, chunk):
     return h, (C0, n0, m0)
 
 
-def mlstm_forward(p, x, cfg, state=None):
+def mlstm_forward(p, x, cfg, state=None, active=None):
     """x: (B, S, D) -> (out, state). state: (C, n, m), updated in place
-    when given."""
+    (in the ``active`` rows) when given."""
     d_in, H, P = dims(cfg)
     B, S, _ = x.shape
     u = rms_norm(x, p["ln"], cfg.norm_eps)
@@ -189,7 +195,7 @@ def mlstm_forward(p, x, cfg, state=None):
     h = h.reshape(B, S, d_in).to(x.dtype)
     h = rms_norm(h * F.silu(z), p["norm"], cfg.norm_eps)
     out = h @ p["w_down"]
-    return out, (new if given is None else _write(given, new))
+    return out, (new if given is None else _write(given, new, active))
 
 
 # ---------------------------------------------------------------------------
@@ -225,9 +231,9 @@ def init_slstm_state(cfg, batch, *, device):
             torch.zeros(shape, **f32), torch.full(shape, NEG_INF, **f32))
 
 
-def slstm_forward(p, x, cfg, state=None):
+def slstm_forward(p, x, cfg, state=None, active=None):
     """x: (B, S, D) -> (out, state). state: (c, n, h, m) each (B, H, P),
-    updated in place when given."""
+    updated in place (in the ``active`` rows) when given."""
     d_in, H, P = dims(cfg)
     B, S, _ = x.shape
     u = rms_norm(x, p["ln"], cfg.norm_eps)
@@ -241,9 +247,12 @@ def slstm_forward(p, x, cfg, state=None):
         state = init_slstm_state(cfg, B, device=x.device)
     if records_grad(g_in, p["r_gates"], *state):
         hs, new = slstm_steps_ref(g_in, p["r_gates"], state)
-        state = new if given is None else _write(given, new)
-    else:
+        state = new if given is None else _write(given, new, active)
+    elif active is None:
         hs, state = slstm_ops.slstm_scan(g_in, p["r_gates"], state)
+    else:
+        hs, new = slstm_steps(g_in, p["r_gates"], state)
+        state = _write(given, new, active)
     h = hs.reshape(B, S, d_in).to(x.dtype)
     h = rms_norm(h * F.silu(zgate), p["norm"], cfg.norm_eps)
     return h @ p["w_down"], state

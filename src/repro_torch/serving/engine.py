@@ -13,10 +13,10 @@ Two layers:
 
 * ``SlotEngine`` — the continuous-batching core. A fixed ``(max_slots,)``
   slot table whose per-slot index / generated-token counter / key / budget
-  / active lanes live beside the stacked per-slot model states (KV
-  caches, Mamba ssm / conv states; any nested tree). Admission =
+  / active lanes live beside the model states of all slots (KV caches,
+  Mamba ssm / conv states, xLSTM states; any nested tree). Admission =
   blank request state + chunked prefill of every full chunk + a copy into
-  the slot table; the prompt tail (1..chunk tokens) is fed through the
+  the slot's row; the prompt tail (1..chunk tokens) is fed through the
   decode step itself, so the first kept token comes out of the same step
   (per-slot ``decode_key`` contract); eviction is the budget check flipping
   the active lane. The host ``Scheduler`` (``serving/scheduler.py``) packs
@@ -24,25 +24,33 @@ Two layers:
   (its encoder frames or prefix); ``example`` (required for an enc-dec
   model) gives the blank slot states their shapes.
 
+The decode step (``slot_step``) is one ``decode_step`` over all
+``max_slots`` rows, as the reference's vmap over slots: each row at its
+own position, with its own ``pos`` tags, band, MoE routing group and
+sampling key; inactive rows' states come out unchanged. Its shapes do not
+depend on which slots are active, and its only read-back is the sampled
+tokens. ``slot_step_loop``, one ``decode_step`` per active slot, is its
+plain version, which the tests and the card check hold it against.
+
 PyTorch runs eagerly, so there is no compile to count: each lane
 (``fresh``, ``chunk``, ``decode``, ``insert``) and generate's decode loop
 instead count the distinct input-shape signatures they have seen
 (``compile_cache_sizes``, ``decode_loop_cache_size``), and the reference's
 pin carries over: one signature per lane across admissions and evictions.
-The decode lane loops over the active slots (the reference vmaps over
-them) and leaves inactive slots' caches untouched. The model's states are
-updated in place. ``make_serve_step`` builds the single-token decode
-function; ``window`` selects the sliding-window (ring-buffer) variant.
+The model's states are updated in place. ``make_serve_step`` builds the
+single-token decode function; ``window`` selects the sliding-window
+(ring-buffer) variant.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.engine import tree_at, tree_items, tree_stack
-from repro_torch.models.registry import ModelAPI
+from repro_torch.core.engine import tree_at, tree_from_items, tree_items
+from repro_torch.models.registry import ModelAPI, state_batch_axes
 from repro_torch.serving.sampling import (
-    GREEDY, SamplingParams, fold_in, sample_token,
+    GREEDY, SamplingParams, fold_in, fold_in_array, sample_batch,
+    sample_token,
 )
 
 
@@ -215,17 +223,106 @@ def generate(model: ModelAPI, params, batch, *, max_new_tokens: int,
 # Continuous batching
 # ---------------------------------------------------------------------------
 
+def decode_keys(keys, gen):
+    """The ``decode_key`` contract over the slot lanes: each slot's key
+    for generated token ``max(gen, 0)``, as a (max_slots,) int64 array
+    computed on the host from the host lanes."""
+    i = np.maximum(np.asarray(gen, np.int64), 0)
+    keys = np.asarray(keys, np.int64)
+    return np.where(i == 0, keys, fold_in_array(keys, i))
+
+
+def _advance(slots):
+    """Every active slot's index and generated-token counter move on by
+    one; a slot whose budget is spent turns inactive."""
+    act = slots["active"]
+    gen_after = slots["gen"] + 1
+    slots["index"] = torch.where(act, slots["index"] + 1, slots["index"])
+    slots["gen"] = torch.where(act, gen_after, slots["gen"])
+    slots["active"] = act & (gen_after < slots["budget"])
+
+
+def slot_step(model: ModelAPI, params, slots, toks, window: int,
+              sp: SamplingParams):
+    """One decode step of the slot table: ONE ``decode_step`` over all
+    ``max_slots`` rows (``slots["rows"]``), each at its own index, the
+    inactive rows frozen; one sampled token a row under its own key.
+    ``toks``: (max_slots,) tokens fed. The per-row tokens, indices and
+    active flags cross to the device in one copy; the sampled tokens are
+    the one read-back. Returns (sampled (max_slots,) np.int64, 0 for
+    inactive slots; logits (max_slots, V) fp32); the slot table is
+    updated in place."""
+    lanes = torch.stack([torch.as_tensor(toks, dtype=torch.int64),
+                         slots["index"], slots["active"].long()])
+    tok, index, act = lanes.to(params["embed"].device)
+    act = act.bool()
+    logits, _ = model.decode_step(params, slots["rows"], tok[:, None], index,
+                                  window=window, active=act)
+    picked = sample_batch(logits, decode_keys(slots["key"], slots["gen"]),
+                          sp)
+    nxt = torch.where(act, picked, torch.zeros_like(picked)).cpu().numpy()
+    _advance(slots)
+    return nxt, logits
+
+
+def slot_step_loop(model: ModelAPI, params, slots, toks, window: int,
+                   sp: SamplingParams):
+    """The plain version of ``slot_step``: one ``decode_step`` and one
+    ``sample_token`` per active slot, on the slot's own state (its views
+    ``slots["model"]``) at its own index. Same returns (an inactive
+    slot's logits row 0; None when no slot is active)."""
+    act = slots["active"]
+    nxt = np.zeros((act.shape[0],), np.int64)
+    logits = None
+    for s in torch.nonzero(act).flatten().tolist():
+        lg, _ = model.decode_step(
+            params, tree_at(slots["model"], s),
+            torch.as_tensor(toks[s:s + 1])[None], int(slots["index"][s]),
+            window=window)
+        if logits is None:
+            logits = lg.new_zeros((act.shape[0], lg.shape[-1]))
+        logits[s] = lg[0]
+        i = max(int(slots["gen"][s]), 0)
+        nxt[s] = int(sample_token(lg[0].to(torch.float32),
+                                  decode_key(int(slots["key"][s]), i), sp))
+    _advance(slots)
+    return nxt, logits
+
+
+def _slot_layout(blank, axes, n):
+    """The slot table's model states made from a blank request state: each
+    leaf with its batch axis widened to ``n`` rows (a ``pos`` tag, shared
+    by a request's batch, gains a row axis before its buffer axis), and
+    the per-slot views of the same storage, ``leaf[s]`` slot s's state in
+    the request's layout. Returns (rows, views)."""
+    rows, views = [], []
+    for path, leaf in tree_items(blank):
+        ax = axes[path]
+        if ax is None:
+            ax = leaf.dim() - 1
+            leaf = leaf.unsqueeze(ax)
+        shape = list(leaf.shape)
+        shape[ax] = n
+        big = leaf.expand(shape).clone(memory_format=torch.contiguous_format)
+        view = big.movedim(ax, 0)
+        rows.append((path, big))
+        views.append((path, view if axes[path] is None
+                      else view.unsqueeze(ax + 1)))
+    return tree_from_items(rows), tree_from_items(views)
+
+
 class SlotEngine:
     """Lanes for slot-based continuous batching.
 
-    The slot table is ``{"model": <per-slot states stacked on axis 0>,
-    "index", "gen", "budget", "key", "active"}``; the scalar lanes are
-    int64 / bool CPU tensors (the host drives the loop), the model states
-    live on the parameters' device. One decode step runs
-    ``ModelAPI.decode_step`` for every active slot at its own index,
-    samples with ``sample_token`` under the ``decode_key`` contract on the
-    slot's generated-token counter, and flips ``active`` off the moment a
-    slot's budget is exhausted.
+    The slot table is ``{"rows": <model states with batch max_slots and
+    per-row pos tags>, "model": <the same storage viewed per slot, leaf[s]
+    slot s's state in the request layout>, "index", "gen", "budget",
+    "key", "active"}``; the scalar lanes are int64 / bool CPU tensors (the
+    host drives the loop), the model states live on the parameters'
+    device. One decode step (``slot_step``) runs ``ModelAPI.decode_step``
+    once over all rows, each at its own index, samples each row under the
+    ``decode_key`` contract on its generated-token counter, and flips
+    ``active`` off the moment a slot's budget is exhausted.
 
     ``gen`` is the generated-token index of the NEXT sample; it starts at
     ``-(tail_len - 1)`` so the step that consumes the last prompt-tail
@@ -282,27 +379,7 @@ class SlotEngine:
             return model.prefill_chunk(params, state, toks, idx, window=w)
 
         def step(params, slots, toks):
-            act = slots["active"]
-            picked = {}
-            for s in torch.nonzero(act).flatten().tolist():
-                mstate = tree_at(slots["model"], s)
-                lg, _ = model.decode_step(
-                    params, mstate, torch.as_tensor(toks[s:s + 1])[None],
-                    int(slots["index"][s]), window=w)
-                i = max(int(slots["gen"][s]), 0)
-                picked[s] = sample_token(lg[0].to(torch.float32),
-                                         decode_key(int(slots["key"][s]), i),
-                                         sp)
-            nxt = np.zeros((max_slots,), np.int64)
-            if picked:
-                vals = torch.stack(list(picked.values())).cpu().numpy()
-                nxt[list(picked)] = vals
-            gen_after = slots["gen"] + 1
-            slots["index"] = torch.where(act, slots["index"] + 1,
-                                         slots["index"])
-            slots["gen"] = torch.where(act, gen_after, slots["gen"])
-            slots["active"] = act & (gen_after < slots["budget"])
-            return nxt, slots
+            return slot_step(model, params, slots, toks, w, sp)[0], slots
 
         def insert(slots, mstate, slot, idx0, gen0, budget, key):
             # the whole state: a reset leaves zero SSM / conv states too
@@ -322,15 +399,17 @@ class SlotEngine:
         self._insert = _Lane(insert)
         self._blank, start0 = self._fresh(self.params, self.example)
         self.start0 = int(start0)
+        self._axes = state_batch_axes(model.cfg)
 
     # -- host API ----------------------------------------------------------
 
     def blank_slots(self):
-        """Fresh all-inactive slot table (max_slots stacked blanks)."""
+        """Fresh all-inactive slot table (max_slots rows of blanks)."""
         S = self.max_slots
         lane = lambda v: torch.full((S,), v, dtype=torch.int64)
+        rows, views = _slot_layout(self._blank, self._axes, S)
         return {
-            "model": tree_stack([self._blank] * S),
+            "rows": rows, "model": views,
             "index": lane(0), "gen": lane(0), "budget": lane(1),
             "key": lane(0),
             "active": torch.zeros((S,), dtype=torch.bool),
@@ -378,6 +457,12 @@ class SlotEngine:
         for inactive slots). Returns (sampled (max_slots,) np.int64, 0 for
         inactive slots; the slot table)."""
         return self._decode(self.params, slots, np.asarray(toks, np.int64))
+
+    @staticmethod
+    def slot_state(slots, s):
+        """Slot ``s``'s model state in the per-request layout (views into
+        the table), as ``make_state`` gives a one-sequence request."""
+        return tree_at(slots["model"], s)
 
     def compile_cache_sizes(self):
         """Distinct input signatures per lane: the no-retrace test pins

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -63,6 +64,18 @@ def fold_in(key: int, i: int) -> int:
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
     return (z ^ (z >> 31)) >> 1
+
+
+def fold_in_array(keys, i):
+    """``fold_in`` elementwise over arrays of keys and indices, in numpy
+    uint64 arithmetic (which wraps as the mask does). Returns int64."""
+    u = lambda v: np.asarray(v, np.int64).astype(np.uint64)
+    with np.errstate(over="ignore"):
+        z = u(keys) * np.uint64(0x9E3779B97F4A7C15) + u(i) \
+            + np.uint64(0x632BE59BD9B4E019)
+        z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        return ((z ^ (z >> np.uint64(31))) >> np.uint64(1)).astype(np.int64)
 
 
 def _top_k_mask(logits, k):
@@ -127,5 +140,5 @@ def sample_batch(logits, keys, sp: SamplingParams):
     return torch.stack([_gumbel_pick(row, k) for row, k in zip(x, keys)])
 
 
-__all__ = ["GREEDY", "NEG_INF", "SamplingParams", "fold_in", "mask_logits",
-           "sample_batch", "sample_token"]
+__all__ = ["GREEDY", "NEG_INF", "SamplingParams", "fold_in", "fold_in_array",
+           "mask_logits", "sample_batch", "sample_token"]
