@@ -8,7 +8,8 @@ Phases (any failure raises, and the script exits non-zero):
 1. Card: requires CUDA, prints ``nvidia-smi``'s name and power limit,
    builds the four CUDA sources (``src/repro_torch/kernels/{pullpush,
    swa_attention,mamba_scan,slstm_step}/csrc``, as ``kernels/_build.py``
-   lists them), one ``nvcc`` each, all at once.
+   lists them), one ``nvcc`` each (``pullpush.cu`` one a part, five parts,
+   then linked), all at once, and prints each source's own seconds.
 2. Kernels: every kernel of the DPPF round against its plain PyTorch
    version at (4, 300), (8, 4097), (5, 2^26 + 3), (32, 65537) and at the
    main path's shape R = 4, n = 1,216,385,024 (yi-6b at LAYERS = 4);
@@ -318,9 +319,9 @@ Phases (any failure raises, and the script exits non-zero):
    launcher drill at ``SERVE_LAYERS``' depth, 4 requests, 8 new tokens
    (seamless's requests carry their frames). (d) Training at full width on
    the flat engine's kernel mode, as phase 3 (M = 4, tau 4, seq 64, batch
-   8, 2 rounds; ``FAMILY_TRAIN``): seamless-m4t-medium cut to 4 + 4 of its
+   8, 2 rounds; ``FAMILY_TRAIN``): seamless-m4t-medium cut to 2 + 2 of its
    12 + 12 layers, internvl2-2b to 12 of 24, zamba2-7b to 18 of 81 on the
-   plain SSD route, xlstm-350m to 8 of its 24 blocks on the plain sLSTM
+   plain SSD route, xlstm-350m to 4 of its 24 blocks on the plain sLSTM
    loop and the chunkwise mLSTM (``xlstm_chunk = 16``) at learning rate 0.01,
    the round batches carrying frames / the prefix; round ms, consensus
    ms, peak memory, ``fused_round`` launches. ``python3 chip_smoke.py
@@ -364,6 +365,36 @@ Phases (any failure raises, and the script exits non-zero):
    ranks: both ranks print the sha256 of the plan file rank 0 writes,
    and rank 1 probes nothing. ``python3 chip_smoke.py --phases 19`` runs
    phase 1, phases 3 and 12 (whose numbers it reads) and this phase.
+20. Tensor-parallel serving over the ``model`` axis
+   (``models/parallel.py``): two ranks share the card over gloo, a flat
+   (data = 1, model = 2) mesh. ``swa_attention`` is first held against
+   its plain version at the ranks' shapes (``ATTN_TP``). Then qwen2-72b
+   (full width, 4 of 80 layers, QKV bias; B = 2, S = 2048) and dbrx-132b
+   (full width, 2 of 40 layers, 8 experts a rank; B = 4, S = 2048, its
+   prompt drawn from 16 token ids, so that capacity drops happen), each
+   from the seeded full tree: one rank
+   runs ``generate`` (greedy, 16 new tokens), then a teacher-forced pass
+   on its own tokens; the ranks cut their shards with ``shard_params``
+   from the same seeded tree and run the same ``generate`` (the main
+   path; kernel counts, the collectives' census and the staged bytes
+   zeroed just before it), then the teacher-forced pass on the one-rank
+   tokens. It fails unless every rank holds the same tokens, launches
+   ``swa_attention`` once a layer a prefill on nq / 2 over nkv / 2 heads,
+   holds each step's logits within ``TP_TOL`` of its row's largest
+   |logit| of one rank's, picks the one-rank greedy token wherever the
+   one-rank top-2 margin exceeds ``TP_TOL``, and (dbrx) drops the same
+   entries as one rank on the one-rank prefill's MoE inputs. A row whose
+   own token the ranks routed apart from one rank (bf16 sums in another
+   order can flip a near tie, and a token behind it in its expert's
+   queue is then kept or dropped apart) is not held to ``TP_TOL``; at
+   most ``TP_APART`` of the tokens may route apart, and every token kept
+   or dropped apart must follow one routed apart. On one rank's own
+   prefill MoE inputs a rank must route every entry as one rank does,
+   but at a router-logit gap below ``TP_TIE``. Each rank prints
+   its prefill ms and decode ms a token, its census of collectives by
+   kind, axis and bytes, the bytes and seconds staged through host memory
+   and its peak memory against half of one rank's.
+   ``python3 chip_smoke.py --phases 20`` runs phase 1 and this phase.
 
 It prints a ``kernels`` line, the ``{"kernels": [...]}`` record and, last,
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -1558,17 +1589,21 @@ def _profile_generate(generate, model, params, prompts, buf, new,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's activity alone, read from the raw trace: host operator
+    # events, and the event tree ``prof.events()`` builds from them, took
+    # most of the phase's time at full depth and are not read here
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         generate(model, params, batch, max_new_tokens=new, buf_len=buf)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = [(e.name(), e.start_ns(), e.duration_ns() / 1e6)
+             for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    for name, _, ms in spans:
+        tot, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (tot + ms, n + 1)
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     swa = [(ms, n) for name, (ms, n) in by_name.items() if "swa_" in name]
@@ -1580,9 +1615,8 @@ def _profile_generate(generate, model, params, prompts, buf, new,
            "top": [[name[:70], ms, n] for name, (ms, n) in top]}
     if prefill_kernel:
         name, n = prefill_kernel
-        spans = sorted((e.time_range.start, e.time_range.elapsed_us() / 1e3)
-                       for e in prof.events()
-                       if e.device_type == DeviceType.CUDA and name in e.name)
+        spans = sorted((start, ms) for kname, start, ms in spans
+                       if name in kname)
         out[f"{name}_ms"] = sum(ms for _, ms in spans)
         out[f"{name}_kernels"] = len(spans)
         out[f"{name}_prefill_ms"] = sum(ms for _, ms in spans[:n])
@@ -3647,7 +3681,10 @@ def _rank_entry(fn, rank, world, tmp, args):
 
 def _spawn_ranks(fn, world, *args, timeout=600):
     """``[fn(r, world, *args) for r in range(world)]``, each in a rank of
-    its own; every child is stopped before this returns or raises."""
+    its own; every child is stopped before this returns or raises. Each
+    caller's ``timeout`` is several times its ranks' usual seconds and
+    short enough that a stalled phase fails, and says why, inside the
+    script's limit."""
     import pickle
     import tempfile
     ctx = torch.multiprocessing.get_context("spawn")
@@ -3659,9 +3696,15 @@ def _spawn_ranks(fn, world, *args, timeout=600):
     try:
         for p in procs:
             p.start()
+        # the first rank that fails ends the wait: its peers, blocked in a
+        # collective, are stopped below instead of waiting out gloo's timeout
+        from multiprocessing.connection import wait
         deadline = time.monotonic() + timeout
-        for p in procs:
-            p.join(max(1.0, deadline - time.monotonic()))
+        while not any(p.exitcode not in (None, 0) for p in procs):
+            alive = [p.sentinel for p in procs if p.is_alive()]
+            if not alive or time.monotonic() >= deadline:
+                break
+            wait(alive, min(1.0, deadline - time.monotonic()))
     finally:
         for p in procs:
             if p.is_alive():
@@ -3673,7 +3716,8 @@ def _spawn_ranks(fn, world, *args, timeout=600):
         if os.path.exists(err):
             errs.append(f"rank {r}:\n" + open(err).read())
         elif p.exitcode != 0:
-            errs.append(f"rank {r}: exit code {p.exitcode}")
+            errs.append(f"rank {r}: exit code {p.exitcode} (stopped "
+                        f"after {timeout} s, or when a peer failed)")
     if errs:
         shutil.rmtree(tmp, ignore_errors=True)
         raise AssertionError("ranks failed:\n" + "\n".join(errs))
@@ -4238,27 +4282,77 @@ def _hier_rank(rank, world):
             "transport": mm.transport(DEV)}
 
 
-def _launcher_sharded():
-    """(c): ``--sharded --arch yi-6b --smoke`` under torchrun with two
-    ranks against the same run unsharded; their per-round records."""
+class _Started:
+    """A command started now, in a session of its own with its output in
+    files (a pipe nobody reads would stall it), so that this process does
+    other work meanwhile. ``finish`` waits for it, stops its whole process
+    group (torchrun's ranks too) once ``timeout`` seconds have passed since
+    the start, and returns (``CompletedProcess``, seconds)."""
+
+    def __init__(self, cmd, tag, timeout=300):
+        base = os.path.join(ROOT, "build", "chip_smoke")
+        os.makedirs(base, exist_ok=True)
+        self.paths = [os.path.join(base, f"{tag}.{k}") for k in ("out",
+                                                                  "err")]
+        self.files = [open(p, "w+") for p in self.paths]
+        self.cmd, self.timeout = cmd, timeout
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            cmd, stdout=self.files[0], stderr=self.files[1], text=True,
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+            cwd=ROOT, start_new_session=True)
+
+    def stop(self):
+        import signal
+        if self.proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+
+    def finish(self):
+        try:
+            self.proc.wait(max(1.0, self.timeout
+                               - (time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            self.stop()
+        secs = time.perf_counter() - self.t0
+        text = []
+        for f, p in zip(self.files, self.paths):
+            f.seek(0)
+            text.append(f.read())
+            f.close()
+            os.remove(p)
+        return subprocess.CompletedProcess(self.cmd, self.proc.returncode,
+                                           *text), secs
+
+
+LAUNCHER_ARGV = ["--arch", "yi-6b", "--smoke", "--workers", "4", "--tau",
+                 "4", "--steps", "16", "--seq", "16", "--batch", "2"]
+
+
+def _launcher_sharded_start():
+    """(c), started: ``--sharded --arch yi-6b --smoke`` under torchrun with
+    two ranks, in the background (beside (d))."""
+    two = os.path.join(ROOT, "build", "chip_smoke", "launcher_sharded.jsonl")
+    return _Started([sys.executable, "-m", "torch.distributed.run",
+                     "--standalone", "--nproc-per-node", "2", "-m",
+                     "repro_torch.launch.train", *LAUNCHER_ARGV, "--sharded",
+                     "--log-every-round", two], "launcher15")
+
+
+def _launcher_sharded(started):
+    """(c): the same run unsharded here, then the torchrun run ``started``
+    against it: their per-round records."""
     from repro_torch.launch.train import main as train_main
     base = os.path.join(ROOT, "build", "chip_smoke")
-    os.makedirs(base, exist_ok=True)
-    argv = ["--arch", "yi-6b", "--smoke", "--workers", "4", "--tau", "4",
-            "--steps", "16", "--seq", "16", "--batch", "2"]
     one, two = (os.path.join(base, f"launcher_{k}.jsonl")
                 for k in ("unsharded", "sharded"))
     t0 = time.perf_counter()
-    want = train_main(argv + ["--log-every-round", one])
+    want = train_main(LAUNCHER_ARGV + ["--log-every-round", one])
     t_one = time.perf_counter() - t0
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
-           *argv, "--sharded", "--log-every-round", two]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                          timeout=600, cwd=ROOT)
-    t_two = time.perf_counter() - t0
+    proc, t_two = started.finish()
     if proc.returncode != 0:
         raise AssertionError("torchrun --sharded failed:\n"
                              + proc.stdout[-3000:] + proc.stderr[-3000:])
@@ -4272,7 +4366,8 @@ def _launcher_sharded():
     print(f"  (c) launcher: {mesh_line}; eval loss sharded {loss} against "
           f"unsharded {want:.6f}; {len(b)} round records, largest relative "
           f"difference of consensus_dist / pull_force {d:.3e}; wall "
-          f"{t_one:.1f} s unsharded, {t_two:.1f} s under torchrun")
+          f"{t_one:.1f} s unsharded, {t_two:.1f} s under torchrun (beside "
+          f"(d))")
     if len(mesh_line) != 1 or len(loss) != 1 or len(a) != len(b) \
             or d > 1e-5 or abs(loss[0] - want) > 1e-3:
         raise AssertionError("the sharded launcher disagrees with the "
@@ -4307,7 +4402,7 @@ def phase_sharded(pk, ref, resume_path=None):
           f"gathered for the local steps and a snapshot (doublebuf): "
           f"~{3 * view / 1e9:.1f} GB + the steps' temporaries")
     out = _spawn_ranks(_phase15_pair, world, single, resume_path,
-                       timeout=900)
+                       timeout=600)
     secs["a+b"] = time.perf_counter() - t0
     a = [o["a"] for o in out]
     b = [o["b"] for o in out]
@@ -4384,16 +4479,21 @@ def phase_sharded(pk, ref, resume_path=None):
                    for r in resume):
             fails.append("(b) the sharded resume point did not read back "
                          "bit for bit")
+    # (c)'s torchrun and (d)'s ranks run side by side: both are mostly
+    # processes starting, and neither times anything the other disturbs
     t0 = time.perf_counter()
+    started = _launcher_sharded_start()
     try:
-        launcher = _launcher_sharded()
-    except AssertionError as e:
-        launcher = None
-        fails.append(str(e))
-    secs["launcher"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    hier = _spawn_ranks(_hier_rank, 8, timeout=600)
-    secs["hier"] = time.perf_counter() - t0
+        hier = _spawn_ranks(_hier_rank, 8, timeout=240)
+        secs["hier"] = time.perf_counter() - t0
+        try:
+            launcher = _launcher_sharded(started)
+        except AssertionError as e:
+            launcher = None
+            fails.append(str(e))
+    finally:
+        started.stop()
+    secs["launcher and hier, side by side"] = time.perf_counter() - t0
     ulps = max(h["ulps"] for h in hier)
     print(f"  (d) 2x2x2, 8 ranks, easgd precise, 3 rounds: column axes "
           f"{hier[0]['col_axes']}; largest difference against "
@@ -4613,7 +4713,7 @@ def phase_supervised(pk, resume_point):
     with open(os.path.join(ROOT, CHAOS_EVENTS)) as fh:
         pinned = json.load(fh)
     _release_host_memory()
-    ranks = _spawn_ranks(_chaos_rank, 8, timeout=600)
+    ranks = _spawn_ranks(_chaos_rank, 8, timeout=240)
     secs["a"] = time.perf_counter() - t0
     seq, counters = _supervisor_lines(ranks[0]["text"])
     final_batch = counters.pop("final_batch")
@@ -4704,7 +4804,7 @@ def phase_supervised(pk, resume_point):
         fails.append("(c) the served checkpoint did not answer every "
                      "request")
     secs["c"] = time.perf_counter() - t0
-    shutil.rmtree(base, ignore_errors=True)
+    _remove_in_background(base)
     print("  phase 16 seconds " + json.dumps(secs))
     if fails:
         raise AssertionError("phase 16: " + "; ".join(fails))
@@ -4745,18 +4845,18 @@ FAMILY_CHECK_S = 1024        # (0): one sequence, fp32, 1 MoE / 2 dense layers
 # (d): (config, depth) trained at full width on the flat engine's kernels
 # (d): (config, layers or None for the full depth, config fields set for
 # training, local-step learning rate). seamless-m4t-medium cut 12 + 12 ->
-# 4 + 4 layers (the run's time limit); zamba2-7b cut 81 -> 18 layers
-# (n = 1,604,578,608, a 25.7 GB view); xlstm-350m cut 24 -> 8 blocks (6
-# mLSTM + 2 sLSTM, the 3:1 pattern kept; the run's time limit: its plain
+# 2 + 2 layers (the run's time limit); zamba2-7b cut 81 -> 18 layers
+# (n = 1,604,578,608, a 25.7 GB view); xlstm-350m cut 24 -> 4 blocks (3
+# mLSTM + 1 sLSTM, the 3:1 pattern kept; the run's time limit: its plain
 # sLSTM loop under autograd is most of the phase) on the chunkwise mLSTM
 # (xlstm_chunk = 16): the published per-step recurrence keeps every step's
 # (B, 4, 512, 512) fp32 matrix memory for the backward pass, > 100 GB at
 # seq 64, batch 8, 18 mLSTM blocks. At LR = 0.3 its SGD diverges in either
 # mLSTM form (its gradient norm is ~130 at the seeded init); it trains at
 # 0.01
-FAMILY_TRAIN = (("seamless-m4t-medium", 4, {"n_enc_layers": 4}, LR),
+FAMILY_TRAIN = (("seamless-m4t-medium", 2, {"n_enc_layers": 2}, LR),
                 ("internvl2-2b", 12, {}, LR), ("zamba2-7b", 18, {}, LR),
-                ("xlstm-350m", 8, {"xlstm_chunk": 16}, 0.01))
+                ("xlstm-350m", 4, {"xlstm_chunk": 16}, 0.01))
 FAMILY_ROUNDS = 2
 # swa_attention at every shape this phase's serving paths launch it, bf16
 # (B, H, Hkv, Sq, Skv, hd, window, cap, causal); the census of (a)-(c)
@@ -5523,23 +5623,26 @@ def _planner_and_report():
                            "lower_s", "kernels")} for r in recs]}
 
 
-def _launcher_autotune_sharded():
-    """(d): ``--sharded --autotune`` under torchrun on two ranks: both
-    print the same plan (the sha256 of its JSON, that of the file rank 0
-    writes) and rank 1 probes nothing."""
+TUNE_SHARDED_PLAN = os.path.join(ROOT, "build", "chip_smoke", "plan19.json")
+
+
+def _launcher_autotune_sharded_start():
+    """(d), started: ``--sharded --autotune`` under torchrun on two ranks,
+    in the background (beside (c), which traces on the host alone)."""
+    return _Started([sys.executable, "-m", "torch.distributed.run",
+                     "--standalone", "--nproc-per-node", "2", "-m",
+                     "repro_torch.launch.train", *TUNE_SHARDED_ARGV,
+                     "--tune-plan", TUNE_SHARDED_PLAN], "autotune19")
+
+
+def _launcher_autotune_sharded(started):
+    """(d): both ranks of the ``started`` run print the same plan (the
+    sha256 of its JSON, that of the file rank 0 writes) and rank 1 probes
+    nothing."""
     import hashlib
     import re
-    base = os.path.join(ROOT, "build", "chip_smoke")
-    os.makedirs(base, exist_ok=True)
-    plan = os.path.join(base, "plan19.json")
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
-           *TUNE_SHARDED_ARGV, "--tune-plan", plan]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                          timeout=600, cwd=ROOT)
-    secs = time.perf_counter() - t0
+    plan = TUNE_SHARDED_PLAN
+    proc, secs = started.finish()
     if proc.returncode != 0:
         raise AssertionError("torchrun --sharded --autotune failed:\n"
                              + proc.stdout[-3000:] + proc.stderr[-3000:])
@@ -5550,7 +5653,8 @@ def _launcher_autotune_sharded():
     sha = hashlib.sha256(text.encode()).hexdigest()
     chose = [l for l in proc.stdout.splitlines()
              if l.startswith("autotune: chose")]
-    print(f"  (d) torchrun --sharded --autotune, 2 ranks, {secs:.1f} s: "
+    print(f"  (d) torchrun --sharded --autotune, 2 ranks, {secs:.1f} s "
+          f"(beside (c)): "
           f"{chose}; ranks {seen}; the plan file's sha256 {sha}")
     if sorted(seen) != [0, 1] or seen[0][0] != sha or seen[1][0] != sha \
             or seen[1][1] != 0 \
@@ -5567,15 +5671,480 @@ def phase_launch_analysis(pk, launches, slice_res, tree_res, memory):
     for part, fn in (
             ("a", lambda: _census_of_the_slice(pk, launches, slice_res)),
             ("b", lambda: dict(_formula_against_allocation(tree_res),
-                               **memory)),
-            ("c", _planner_and_report),
-            ("d", _launcher_autotune_sharded)):
+                               **memory))):
         t0 = time.perf_counter()
         out[part] = fn()
         secs[part] = time.perf_counter() - t0
+    # (d)'s torchrun starts first and runs while (c) traces on the host;
+    # its seconds run from its start, so (c)'s are inside them
+    t0 = time.perf_counter()
+    started = _launcher_autotune_sharded_start()
+    try:
+        out["c"] = _planner_and_report()
+        secs["c"] = time.perf_counter() - t0
+        out["d"] = _launcher_autotune_sharded(started)
+        secs["d"] = time.perf_counter() - t0
+    finally:
+        started.stop()
     print("  phase 19 seconds " + json.dumps(secs))
     out["seconds"] = secs
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: tensor-parallel serving over the model axis
+# ---------------------------------------------------------------------------
+
+TP_WORLD = 2             # ranks sharing the one card over gloo (as 15(b))
+# (config, layers, B, S) at full width, greedy, TP_NEW new tokens:
+# qwen2-72b (arXiv:2407.10671) cut 80 -> 4 layers (5.99 B parameters,
+# 12.0 GB in bf16; the whole model, 145 GB, fits no one card), dbrx-132b
+# (hf:databricks/dbrx-base) cut 40 -> 2 (8 experts a rank), on a prompt
+# where capacity drops happen
+TP_RUNS = (("qwen2-72b", 4, 2, 2048), ("dbrx-132b", 2, 4, 2048))
+TP_NEW = 16
+TP_SEED = 20
+TP_TOL = 2e-2      # bf16: a step's logits against one rank's, of the row's
+#                    largest |logit| (the ranks' partial sums round apart)
+TP_TIE = 1e-4      # on one rank's MoE inputs a rank routes as one rank,
+#                    but where the K-th and (K+1)-th router logits lie
+#                    closer than this (fp32 sums of another split)
+TP_APART = 0.05    # on its own activations, the share of tokens a rank
+#                    may route apart from one rank (bf16 near ties flip
+#                    every token of a type at once: 0.73% on an H100)
+TP_FILE = os.path.join(ROOT, "build", "chip_smoke", "tp20.pt")
+# a MoE run's prompt draws its tokens from this many ids: hidden states
+# that cluster route to few experts, past their capacity (seeded random
+# prompts over the whole vocabulary drop nothing at dbrx's factor 1.25)
+TP_MOE_IDS = 16
+# swa_attention at the shapes the ranks launch (nq / 2 over nkv / 2 heads)
+ATTN_TP = {"qwen2_tp": (2, 32, 4, 2048, 2048, 128, 0, 0.0, True),
+           "dbrx_tp": (4, 24, 4, 2048, 2048, 128, 0, 0.0, True)}
+
+
+def _tp_batch(cfg, B, S):
+    gen = torch.Generator(device="cuda").manual_seed(TP_SEED + 1)
+    ids = TP_MOE_IDS if cfg.n_experts else cfg.vocab_size
+    return {"tokens": torch.randint(0, ids, (B, S), device="cuda",
+                                    generator=gen)}
+
+
+def _choices(routed):
+    """A routing's (expert ids (G, Tg, K) in ascending order, int16, and
+    their keep flags in that order) on the host: the entries, whatever
+    the order of their gates."""
+    ids = routed[2].argmax(-1)
+    ids, order = ids.sort(-1)
+    return ids.to(torch.int16).cpu(), routed[3].gather(-1, order).bool().cpu()
+
+
+@contextlib.contextmanager
+def _routing(log):
+    """Append each MoE routing's (``_choices``, the K-th minus the
+    (K+1)-th router logit (G, Tg)) to ``log``, on the host."""
+    from repro_torch.models import moe as moe_lib
+    orig = moe_lib._route
+
+    def recorded(p, xg, cfg_, tp=None):
+        out = orig(p, xg, cfg_, tp)
+        K = out[2].shape[2]
+        top = torch.topk(out[0], K + 1, dim=-1).values
+        log.append(_choices(out)
+                   + ((top[..., K - 1].log() - top[..., K].log()).cpu(),))
+        return out
+
+    moe_lib._route = recorded
+    try:
+        yield
+    finally:
+        moe_lib._route = orig
+
+
+@contextlib.contextmanager
+def _moe_inputs(xs):
+    """Append the input of every MoE layer of a prefill (S > 1) to ``xs``,
+    on the host."""
+    from repro_torch.models import moe as moe_lib
+    orig = moe_lib.moe_mlp
+
+    def recorded(p, x, cfg_, per_row=False, **kw):
+        if x.shape[1] > 1:
+            xs.append(x.cpu())
+        return orig(p, x, cfg_, per_row=per_row, **kw)
+
+    moe_lib.moe_mlp = recorded
+    try:
+        yield
+    finally:
+        moe_lib.moe_mlp = orig
+
+
+@contextlib.contextmanager
+def _swa_shapes(seen):
+    """Append the (B, H, Hkv, Sq, Skv, hd, window, cap, causal) of every
+    ``swa_attention`` call the model makes to ``seen``."""
+    from repro_torch.kernels.swa_attention import ops
+    orig = ops.swa_attention
+
+    def recorded(q, k, v, *, causal=True, window=0, cap=0.0):
+        B, H, Sq, hd = q.shape
+        seen.append((B, H, k.shape[1], Sq, k.shape[2], hd, int(window),
+                     float(cap), bool(causal)))
+        return orig(q, k, v, causal=causal, window=window, cap=cap)
+
+    ops.swa_attention = recorded
+    try:
+        yield
+    finally:
+        ops.swa_attention = orig
+
+
+def _tp_generate(swa, model, params, batch, buf, n_model):
+    """The main path: ``generate``, greedy, with CUDA events around its
+    lanes, the kernel counts, the collectives' census and the staged
+    bytes zeroed just before it and read just after (after a 2-token
+    warm-up: the first call of a shape pays cuBLAS's and the kernels'
+    set-up)."""
+    from repro_torch.launch import census
+    from repro_torch.launch import mesh as mm
+    from repro_torch.serving import generate
+    generate(model, params, batch, max_new_tokens=2, buf_len=buf)
+    timed, events = _events_of(model, ("prefill", "decode_step"))
+    c, seen = census.Census(n_model), []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mm.reset_staged()
+    swa.reset_launches()
+    t0 = time.perf_counter()
+    with census.counting(c), _swa_shapes(seen):
+        toks, logits = generate(timed, params, batch, max_new_tokens=TP_NEW,
+                                buf_len=buf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = c.result()
+    dec = [a.elapsed_time(b) for a, b in events["decode_step"]]
+    return {"tokens": toks.cpu(), "prefill_logits": logits.float().cpu(),
+            "prefill_ms": events["prefill"][0][0].elapsed_time(
+                events["prefill"][0][1]),
+            "decode_ms_per_token": statistics.mean(dec), "wall_s": wall,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "swa_launches": swa.LAUNCHES["swa_attention"],
+            "swa_shapes": sorted(set(seen)),
+            "collectives": {k: v for k, v in res["collectives"].items()
+                            if v["count"]},
+            "collective_axis_bytes": {k: v for k, v in
+                                      res["collective_axis_bytes"].items()
+                                      if v},
+            "staged_bytes": mm.STAGED["bytes"],
+            "staged_s": mm.STAGED["seconds"]}
+
+
+def _teacher_forced(model, params, batch, forced, buf, capture=False):
+    """The prefill, then one decode step a token of ``forced`` (B, n):
+    (fp32 logits (B, n + 1, V) on the host, the routing of every MoE
+    call, the prefill's MoE inputs if ``capture``)."""
+    log, xs = [], []
+    S = batch["tokens"].shape[1]
+    forced = forced.to(batch["tokens"].device)
+    with _routing(log), (_moe_inputs(xs) if capture
+                         else contextlib.nullcontext()):
+        logits, states = model.prefill(params, batch, buf)
+        steps = [logits.float().cpu()]
+        for i in range(forced.shape[1] - 1):
+            lg, states = model.decode_step(params, states,
+                                           forced[:, i:i + 1], S + i)
+            steps.append(lg.float().cpu())
+    del states
+    return torch.stack(steps, 1), log, xs
+
+
+def _tp_one_rank(swa, name, layers, B, S):
+    """One card, one rank: ``generate``, then the teacher-forced pass on
+    its own tokens, the MoE layers' inputs and drops of its prefill."""
+    from repro_torch.core.engine import tree_items
+    from repro_torch.models import build_model
+    cfg = _family_cfg(name, layers)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(TP_SEED),
+                        "cuda")
+    weights = sum(t.numel() * t.element_size() for _, t in tree_items(params))
+    batch = _tp_batch(cfg, B, S)
+    buf = S + TP_NEW
+    main = _tp_generate(swa, model, params, batch, buf, 1)
+    logits, log, xs = _teacher_forced(model, params, batch, main["tokens"],
+                                      buf, capture=bool(cfg.n_experts))
+    drops = [int((keep == 0).sum()) for _, keep, _ in log[:len(xs)]]
+    del params, model, batch
+    torch.cuda.empty_cache()
+    return dict(main, weight_bytes=weights, logits=logits, routing=log,
+                moe_inputs=xs, drops=drops)
+
+
+def _tp_rank(rank, world, runs, ref_path):
+    """A rank of the (1, world) mesh: each run's shard cut by
+    ``shard_params`` from the same seeded full tree, ``generate`` (the
+    main path), the teacher-forced pass on the one-rank tokens, and its
+    routing of the one-rank prefill's MoE inputs."""
+    from repro_torch.configs.base import MeshPlan
+    from repro_torch.core.engine import tree_items
+    from repro_torch.launch import mesh as mm
+    from repro_torch.models import build_model, moe as moe_lib
+    import importlib
+    swa = importlib.import_module(
+        "repro_torch.kernels.swa_attention.swa_attention")
+    mesh = mm.Mesh(mm.FLAT_AXES, (1, world), device=DEV)
+    plan = MeshPlan()
+    refs = torch.load(ref_path)
+    out = {}
+    for name, layers, B, S in runs:
+        cfg = _family_cfg(name, layers)
+        model = build_model(cfg, mesh, plan)
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=DEV).manual_seed(TP_SEED),
+                            DEV)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        weights = sum(t.numel() * t.element_size()
+                      for _, t in tree_items(params))
+        built_s = time.perf_counter() - t0
+        batch = _tp_batch(cfg, B, S)
+        buf = S + TP_NEW
+        ref = refs[name]
+        main = _tp_generate(swa, model, params, batch, buf, world)
+        logits, log, _ = _teacher_forced(model, params, batch,
+                                         ref["tokens"], buf)
+        on_ref = []
+        for layer, x in enumerate(ref["moe_inputs"]):
+            router = params["blocks"]["stack"]["moe"]["router"][layer]
+            on_ref.append(_choices(moe_lib._route(
+                {"router": router}, x.to(DEV), model.tp.cfg, model.tp)))
+        out[name] = dict(main, weight_bytes=weights, built_s=built_s,
+                         logits=logits, routing=log, routing_on_ref=on_ref,
+                         heads=(model.tp.cfg.n_heads,
+                                model.tp.cfg.n_kv_heads))
+        del params, model, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def _row_errs(got, want):
+    """(B, n) largest |got - want| of each row over its largest |want|."""
+    return (got - want).abs().amax(-1) / want.abs().amax(-1).clamp_min(1e-30)
+
+
+def _routed_apart(ids1, keep1, ids2, keep2, where):
+    """(G, Tg) bools of the tokens two routings of one call route apart:
+    (their choices, their choices or keep flags). Raises where a token is
+    kept or dropped apart with the same choices and no token of its group
+    before it routed apart (only that moves a queue)."""
+    ids_diff = (ids1 != ids2).any(-1)
+    keep_diff = (keep1 != keep2).any(-1)
+    for g, t in (keep_diff & ~ids_diff).nonzero().tolist():
+        if not bool(ids_diff[g, :t].any()):
+            raise AssertionError(
+                f"{where}: token ({g}, {t}) kept or dropped apart from one "
+                "rank with no choice routed apart before it")
+    return ids_diff, ids_diff | keep_diff
+
+
+def _routing_rows(one, got, B, n_steps):
+    """Compare a rank's routing on its own activations with one rank's:
+    (a (B, n_steps) bool of the (row, step)s whose own token routed alike
+    in every MoE layer, the tokens routed to another set of experts, the
+    tokens routed, over all calls). A prefill call is (G = B, Tg = S):
+    its last token is step 0; a decode call routes the batch as one group
+    (1, B): step i + 1."""
+    same = torch.ones((B, n_steps), dtype=torch.bool)
+    apart = routed = 0
+    layers = len(one) // n_steps
+    for c, ((ids1, keep1, _), (ids2, keep2, _)) in enumerate(zip(one, got)):
+        step = c // layers
+        ids_diff, diff = _routed_apart(ids1, keep1, ids2, keep2,
+                                       f"routing call {c}")
+        apart += int(ids_diff.sum())
+        routed += ids_diff.numel()
+        if step == 0:
+            same[:, 0] &= ~diff[:, -1]
+        else:
+            same[:, step] &= ~diff[0]
+    return same, apart, routed
+
+
+def _tp_check(name, one, ranks, cfg):
+    """The ranks' results against one rank's; raises on a failed check.
+    Returns the printed summary."""
+    B, n = one["tokens"].shape
+    for r, got in enumerate(ranks):
+        if not torch.equal(got["tokens"], ranks[0]["tokens"]):
+            raise AssertionError(f"{name}: rank {r}'s tokens differ from "
+                                 "rank 0's")
+        if got["tokens"].shape != (B, n) or not bool(
+                torch.isfinite(got["logits"]).all()):
+            raise AssertionError(f"{name}: rank {r} gave a bad shape or "
+                                 "non-finite logits")
+        want = [(B, cfg.n_heads // TP_WORLD, max(cfg.n_kv_heads // TP_WORLD,
+                                                  1), s[3], s[4], s[5], s[6],
+                 s[7], s[8]) for s in got["swa_shapes"]]
+        if got["swa_launches"] != cfg.n_layers or \
+                got["swa_shapes"] != want or not all(
+                    s in ATTN_TP.values() for s in got["swa_shapes"]):
+            raise AssertionError(
+                f"{name}: rank {r} launched swa_attention "
+                f"{got['swa_launches']} times at {got['swa_shapes']}, not "
+                f"{cfg.n_layers} at nq / {TP_WORLD} over nkv / {TP_WORLD}")
+    if one["swa_launches"] != cfg.n_layers:
+        raise AssertionError(f"{name}: one rank launched swa_attention "
+                             f"{one['swa_launches']} times")
+    if cfg.n_experts and not sum(one["drops"]):
+        raise AssertionError(f"{name}: the prompt dropped no entry")
+    res = {"config": name, "layers": cfg.n_layers,
+           "one_rank": {k: one[k] for k in (
+               "prefill_ms", "decode_ms_per_token", "wall_s", "peak_bytes",
+               "weight_bytes", "swa_launches", "drops")}}
+    errs, agree, compared, apart_rows = [], 0, 0, 0
+    for r, got in enumerate(ranks):
+        err = _row_errs(got["logits"], one["logits"])          # (B, n)
+        same, apart, routed = torch.ones((B, n), dtype=torch.bool), 0, 0
+        drops, ties = [], 0
+        if cfg.n_experts:
+            # on one rank's inputs: the same choices, keep flags and drops
+            for layer, ((ids2, keep2), (ids1, keep1, gap1)) in enumerate(
+                    zip(got["routing_on_ref"], one["routing"])):
+                ids_diff, _ = _routed_apart(
+                    ids1, keep1, ids2, keep2,
+                    f"{name}: rank {r}, layer {layer}, one rank's inputs")
+                ties += int(ids_diff.sum())
+                if bool(ids_diff.any()) and not \
+                        float(gap1[ids_diff].max()) < TP_TIE:
+                    raise AssertionError(
+                        f"{name}: rank {r} routes one rank's layer {layer} "
+                        f"inputs apart at a router-logit gap of "
+                        f"{float(gap1[ids_diff].max()):.3e}")
+                drops.append(int((keep2 == 0).sum()))
+            if drops != one["drops"]:
+                raise AssertionError(
+                    f"{name}: rank {r} drops {drops} entries on one rank's "
+                    f"prefill MoE inputs, one rank {one['drops']}")
+            same, apart, routed = _routing_rows(one["routing"],
+                                                got["routing"], B, n)
+            if apart > TP_APART * routed:
+                raise AssertionError(
+                    f"{name}: rank {r} routed {apart} of {routed} tokens "
+                    f"apart from one rank (over {TP_APART:.0%})")
+        held = err[same]
+        if not bool((held <= TP_TOL).all()):
+            raise AssertionError(
+                f"{name}: rank {r} logits {float(held.max()):.3e} of the "
+                f"row's scale from one rank's (tolerance {TP_TOL})")
+        top2 = one["logits"].topk(2, dim=-1).values
+        margin = (top2[..., 0] - top2[..., 1]) / \
+            one["logits"].abs().amax(-1)
+        pick = got["logits"].argmax(-1)
+        clear = same & (margin > TP_TOL)
+        wrong = clear & (pick != one["tokens"])
+        if bool(wrong.any()):
+            raise AssertionError(f"{name}: rank {r}'s greedy token differs "
+                                 f"from one rank's at {wrong.nonzero()} "
+                                 "where the margin is clear")
+        agree += int((pick == one["tokens"]).sum())
+        compared += pick.numel()
+        apart_rows += int((~same).sum())
+        errs.append({"rank": r, "max_rel_err": float(held.max()),
+                     "max_rel_err_all_rows": float(err.max()),
+                     "tokens_routed_apart": apart, "tokens_routed": routed,
+                     "rows_routed_apart": int((~same).sum()),
+                     "drops_on_one_rank_inputs": drops,
+                     "ties_on_one_rank_inputs": ties,
+                     **{k: got[k] for k in (
+                         "prefill_ms", "decode_ms_per_token", "wall_s",
+                         "peak_bytes", "weight_bytes", "built_s",
+                         "swa_launches", "staged_bytes", "staged_s",
+                         "collectives", "collective_axis_bytes")},
+                     "swa_heads": got["heads"],
+                     "peak_over_half_one_rank": got["peak_bytes"] / (
+                         one["peak_bytes"] / 2)})
+    res.update(ranks=errs, greedy_tokens_equal=f"{agree}/{compared}",
+               tokens_equal_one_rank=bool(torch.equal(ranks[0]["tokens"],
+                                                      one["tokens"])))
+    return res
+
+
+def phase_tp(swa, plain):
+    """Phase 20: tensor-parallel serving over the model axis. Returns the
+    ranks' swa_attention launches on the main path and the attention
+    rows at the ranks' shapes."""
+    t_all = time.perf_counter()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+    print(f"  card {card}")
+    gen = torch.Generator(device="cuda").manual_seed(TP_SEED)
+    attn = {}
+    for name, case in ATTN_TP.items():
+        row = _attn_case(swa, plain, case, torch.bfloat16, gen, name,
+                         plain_reps=3)
+        attn[name] = {k: row[k] for k in (
+            "shape", "ms", "ms_model_layout", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "max_rel_err",
+            "max_rel_err_model_layout")}
+        torch.cuda.empty_cache()
+    secs = {"attention": time.perf_counter() - t_all}
+    refs = {}
+    for name, layers, B, S in TP_RUNS:
+        t0 = time.perf_counter()
+        refs[name] = _tp_one_rank(swa, name, layers, B, S)
+        secs[f"{name} one rank"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    os.makedirs(os.path.dirname(TP_FILE), exist_ok=True)
+    torch.save({k: {f: v[f] for f in ("tokens", "moe_inputs")}
+                for k, v in refs.items()}, TP_FILE)
+    for ref in refs.values():
+        ref.pop("moe_inputs")
+    _release_host_memory()
+    torch.cuda.empty_cache()
+    try:
+        ranks = _spawn_ranks(_tp_rank, TP_WORLD, TP_RUNS, TP_FILE,
+                             timeout=240)
+    finally:
+        os.remove(TP_FILE)
+    secs["ranks"] = time.perf_counter() - t0
+    launches = {}
+    for name, layers, B, S in TP_RUNS:
+        cfg = _family_cfg(name, layers)
+        res = _tp_check(name, refs[name], [r[name] for r in ranks], cfg)
+        print(f"  {name} ({layers} layers, B = {B}, S = {S}, {TP_NEW} new, "
+              f"{TP_WORLD} ranks) " + json.dumps(res))
+        launches[f"{name} tensor-parallel serving, {layers} layers, "
+                 f"{TP_WORLD} ranks (phase 20)"] = sum(
+            r[name]["swa_launches"] for r in ranks)
+    secs["total"] = time.perf_counter() - t_all
+    print("  phase 20 seconds " + json.dumps(secs))
+    return {"attention": attn, "launches": launches}
+
+
+
+_T0 = time.perf_counter()
+_REMOVALS = []     # deletions on threads of their own, joined in ``main``
+
+
+def _remove_in_background(path):
+    """Delete ``path`` on a thread of its own, while the next phase runs
+    (unlinking the 33.5 GB resume point took 6-8 s on the card's host);
+    ``main`` waits for every such deletion before it returns."""
+    import threading
+    t = threading.Thread(target=shutil.rmtree, args=(path,),
+                         kwargs={"ignore_errors": True})
+    t.start()
+    _REMOVALS.append(t)
+
+
+def _phase(title):
+    """Print a phase's header, and the same with the seconds since the
+    script started on standard error, flushed, so that a run stopped from
+    outside shows how far it got."""
+    print(title, flush=True)
+    print(f"chip_smoke: {time.perf_counter() - _T0:.1f} s, {title}",
+          file=sys.stderr, flush=True)
 
 
 def main(argv=None):
@@ -5605,7 +6174,7 @@ def main(argv=None):
     mk = importlib.import_module("repro_torch.kernels.mamba_scan.mamba_scan")
     sk = importlib.import_module("repro_torch.kernels.slstm_step.slstm_step")
 
-    print("phase 1: card")
+    _phase("phase 1: card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
@@ -5617,7 +6186,9 @@ def main(argv=None):
     _build.build(*_build.all_sources())
     print(f"  kernels built in {time.perf_counter() - t0:.2f} s")
     for name, info in _build.build_info.items():
-        print(f"  {name}: {info['path']}")
+        own = info["nvcc_seconds"]
+        print(f"  {name}: {info['path']}"
+              + (f" (nvcc {own:.2f} s)" if own is not None else ""))
         print("\n".join("    " + line for line in info["log"].splitlines()
                         if "registers" in line or "spill" in line))
 
@@ -5629,19 +6200,21 @@ def main(argv=None):
             _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk,
                    slstm_ref, secs, t_start)
     finally:       # the resume point (~33.5 GB) never outlives the run
+        for t in _REMOVALS:
+            t.join()
         shutil.rmtree(os.path.dirname(RESUME_POINT), ignore_errors=True)
 
 
 def _partial(only, pk, ref, swa, swa_attention_plain, secs):
     """``--phases``: phase 1, then the phases named, alone."""
-    if not only <= {2, 14, 15, 16, 17, 18, 19} or (16 in only
-                                                   and 15 not in only):
-        raise SystemExit("--phases: any of 2, 14, 15, 16, 17, 18, 19 "
+    if not only <= {2, 14, 15, 16, 17, 18, 19, 20} or (16 in only
+                                                       and 15 not in only):
+        raise SystemExit("--phases: any of 2, 14, 15, 16, 17, 18, 19, 20 "
                          "(phase 16 resumes from phase 15's resume point: "
                          "15,16; 19 runs phases 3 and 12 first)")
     for ph in sorted(only):
         t0 = time.perf_counter()
-        print(f"phase {ph} (partial run)")
+        _phase(f"phase {ph} (partial run)")
         if ph == 2:
             rows, leaf_errs = phase_kernels(pk, ref)
             print("  kernels " + json.dumps(list(rows.values())))
@@ -5659,6 +6232,11 @@ def _partial(only, pk, ref, swa, swa_attention_plain, secs):
             phase_supervised(pk, RESUME_POINT)
         elif ph == 18:
             phase_autotune(pk)
+        elif ph == 20:
+            tp = phase_tp(swa, swa_attention_plain)
+            print("  swa_attention at phase 20's shapes "
+                  + json.dumps(tp["attention"]))
+            print("  swa_attention launches " + json.dumps(tp["launches"]))
         elif ph == 19:
             memory = _state_against_total_memory()
             launches, slice_res = phase_slice(pk)
@@ -5676,19 +6254,19 @@ def _partial(only, pk, ref, swa, swa_attention_plain, secs):
 
 def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
            secs, t_start):
-    """Phases 2-19, the kernels record and the contract's last line."""
+    """Phases 2-20, the kernels record and the contract's last line."""
     held = {}      # bytes allocated as each phase starts
-    print("phase 19(b), first: the persistent state against total_memory")
+    _phase("phase 19(b), first: the persistent state against total_memory")
     t0 = time.perf_counter()
     memory = _state_against_total_memory()
     secs["state vs total_memory"] = time.perf_counter() - t0
-    print("phase 2: kernels against their plain versions")
+    _phase("phase 2: kernels against their plain versions")
     held[2] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     rows, leaf_errs = phase_kernels(pk, ref)
     secs["kernels"] = time.perf_counter() - t0
 
-    print("phase 3: the slice (yi-6b, full width)")
+    _phase("phase 3: the slice (yi-6b, full width)")
     held[3] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     launches, none_mode = phase_slice(pk)
@@ -5696,31 +6274,31 @@ def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
     for name, row in rows.items():
         row["launches"] = launches[name]
 
-    print("phase 4: the launcher")
+    _phase("phase 4: the launcher")
     held[4] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     phase_launcher(pk)
     secs["launcher"] = time.perf_counter() - t0
 
-    print("phase 5: swa_attention against its plain version")
+    _phase("phase 5: swa_attention against its plain version")
     held[5] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     rows["swa_attention"] = phase_attention(swa, swa_attention_plain)
     secs["attention"] = time.perf_counter() - t0
 
-    print("phase 6: serving gemma2-2b (full width, full depth)")
+    _phase("phase 6: serving gemma2-2b (full width, full depth)")
     held[6] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     by_path = {"gemma2-2b serving": phase_serving(swa)}
     secs["serving"] = time.perf_counter() - t0
 
-    print("phase 7: ssd_chunks against its plain version")
+    _phase("phase 7: ssd_chunks against its plain version")
     held[7] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     rows["ssd_chunks"] = phase_ssd(mk, ssd_ref)
     secs["ssd"] = time.perf_counter() - t0
 
-    print("phase 8: serving zamba2-7b (full width, full depth)")
+    _phase("phase 8: serving zamba2-7b (full width, full depth)")
     held[8] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     zamba = phase_zamba2(swa, mk)
@@ -5734,13 +6312,13 @@ def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
         "zamba2-7b serving": zamba["ssd_chunks"]}
     rows["ssd_chunks"]["launches"] = zamba["ssd_chunks"]
 
-    print("phase 9: slstm_steps against its plain version")
+    _phase("phase 9: slstm_steps against its plain version")
     held[9] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     rows["slstm_steps"] = phase_slstm(sk, slstm_ref)
     secs["slstm"] = time.perf_counter() - t0
 
-    print("phase 10: serving xlstm-350m (full width, full depth)")
+    _phase("phase 10: serving xlstm-350m (full width, full depth)")
     held[10] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     xl = phase_xlstm(sk)
@@ -5748,13 +6326,13 @@ def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
     rows["slstm_steps"]["launches_by_path"] = {"xlstm-350m serving": xl}
     rows["slstm_steps"]["launches"] = xl
 
-    print("phase 11: sq_dist and apply_update against their plain versions")
+    _phase("phase 11: sq_dist and apply_update against their plain versions")
     held[11] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     rows.update(phase_pair(pk, ref))
     secs["pair"] = time.perf_counter() - t0
 
-    print("phase 12: the tree path (yi-6b, full width)")
+    _phase("phase 12: the tree path (yi-6b, full width)")
     held[12] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     tree = phase_tree(pk, ref)
@@ -5765,7 +6343,7 @@ def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
             "yi-6b tree training, 1 easgd round": tree["easgd"][name]}
         rows[name]["launches"] = tree["eq5"][name] + tree["easgd"][name]
 
-    print("phase 13: the overlap modes (yi-6b, full width)")
+    _phase("phase 13: the overlap modes (yi-6b, full width)")
     held[13] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     overlap = phase_overlap(pk, ref, none_mode)
@@ -5778,7 +6356,7 @@ def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
                 overlap["launches"][name]}
         rows[name]["launches"] += overlap["launches"][name]
 
-    print("phase 14: the paper's harness and measures")
+    _phase("phase 14: the paper's harness and measures")
     held[14] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     harness = phase_harness(pk, ref)
@@ -5799,7 +6377,7 @@ def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
         row["launches"] = n
         rows[name] = row
 
-    print("phase 15: the sharded round on torch.distributed ranks")
+    _phase("phase 15: the sharded round on torch.distributed ranks")
     held[15] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     sharded = phase_sharded(pk, ref, RESUME_POINT)
@@ -5816,7 +6394,7 @@ def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
                 if name != "fused_round_sharded":
                     rows[name]["launches"] += n
 
-    print("phase 16: the fault-tolerant round loop")
+    _phase("phase 16: the fault-tolerant round loop")
     held[16] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     sup = phase_supervised(pk, RESUME_POINT)
@@ -5830,7 +6408,7 @@ def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
                 rows[name].setdefault("launches_by_path", {})[label] = n
                 rows[name]["launches"] += n
 
-    print("phase 17: the MoE, enc-dec and vlm families")
+    _phase("phase 17: the MoE, enc-dec and vlm families")
     held[17] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     fam = phase_families(pk, swa, swa_attention_plain)
@@ -5844,7 +6422,7 @@ def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
             rows[name].setdefault("launches_by_path", {}).update(by_path)
             rows[name]["launches"] += sum(by_path.values())
 
-    print("phase 18: the autotune search")
+    _phase("phase 18: the autotune search")
     held[18] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     tune = phase_autotune(pk)
@@ -5857,13 +6435,25 @@ def _whole(pk, ref, swa, swa_attention_plain, mk, ssd_ref, sk, slstm_ref,
                 rows[name].setdefault("launches_by_path", {})[label] = n
                 rows[name]["launches"] += n
 
-    print("phase 19: launch analysis against the card")
+    _phase("phase 19: launch analysis against the card")
     held[19] = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     phase_launch_analysis(pk, launches, none_mode, tree, memory)
     secs["launch analysis"] = time.perf_counter() - t0
+
+    _phase("phase 20: tensor-parallel serving over the model axis")
+    held[20] = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    tp = phase_tp(swa, swa_attention_plain)
+    secs["tensor parallel"] = time.perf_counter() - t0
+    row = rows["swa_attention"]
+    row["phase20_shapes"] = tp["attention"]
+    row["launches_by_path"].update(tp["launches"])
+    row["launches"] += sum(tp["launches"].values())
     secs["total"] = time.perf_counter() - t_start
     print("phase seconds " + json.dumps(secs))
+    print(f"chip_smoke: {secs['total']:.1f} s, every phase passed",
+          file=sys.stderr, flush=True)
     print("allocated bytes as each phase starts " + json.dumps(held))
 
     record = list(rows.values())

@@ -4,8 +4,9 @@ Each kernel module names its source with a ``Source`` (the ``.cu`` file and
 a ``bind`` function that sets the C entry points' ``argtypes``) and calls
 ``build(SOURCE)`` at its first CUDA launch, never at import. ``build``
 compiles every source it is given that is not built yet in parallel (one
-``nvcc`` per source, all started together), loads each shared library with
-``ctypes`` and caches it for the process. ``KERNEL_MODULES`` lists the
+``nvcc`` per source, or per part of a source built in ``parts``, all
+started together; a source's parts are then linked), loads each shared
+library with ``ctypes`` and caches it for the process. ``KERNEL_MODULES`` lists the
 modules of all four sources and ``all_sources()`` their ``Source``s, so
 that ``chip_smoke.py`` builds every kernel at once.
 
@@ -15,8 +16,8 @@ anew and an unchanged one is reused. The write is atomic (temp file +
 ``os.replace``), so concurrent builders agree; a lock serialises builders
 within one process. ``build_info[name]`` records the build's seconds, the
 compiler's output (ptxas's register / spill report; kept beside the
-library as ``.log``, so a reused library reports it too) and the
-library's path.
+library as ``.log``, so a reused library reports it too), the library's
+path and the source's own ``nvcc`` seconds (None when it was reused).
 """
 from __future__ import annotations
 
@@ -55,6 +56,14 @@ class Source:
     name: str                              # library stem, e.g. "pullpush"
     path: Path                             # the .cu file
     bind: Callable[[ctypes.CDLL], None]    # sets argtypes / restype
+    # > 1: the file is compiled this many times, with -DKERNEL_PART=k
+    # (k = 0 .. parts - 1: each unit holds its share of the entry points),
+    # all at once beside the other sources, then linked into one library
+    parts: int = 1
+
+
+# the flags of one part's ``-c`` (NVCC_FLAGS but ``-shared``)
+COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared")
 
 
 def _nvcc():
@@ -67,8 +76,10 @@ def _nvcc():
 
 
 def _target(src: Source) -> Path:
+    flags = " ".join(NVCC_FLAGS) + (f" parts={src.parts}" if src.parts > 1
+                                     else "")
     tag = hashlib.sha256(src.path.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                         + flags.encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.name}-{tag}.so"
 
 
@@ -85,7 +96,7 @@ def build(*sources: Source):
     with _lock:
         todo = [s for s in sources if s.name not in _libs]
         t0 = time.perf_counter()
-        procs = {}
+        procs = {}      # name -> (library, its temp file, objects, nvccs)
         for s in todo:
             so = _target(s)
             if so.exists():
@@ -93,14 +104,46 @@ def build(*sources: Source):
             nvcc = _nvcc()
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            procs[s.name] = (so, tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(s.path)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        logs, failed = {}, []
-        for name, (so, tmp, proc) in procs.items():
-            logs[name] = proc.communicate()[0]
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed for {name} ({proc.returncode}):"
+            if s.parts == 1:
+                objs = []
+                cmds = [[nvcc, *NVCC_FLAGS, "-o", str(tmp), str(s.path)]]
+            else:
+                objs = [so.with_suffix(f".{os.getpid()}.{k}.o")
+                        for k in range(s.parts)]
+                cmds = [[nvcc, *COMPILE_FLAGS, "-c", f"-DKERNEL_PART={k}",
+                         "-o", str(o), str(s.path)]
+                        for k, o in enumerate(objs)]
+            procs[s.name] = (so, tmp, objs, [subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True) for cmd in cmds])
+        logs, failed, own = {}, [], {}
+
+        def drain(name, k, proc):   # each source's own compile seconds
+            logs[name, k] = proc.communicate()[0]
+            own[name] = max(own.get(name, 0.0), time.perf_counter() - t0)
+        waits = [threading.Thread(target=drain, args=(name, k, proc))
+                 for name, (*_, nvccs) in procs.items()
+                 for k, proc in enumerate(nvccs)]
+        for w in waits:
+            w.start()
+        for w in waits:
+            w.join()
+        for name, (so, tmp, objs, nvccs) in procs.items():
+            logs[name] = "".join(logs.pop((name, k))
+                                 for k in range(len(nvccs)))
+            bad = [p.returncode for p in nvccs if p.returncode != 0]
+            if not bad and objs:
+                link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
+                                       *map(str, objs)],
+                                      capture_output=True, text=True)
+                logs[name] += link.stdout + link.stderr
+                bad = [link.returncode] if link.returncode != 0 else []
+                own[name] = time.perf_counter() - t0
+            for o in objs:
+                if o.exists():
+                    o.unlink()
+            if bad:
+                failed.append(f"nvcc failed for {name} ({bad[0]}):"
                               f"\n{logs[name]}")
             else:
                 so.with_suffix(".log").write_text(logs[name])
@@ -117,7 +160,8 @@ def build(*sources: Source):
             if s.name not in logs:
                 logs[s.name] = log.read_text() if log.exists() else ""
             build_info[s.name] = dict(seconds=seconds, log=logs[s.name],
-                                      path=str(so))
+                                      path=str(so),
+                                      nvcc_seconds=own.get(s.name))
         return [_libs[s.name] for s in sources]
 
 

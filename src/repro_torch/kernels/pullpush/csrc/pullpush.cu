@@ -65,11 +65,27 @@
 //
 // Every entry point returns cudaGetLastError() after its launch; the
 // Python wrapper raises when it is not cudaSuccess.
+//
+// The library is built from this file in PP_PARTS translation units, one
+// nvcc each, all started together, then linked (``_build.Source.parts``):
+// the many instances of the two passes took one nvcc ~1 min. With
+// -DKERNEL_PART=k a unit holds the entry points of part k and instantiates
+// only their kernels; without it the file holds all of them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#define PP_PARTS 5  // pullpush.py's SOURCE builds this many parts
+#ifdef KERNEL_PART
+#if KERNEL_PART < 0 || KERNEL_PART >= PP_PARTS
+#error "KERNEL_PART names no part of pullpush.cu"
+#endif
+#define PP_IN(k) (KERNEL_PART == (k))
+#else
+#define PP_IN(k) 1
+#endif
 
 namespace {
 
@@ -843,6 +859,7 @@ struct ApplyLaunch {
 
 extern "C" {
 
+#if PP_IN(0)
 // ws: (nblk, R, R) fp32 workspace, one partial Gram per block; the rows of
 // x lie ld floats apart (ld >= n). ticket == nullptr: the block partials
 // only (pp_gram_coef sums them). Else the last block sums them into G and,
@@ -861,7 +878,9 @@ int pp_partial_gram(const float* x, int R, long long n, long long ld,
                              static_cast<cudaStream_t>(stream),
                              MakeFlat{x, nullptr, nullptr, ld});
 }
+#endif
 
+#if PP_IN(1)
 // the same over the leaf table tab (nleaves x kLeafFields int64, the
 // virtual (R, n) view); vec 4 as for a fresh flat view of it
 int pp_leaf_gram(const long long* tab, int nleaves, int R, long long n,
@@ -876,7 +895,9 @@ int pp_leaf_gram(const long long* tab, int nleaves, int R, long long n,
                              static_cast<cudaStream_t>(stream),
                              MakeLeaf{tab, nleaves});
 }
+#endif
 
+#if PP_IN(0)
 // T == nullptr: only reduce the partials into G (r, coef, c0, c1 unused)
 int pp_gram_coef(const float* ws, int nblk, int R, const float* T,
                  const float* c0, const float* c1, float eps, float* G,
@@ -887,7 +908,9 @@ int pp_gram_coef(const float* ws, int nblk, int R, const float* T,
       ws, nblk, R, Coef{T, c0, c1, eps, G, r, coef});
   return (int)cudaGetLastError();
 }
+#endif
 
+#if PP_IN(2)
 int pp_mix(const float* x, int R, long long n, const float* T,
            const float* coef, float* out, int nblk, int vec, void* stream) {
   if (!valid_shape(R, n, n, vec) || nblk < 1)
@@ -909,7 +932,9 @@ int pp_stale_mix(const float* x, int R, long long n, const float* T,
       R, n, coef, nullptr, k, nblk, vec, static_cast<cudaStream_t>(stream),
       MakeFlat{x, base, out, n});
 }
+#endif
 
+#if PP_IN(3)
 // pp_mix (base == nullptr) or pp_stale_mix with the coefficients of the
 // given (R, R) Gram G, computed in the prologue; r and coef written out
 int pp_mix_from_gram(const float* x, int R, long long n, const float* T,
@@ -927,7 +952,9 @@ int pp_mix_from_gram(const float* x, int R, long long n, const float* T,
   return launch_mix<true, true, FlatIO>(R, n, nullptr, G, k, nblk, vec, s,
                                         make);
 }
+#endif
 
+#if PP_IN(4)
 // the mix over the leaf table: reads each leaf's src, writes its dst in
 // the leaf's dtype
 int pp_leaf_mix(const long long* tab, int nleaves, int R, long long n,
@@ -940,7 +967,9 @@ int pp_leaf_mix(const long long* tab, int nleaves, int R, long long n,
       R, n, coef, nullptr, k, nblk, vec, static_cast<cudaStream_t>(stream),
       MakeLeaf{tab, nleaves});
 }
+#endif
 
+#if PP_IN(0)
 // partials: (nblk,) fp32 scratch; out: one fp32. vec8 needs x and a
 // 16-byte aligned (the wrapper checks).
 int pp_sq_dist(const void* x, int x_bf16, const void* a, int a_bf16,
@@ -964,5 +993,6 @@ int pp_apply(const void* x, int x_bf16, const void* a, int a_bf16,
 const char* pp_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+#endif
 
 }  // extern "C"

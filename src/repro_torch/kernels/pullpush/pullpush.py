@@ -130,8 +130,10 @@ def _bind(lib):
     lib.error_string = lib.pp_error_string
 
 
+# five units (pullpush.cu's PP_PARTS): its entry points' instances, one
+# nvcc ~1 min on an H100 host, compiled side by side
 SOURCE = _build.Source("pullpush", Path(__file__).resolve().parent / "csrc"
-                       / "pullpush.cu", _bind)
+                       / "pullpush.cu", _bind, parts=5)
 
 
 def reset_launches():

@@ -23,10 +23,19 @@ before fusion, the collectives, each kernel's calls at its ``cost()``).
   round (their fill rounds run first, uncounted). The port has no sharded
   DDP step, so ``ddp`` counts the sharded round at tau 1 on the per-step
   batch: one local step and one exact consensus a step, DDP's cadence.
-* **prefill / decode**: one replica a card (the port has no
-  tensor-parallel serving), the shape's batch spread over the cards;
-  ``fits`` says whether the replica's parameters, its inputs and the
-  trace's peak fit the card's 80 GB.
+* **prefill / decode**: one replica over each node's ``model`` axis (8
+  cards, tensor-parallel serving: ``models/parallel.py``), traced on rank
+  0: its shard of the parameters and of the KV cache on ``meta``, the
+  model-axis all-reduces and all-gathers of the forward recorded with
+  the census. The shape's batch goes over ``data`` (one replica a node)
+  where the reference's ``data_ok`` rule allows
+  (``repro/launch/dryrun.py:180, :200-201``), else every replica takes
+  the whole batch. ``fits`` says whether the rank's shard, its inputs and
+  the trace's peak fit one card's 80 GB; ``placed_apart`` lists the
+  leaves whose split is not the reference's (``launch.mesh.placed_apart``:
+  replicated KV heads, the shared expert). The reference's
+  context-parallel ``long_500k`` (its KV buffer over ``data``) is not
+  ported: that shape's batch of one is served whole by every replica.
 
 Plans: ``baseline`` and ``hier`` are the production meshes; ``opt`` /
 ``hier_opt`` also run the chunked mLSTM (``xlstm_chunk = 256``), the bf16
@@ -38,7 +47,8 @@ Records go to ``results/dryrun_torch/<arch>_<shape>_<nodes>n_<mode>_<plan>
 [_<overlap>].json`` with the reference's keys (``lower_s`` is the trace's
 seconds, ``compile_s`` 0: nothing is compiled; ``cost_raw_xla`` holds the
 trace's own flops and bytes) plus ``engine``, ``kernels``, ``nodes``,
-``mesh_shape`` and, for serving, ``fits``. ``memory`` holds the specs'
+``mesh_shape`` and, for serving, ``fits``, ``replicas``,
+``batch_per_replica``, ``param_bytes_per_card`` and ``placed_apart``. ``memory`` holds the specs'
 ``argument_size_in_bytes`` / ``output_size_in_bytes`` and, as
 ``temp_size_in_bytes``, the dispatch trace's peak of live bytes (not an
 allocator's). A record that exists is skipped.
@@ -148,44 +158,58 @@ def build_train(arch, shape, mesh, plan, *, ddp=False, tau=4,
     return step, (state, batch), cfg, info
 
 
-def _serve_shape(shape, cards):
-    """The shape one replica serves: the batch spread over the cards."""
-    b_local = -(-shape.global_batch // cards)
-    return dataclasses.replace(shape, global_batch=b_local), \
-        min(cards, shape.global_batch)
+def _serve_shape(shape, mesh, plan, *, decode):
+    """The shape one replica serves and the replicas: the batch over the
+    ``data`` axis where the reference's ``data_ok`` allows (for decode
+    also a batch at least as large as the axis), else the whole batch on
+    every replica."""
+    d = mesh.axis_size(plan.worker_axes)
+    data_ok = shape.global_batch % d == 0 and \
+        (not decode or shape.global_batch >= d)
+    if not data_ok:
+        return shape, 1
+    return dataclasses.replace(shape, global_batch=shape.global_batch // d),\
+        d
+
+
+def _serve_info(cfg, mesh, plan, local, replicas):
+    m = mesh_lib.model_group(mesh, plan).size
+    return {"engine": f"one replica over model = {m}", "replicas": replicas,
+            "batch_per_replica": local.global_batch,
+            "placed_apart": {p: [ref, got] for p, (ref, got) in
+                             mesh_lib.placed_apart(cfg, m).items()}}
 
 
 def build_prefill(arch, shape, mesh, plan, plan_name="baseline"):
     cfg = _cfg_for(arch, plan_name, train=False)
-    model = build_model(cfg)
-    local, replicas = _serve_shape(shape, mesh.size)
-    params = specs_lib.param_specs(cfg)
+    model = build_model(cfg, mesh, plan)
+    local, replicas = _serve_shape(shape, mesh, plan, decode=False)
+    params = specs_lib.param_specs(cfg, mesh, plan)
     batch = specs_lib.prefill_batch_specs(cfg, local)
     buf = specs_lib.buf_len_for(cfg, local)
 
     def prefill(params, batch):
         with torch.no_grad():
             return model.prefill(params, batch, buf)
-    info = {"engine": "one replica a card", "replicas": replicas,
-            "batch_per_card": local.global_batch}
+    info = _serve_info(cfg, mesh, plan, local, replicas)
     return prefill, (params, batch), cfg, info
 
 
 def build_decode(arch, shape, mesh, plan, plan_name="baseline"):
     cfg = _cfg_for(arch, plan_name, train=False)
-    model = build_model(cfg)
-    local, replicas = _serve_shape(shape, mesh.size)
+    model = build_model(cfg, mesh, plan)
+    local, replicas = _serve_shape(shape, mesh, plan, decode=True)
     window = specs_lib.serve_window_for(cfg, local)
     serve_step = make_serve_step(model, window=window)
-    params = specs_lib.param_specs(cfg)
-    token, _, states = specs_lib.decode_step_specs(cfg, local, params)
+    params = specs_lib.param_specs(cfg, mesh, plan)
+    token, _, states = specs_lib.decode_step_specs(cfg, local, params, mesh,
+                                                   plan)
     index = local.seq_len - 1        # the last position: a full cache
 
     def decode(params, states, token):
         with torch.no_grad():
             return serve_step(params, states, token, index)
-    info = {"engine": "one replica a card", "replicas": replicas,
-            "batch_per_card": local.global_batch, "index": index}
+    info = dict(_serve_info(cfg, mesh, plan, local, replicas), index=index)
     return decode, (params, states, token), cfg, info
 
 
@@ -272,7 +296,9 @@ def run_one(arch, shape_name, nodes, *, mode=None, plan_name="baseline",
         rec["staleness"] = staleness if overlap == "staleness_k" else None
     else:
         rec.update(replicas=info["replicas"],
-                   batch_per_card=info["batch_per_card"],
+                   batch_per_replica=info["batch_per_replica"],
+                   param_bytes_per_card=_nbytes(args[0]),
+                   placed_apart=info["placed_apart"],
                    fits=arg_bytes + ana["peak_live_bytes"]
                    <= HBM_GB * 1e9)
     os.makedirs(out_dir, exist_ok=True)

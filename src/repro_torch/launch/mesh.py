@@ -27,8 +27,18 @@ is made on the host beside the parts. A collective that fails raises.
 
 The column rule (``flat_col_axes``, ``flat_col_entry``,
 ``flat_view_spec``) is the reference's, as pure functions of the mesh
-shape. Not here, as in the reference they serve only GSPMD or the TPU:
-``param_shardings``, ``batch_shardings`` and ``serve_shardings``.
+shape. So is the ``model`` half of its parameter and serving rules
+(``_RULES``, ``_MOE_RULES``, ``_leaf_spec``, ``serve_shardings``):
+``model_dim`` and ``serve_model_dim`` name the dim the reference splits
+over a ``model`` group. The port runs that split explicitly
+(tensor-parallel serving): ``tp_split`` / ``state_split`` are the dims
+its forward splits, the reference's except where the reference's split
+cannot run as an explicit one (``placed_apart``: KV heads that a group
+larger than their count would cut inside a head, replicated instead on
+the ranks whose query heads read them; the shared expert, whose rule
+lands on the layer dim), and ``shard_params`` cuts a rank's shard from a
+full tree. ``batch_shardings`` is not here: GSPMD's batch placement has
+no counterpart in a sharded step that takes its rank's rows.
 
 ``VirtualMesh`` is one rank's view of a mesh of any size with no
 processes behind it: the same axes, coordinates and groups, whose
@@ -47,6 +57,7 @@ import os
 import time
 from datetime import timedelta
 from itertools import combinations, product
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -646,3 +657,211 @@ def flat_view_spec(mesh, shape, plan: MeshPlan):
     if plan.worker_axes and R % _axes_size(mesh, plan.worker_axes) == 0:
         spec[-2] = _axes_entry(plan.worker_axes)
     return tuple(spec)
+
+
+# ---------------------------------------------------------------------------
+# the model axis: the reference's rules, and the split the forward runs
+# ---------------------------------------------------------------------------
+
+# leaf name -> (model dim from the right, fsdp dim from the right), the
+# reference's ``_RULES`` (``launch/mesh.py:111-131``); None = replicated.
+# The fsdp half only marks a matrix, whose model split may fall back to
+# its sibling feature dim.
+_RULES = {
+    "wq": (-1, -2), "wk": (-1, -2), "wv": (-1, -2),
+    "bq": (-1, None), "bk": (-1, None), "bv": (-1, None),
+    "wo": (-2, -1),
+    "w_gate": (-1, -2), "w_up": (-1, -2), "w_down": (-2, -1),
+    "embed": (-1, -2), "lm_head": (-1, -2),
+    "in_proj": (-1, -2), "out_proj": (-2, -1), "conv_w": (-1, None),
+    "conv_b": (-1, None), "norm": (-1, None),
+    "w_i": (-1, None), "w_f": (-1, None), "w_gates": (-1, -2),
+    "r_gates": (None, None),
+    "router": (-1, None),
+}
+# inside a "moe" subtree the expert tables split the expert dim (-3)
+_MOE_RULES = {"w_gate": (-3, -1), "w_up": (-3, -1), "w_down": (-3, -1)}
+
+# the dims the port's tensor-parallel forward splits, from the right:
+# column-parallel leaves on their outputs (the router's on its experts,
+# embed on d_model, lm_head on the vocabulary), row-parallel ones on
+# their inputs, a MoE block's expert tables on their expert dim
+_COLUMN = ("wq", "wk", "wv", "bq", "bk", "bv", "w_gate", "w_up", "embed",
+           "lm_head", "router")
+_ROW = ("wo", "w_down")
+_EXPERT_TABLES = ("w_gate", "w_up", "w_down")
+_KV = ("wk", "wv", "bk", "bv")
+
+
+def _names(path):
+    return [str(getattr(p, "key", getattr(p, "idx", p))) for p in path]
+
+
+def model_dim(path, shape, size: int):
+    """The dim of a parameter leaf at ``path`` (its key names) and
+    ``shape`` that the reference's ``_leaf_spec`` puts a ``model`` group of
+    ``size`` on in a serving tree (``stacked=False``), as an index into
+    ``shape``; None where it replicates the leaf."""
+    names = _names(path)
+    name = names[-1] if names else ""
+    rules = _MOE_RULES if ("moe" in names and name in _MOE_RULES) \
+        else _RULES
+    dim, fsdp = rules.get(name, (None, None))
+    if dim is None:
+        return None
+    nd = len(shape)
+    for d in [dim] + ([-1 if dim == -2 else -2] if fsdp is not None
+                      else []):
+        if nd + d >= 0 and shape[d] % size == 0 and shape[d] >= size:
+            return nd + d
+    return None
+
+
+def serve_model_dim(path, shape, size: int, *, integer=False):
+    """The dim of a serving-state leaf that the reference's
+    ``serve_shardings`` puts a ``model`` group of ``size`` on (its model
+    half; the batch dim's ``data`` placement aside): a KV cache's nkv when
+    it divides, else its hd; no dim for ``pos`` tags, 0-d and integer
+    leaves; else the last dim that divides."""
+    names = _names(path)
+    name = names[-1] if names else ""
+    nd = len(shape)
+    if name == "pos" or nd == 0 or integer:
+        return None
+    if name in ("k", "v") and nd >= 4:
+        for d in (nd - 2, nd - 1):
+            if shape[d] % size == 0:
+                return d
+        return None
+    return next((d for d in range(nd - 1, -1, -1)
+                 if shape[d] % size == 0 and shape[d] >= size), None)
+
+
+class Split(NamedTuple):
+    """Where a leaf lies over a ``model`` group: ``dim`` cut into ``parts``
+    equal pieces. With ``parts`` equal to the group's size each rank holds
+    one piece; with fewer (KV heads fewer than the ranks) each piece is
+    held by ``size // parts`` ranks in a row."""
+    dim: int
+    parts: int
+
+    def piece(self, index: int, size: int) -> int:
+        return index * self.parts // size
+
+
+def check_tp(cfg, size: int):
+    """Raise ``ValueError`` unless a ``model`` group of ``size`` can split
+    ``cfg``'s forward: whole query heads a rank; KV heads a whole number a
+    rank, or each shared by ``size // n_kv_heads`` ranks; d_ff, experts,
+    d_model and the vocabulary in equal parts."""
+    why = []
+    if cfg.n_heads % size:
+        why.append(f"{cfg.n_heads} query heads")
+    if cfg.n_kv_heads % size and size % cfg.n_kv_heads:
+        why.append(f"{cfg.n_kv_heads} KV heads (neither divides the other)")
+    for what, n in (("d_ff", cfg.d_ff), ("experts", cfg.n_experts),
+                    ("d_model", cfg.d_model), ("vocab", cfg.vocab_size)):
+        if n % size:
+            why.append(f"{what} {n}")
+    if why:
+        raise ValueError(f"{cfg.name} does not split over a model group of "
+                         f"{size}: " + ", ".join(why))
+
+
+def tp_split(cfg, path, shape, size: int):
+    """The ``Split`` of a parameter leaf in the port's tensor-parallel
+    forward over a ``model`` group of ``size`` (None: replicated). It is
+    the reference's ``model_dim`` with ``size`` parts, except for the
+    leaves ``placed_apart`` lists."""
+    names = _names(path)
+    name = names[-1] if names else ""
+    nd = len(shape)
+    if "moe" in names and "shared" not in names and name in _EXPERT_TABLES:
+        dim = nd - 3
+    elif name in _COLUMN:
+        dim = nd - 1
+    elif name in _ROW:
+        dim = nd - 2
+    else:
+        return None
+    parts = size
+    if name in _KV and cfg.n_kv_heads % size:
+        parts = cfg.n_kv_heads        # whole heads, replicated
+    if shape[dim] % parts:
+        raise ValueError(f"{'/'.join(names)}: dim {dim} of {tuple(shape)} "
+                         f"does not split in {parts}")
+    return Split(dim, parts)
+
+
+def state_split(cfg, path, shape, size: int):
+    """The ``Split`` of a serving-state leaf: a KV cache on its heads (in
+    ``n_kv_heads`` parts, replicated, where there are fewer heads than
+    ranks), ``pos`` tags replicated."""
+    names = _names(path)
+    name = names[-1] if names else ""
+    if name in ("k", "v") and len(shape) >= 4:
+        return Split(len(shape) - 2, min(cfg.n_kv_heads, size))
+    return None
+
+
+def shard_leaf(x, split, index: int, size: int):
+    """Rank ``index``'s piece of a leaf (a tensor's narrowed view, a numpy
+    array's slice) of a group of ``size``; the leaf itself when ``split``
+    is None."""
+    if split is None:
+        return x
+    n = x.shape[split.dim] // split.parts
+    start = split.piece(index, size) * n
+    if isinstance(x, torch.Tensor):
+        return x.narrow(split.dim, start, n)
+    return x[(slice(None),) * split.dim + (slice(start, start + n),)]
+
+
+def model_group(mesh, plan: MeshPlan):
+    """This rank's ``model`` group of ``mesh`` (``plan.model_axes``)."""
+    return mesh.group(tuple(a for a in mesh.axis_names
+                            if a in plan.model_axes))
+
+
+def shard_params(cfg, params, mesh, plan: MeshPlan):
+    """This rank's shard of a full parameter tree for tensor-parallel
+    serving over ``mesh``'s ``model`` group (``tp_split``): the port's
+    tensors, each split leaf copied out of the full one (so that the full
+    tree can be freed), or the reference's numpy tree, cut and carried
+    across by ``models.registry.params_from_numpy`` onto ``mesh.device``.
+    A group of one returns ``params``."""
+    from repro_torch.core.engine import tree_from_items, tree_items
+    group = model_group(mesh, plan)
+    if group.size == 1:
+        return params
+    items = tree_items(params)
+    if not isinstance(items[0][1], torch.Tensor):
+        from repro_torch.models.registry import params_from_numpy
+        return params_from_numpy(cfg, params, device=mesh.device,
+                                 mesh=mesh, plan=plan)
+    out = []
+    for path, leaf in items:
+        split = tp_split(cfg, path, leaf.shape, group.size)
+        out.append((path, leaf if split is None else shard_leaf(
+            leaf, split, group.index, group.size).clone()))
+    return tree_from_items(out)
+
+
+def placed_apart(cfg, size: int):
+    """``{path: (reference dim, port Split)}``: the parameter and KV-cache
+    leaves of ``cfg`` where the port's split over a ``model`` group of
+    ``size`` is not the reference's (``model_dim`` / ``serve_model_dim``
+    in ``size`` parts). Read off meta-device trees."""
+    from repro_torch.core.engine import tree_items
+    from repro_torch.models import transformer as lm
+    out = {}
+    params = lm.init_lm(cfg, None, device="meta")
+    states = lm.init_states(cfg, 1, 1, torch.float32, device="meta")
+    for tree, ref_dim, port in ((params, model_dim, tp_split),
+                                (states, serve_model_dim, state_split)):
+        for path, leaf in tree_items(tree):
+            ref = ref_dim(path, leaf.shape, size)
+            got = port(cfg, path, leaf.shape, size)
+            if got != (None if ref is None else Split(ref, size)):
+                out["/".join(path)] = (ref, got)
+    return out

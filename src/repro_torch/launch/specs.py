@@ -10,7 +10,10 @@ the ``meta`` device (shapes and dtypes, no memory) for each workload:
   decode  -> (token, index, states), the KV cache of the shape's length
              (or the sliding-window ring of the long_500k variant)
 
-where the reference returns ``jax.ShapeDtypeStruct``s. Modality frontends
+where the reference returns ``jax.ShapeDtypeStruct``s. Given a ``mesh``
+(a ``launch.mesh.VirtualMesh``) whose ``model`` group splits the model,
+the parameter and state specs are one rank's shard, as the reference's
+``param_shardings`` / ``serve_shardings`` place them over its mesh. Modality frontends
 are stubs, as in the reference: the specs hold the frame / patch
 embeddings themselves.
 
@@ -90,18 +93,22 @@ def prefill_batch_specs(cfg: ModelConfig, shape: InputShape):
     return specs
 
 
-def param_specs(cfg: ModelConfig):
+def param_specs(cfg: ModelConfig, mesh=None, plan=None):
     """The model's parameter tree on ``meta`` (the reference's tree paths,
-    as ``models.registry.params_from_numpy`` names them)."""
-    return build_model(cfg).init(None, META)
+    as ``models.registry.params_from_numpy`` names them); with a ``mesh``
+    whose ``model`` group splits the model, this rank's shard."""
+    return build_model(cfg, mesh, plan).init(None, META)
 
 
-def decode_state_specs(cfg: ModelConfig, shape: InputShape, params=None):
+def decode_state_specs(cfg: ModelConfig, shape: InputShape, params=None,
+                       mesh=None, plan=None):
     """The decode states on ``meta``: ``make_state`` of the shape's batch
     at its buffer length (an enc-dec model's cross-attention cache from
-    its frames), which has the structure a prefill leaves."""
-    model = build_model(cfg)
-    params = param_specs(cfg) if params is None else params
+    its frames), which has the structure a prefill leaves; with a
+    ``mesh`` whose ``model`` group splits the model, this rank's KV
+    heads."""
+    model = build_model(cfg, mesh, plan)
+    params = param_specs(cfg, mesh, plan) if params is None else params
     batch = {"tokens": _meta((shape.global_batch, 1), TOK)}
     batch.update(_modality_specs(cfg, (shape.global_batch,)))
     batch.pop("prefix", None)      # decode states do not hold the prefix
@@ -110,10 +117,11 @@ def decode_state_specs(cfg: ModelConfig, shape: InputShape, params=None):
     return states
 
 
-def decode_step_specs(cfg: ModelConfig, shape: InputShape, params=None):
+def decode_step_specs(cfg: ModelConfig, shape: InputShape, params=None,
+                      mesh=None, plan=None):
     token = _meta((shape.global_batch, 1), TOK)
     index = _meta((), TOK)
-    return token, index, decode_state_specs(cfg, shape, params)
+    return token, index, decode_state_specs(cfg, shape, params, mesh, plan)
 
 
 def input_specs(cfg: ModelConfig, shape: InputShape, plan: MeshPlan,

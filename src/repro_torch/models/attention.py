@@ -10,6 +10,10 @@ the port writes it in place. Attention over it takes larger blocks
 (``serve_block``): serving keeps nothing for a backward pass, and every
 block is a dozen more eager launches per layer.
 
+Under tensor-parallel serving (``models/parallel.py``) the projections
+hold the rank's heads: ``qkv_proj`` gives its query and KV heads and the
+cache holds its KV heads, and ``out_proj`` sums the ranks' parts.
+
 Positions come in two forms. A Python int start gives one set of
 positions for the whole batch, with one ``pos`` tag per buffer slot
 (prefill, training, ``generate``). A (B,) tensor of starts gives each
@@ -67,9 +71,13 @@ def qkv_proj(p, x, n_heads, n_kv_heads, head_dim):
             v.reshape(B, S, n_kv_heads, head_dim))
 
 
-def out_proj(p, o):
+def out_proj(p, o, tp=None):
+    """o (B, S, nq, hd) -> (B, S, d_model). Under a ``models.parallel.TP``
+    ``wo`` holds the rank's heads' rows: the rank's partial sum, then one
+    all-reduce."""
     B, S = o.shape[:2]
-    return o.reshape(B, S, -1) @ p["wo"]
+    out = o.reshape(B, S, -1) @ p["wo"]
+    return out if tp is None else tp.all_reduce(out)
 
 
 # ---------------------------------------------------------------------------

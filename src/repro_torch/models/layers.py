@@ -101,6 +101,10 @@ def init_mlp(gen, d_model, d_ff, dtype, *, device):
     }
 
 
-def mlp(p, x, act: str):
+def mlp(p, x, act: str, tp=None):
+    """The gated MLP. Under a ``models.parallel.TP`` its ``w_gate`` /
+    ``w_up`` are the rank's output columns and ``w_down`` its input rows:
+    the rank's partial sum, then one all-reduce."""
     g = act_fn(act)(x @ p["w_gate"])
-    return (g * (x @ p["w_up"])) @ p["w_down"]
+    out = (g * (x @ p["w_up"])) @ p["w_down"]
+    return out if tp is None else tp.all_reduce(out)

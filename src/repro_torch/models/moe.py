@@ -7,7 +7,11 @@ experts, top-4). The aux load-balance loss follows Switch Transformer:
 choice.
 
 The reference's ``_constrain`` pins the routing tensors' expert dim to a
-GSPMD mesh axis and is a no-op on one device: it has no counterpart here.
+GSPMD mesh axis (expert parallelism) and is a no-op on one device. Its
+counterpart here is explicit: under a ``models.parallel.TP`` a rank holds
+E / size experts, routes every token as every other rank does (the
+router's logits all-gathered) and sums its experts' part of the combine
+with the others' in one all-reduce.
 The reference computes the products in jnp outside any Pallas kernel; the
 port keeps them as ``torch.bmm`` over the expert (or group) axis, laid out
 so that no product copies its operands:
@@ -50,8 +54,11 @@ def init_moe(gen, cfg, dtype, *, device):
     return p
 
 
-def _capacity(tokens_per_group: int, cfg) -> int:
-    c = int(tokens_per_group * cfg.top_k / cfg.n_experts * cfg.capacity_factor)
+def _capacity(tokens_per_group: int, cfg, n_experts: int = 0) -> int:
+    """Entries an expert takes from a group; ``n_experts``: all the
+    experts, where ``cfg`` is a rank's share of them."""
+    e = n_experts or cfg.n_experts
+    c = int(tokens_per_group * cfg.top_k / e * cfg.capacity_factor)
     return max(c, cfg.top_k)
 
 
@@ -70,14 +77,23 @@ def _groups(x, per_row):
     return x.reshape(1, B, D) if S == 1 and not per_row else x
 
 
-def _route(p, xg, cfg):
+def _n_experts(cfg, tp):
+    """All the experts: a rank's config holds its share of them."""
+    return cfg.n_experts * (tp.size if tp is not None else 1)
+
+
+def _route(p, xg, cfg, tp=None):
     """Routing of the groups xg (G, Tg, D): (probs, gates (G, Tg, K),
     one-hot choices oh_e (G, Tg, K, E), keep (G, Tg, K) 1.0 for an entry
-    within capacity, queue positions (G, Tg, K), capacity C)."""
+    within capacity, queue positions (G, Tg, K), capacity C). Under a
+    ``TP`` the router holds the rank's experts' columns: their logits are
+    all-gathered first, so every rank routes (and drops) alike."""
     G, Tg, _ = xg.shape
-    E, K = cfg.n_experts, cfg.top_k
-    C = _capacity(Tg, cfg)
+    E, K = _n_experts(cfg, tp), cfg.top_k
+    C = _capacity(Tg, cfg, E)
     logits = xg.to(torch.float32) @ p["router"]                # (G, Tg, E)
+    if tp is not None:
+        logits = tp.all_gather(logits)
     probs = torch.softmax(logits, dim=-1)
     gates, ids = _top_k(probs, K)                               # (G, Tg, K)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
@@ -91,27 +107,32 @@ def _route(p, xg, cfg):
     return probs, gates, oh_e, keep, pos_own, C
 
 
-def dropped_entries(p, x, cfg, per_row=False):
+def dropped_entries(p, x, cfg, per_row=False, tp=None):
     """How many (token, choice) entries ``moe_mlp`` drops at capacity on
     x (B, S, D): a 0-d int64 tensor on x's device."""
-    keep = _route(p, _groups(x, per_row), cfg)[3]
+    keep = _route(p, _groups(x, per_row), cfg, tp)[3]
     return (keep == 0).sum()
 
 
-def moe_mlp(p, x, cfg, per_row=False):
+def moe_mlp(p, x, cfg, per_row=False, tp=None):
     """x: (B, S, D) -> (out (B, S, D), aux_loss fp32 scalar). ``per_row``:
-    a decode step's rows are routed one group each (the slot engine)."""
+    a decode step's rows are routed one group each (the slot engine).
+    Under a ``TP`` (expert parallelism) the rank runs its own experts and
+    contracts the combine over them; the ranks' parts are summed in the
+    combine's type before the cast."""
     B, S, D = x.shape
     xg = _groups(x, per_row)
     G, Tg, _ = xg.shape
-    E, K = cfg.n_experts, cfg.top_k
-    probs, gates, oh_e, keep, pos_own, C = _route(p, xg, cfg)
+    K = cfg.top_k
+    probs, gates, oh_e, keep, pos_own, C = _route(p, xg, cfg, tp)
+    E = cfg.n_experts                             # the rank's experts
+    oh_e_own = oh_e if tp is None else oh_e[..., tp.columns(oh_e.shape[-1])]
     # a dropped entry's one-hot row is zero
     oh_c = F.one_hot(torch.clamp(pos_own, max=C - 1), C).to(torch.float32) \
         * keep[..., None]                                       # (G, Tg, K, C)
 
     # combine[g, t, e, c] = sum_k oh_e[g, t, k, e] gate keep oh_c[g, t, k, c]
-    w = oh_e * (gates * keep)[..., None]
+    w = oh_e_own * (gates * keep)[..., None]
     combine = torch.bmm(w.reshape(G * Tg, K, E).transpose(1, 2),
                         oh_c.reshape(G * Tg, K, C)).reshape(G, Tg, E, C)
     dispatch = (combine > 0).to(xg.dtype)
@@ -128,14 +149,16 @@ def moe_mlp(p, x, cfg, per_row=False):
     cdt = getattr(torch, cfg.moe_combine_dtype)
     eo = eout.reshape(E, G, C, D).transpose(0, 1).reshape(G, E * C, D)
     out = torch.bmm(combine.to(cdt).reshape(G, Tg, E * C), eo.to(cdt))
+    if tp is not None:
+        out = tp.all_reduce(out)
     out = out.to(x.dtype)
 
     # Switch aux loss: E * sum_e importance_e * load_e (first choice)
     importance = probs.mean(dim=(0, 1))                         # (E,)
     load = oh_e[:, :, 0, :].mean(dim=(0, 1))
-    aux = E * torch.sum(importance * load)
+    aux = probs.shape[-1] * torch.sum(importance * load)
 
     out = out.reshape(B, S, D)
     if cfg.shared_expert:
-        out = out + mlp(p["shared"], x, cfg.act)
+        out = out + mlp(p["shared"], x, cfg.act, tp)
     return out, aux

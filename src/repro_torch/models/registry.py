@@ -33,6 +33,16 @@ tree's batch axis lies, leaf by leaf.
 ``params_from_numpy`` / ``flat_from_numpy`` / ``states_from_numpy`` carry
 the JAX package's weights and decode states (as numpy) across, so both
 packages compute from the same numbers.
+
+``build_model(cfg, mesh, plan)`` with a ``model`` group of more than one
+rank in ``mesh`` (a ``launch.mesh.Mesh``, or a ``VirtualMesh`` for launch
+analysis) is this rank's part of tensor-parallel serving
+(``models/parallel.py``): its lanes run the rank's config on the rank's
+shard (``launch.mesh.shard_params``, or ``params_from_numpy(...,
+mesh=, plan=)``), ``init`` cuts that shard from the full tree it draws,
+and ``make_state`` holds the rank's KV heads. ``loss`` raises: training
+does not split over a model group yet. Without a mesh, or with a group
+of one, the model is the one-device model.
 """
 from __future__ import annotations
 
@@ -47,6 +57,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import tree_from_items, tree_items
 from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import transformer as lm
+from repro_torch.models.parallel import TP
 
 
 @dataclass(frozen=True)
@@ -58,6 +69,7 @@ class ModelAPI:
     decode_step: Callable[..., Any]
     make_state: Callable[..., Any]
     prefill_chunk: Callable[..., Any]
+    tp: Any = None      # a models.parallel.TP, or None on one device
 
 
 def _tokens(tokens, device):
@@ -82,7 +94,8 @@ def _init_fn(cfg):
     return encdec_lib.init_encdec if cfg.n_enc_layers else lm.init_lm
 
 
-def build_model(cfg: ModelConfig) -> ModelAPI:
+def build_model(cfg: ModelConfig, mesh=None, plan=None) -> ModelAPI:
+    tp = TP.of(cfg, mesh, plan)
     # the family's lanes; both modules take the modality input by the
     # keyword that names its batch entry
     if cfg.n_enc_layers:
@@ -96,41 +109,51 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
                                 lm.lm_decode_step, lm.lm_make_state,
                                 lm.lm_prefill_chunk)
     loss_fn, prefill_fn, decode_fn, make_state_fn, chunk_fn = lanes
+    # a split model's lanes run the rank's config and meet its group
+    run, split = (cfg, {}) if tp is None else (tp.cfg, {"tp": tp})
 
     def init(gen, device):
-        return _init_fn(cfg)(cfg, gen, device=device)
+        if tp is None:
+            return _init_fn(cfg)(cfg, gen, device=device)
+        from repro_torch.launch.mesh import shard_params
+        return shard_params(cfg, lm.init_lm(cfg, gen, device=device),
+                            tp.mesh, tp.plan)
 
     def dev(params):
         return params["embed"].device
 
     def loss(params, batch):
+        if tp is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: training over a model group of {tp.size} is "
+                "not ported (tensor-parallel serving only)")
         return loss_fn(cfg, params, batch)
 
     def prefill(params, batch, buf_len, window=0):
-        return prefill_fn(cfg, params, _tokens(batch["tokens"], dev(params)),
+        return prefill_fn(run, params, _tokens(batch["tokens"], dev(params)),
                           buf_len, serve_window=window,
-                          **{key: _context(batch, params, key)})
+                          **{key: _context(batch, params, key)}, **split)
 
     def decode_step(params, states, token, index, window=0, active=None):
         if np.ndim(index) == 1:
             index = torch.as_tensor(index).to(dev(params))
         if active is not None:
             active = torch.as_tensor(active).to(dev(params), torch.bool)
-        return decode_fn(cfg, params, states, _tokens(token, dev(params)),
-                         index, serve_window=window, active=active)
+        return decode_fn(run, params, states, _tokens(token, dev(params)),
+                         index, serve_window=window, active=active, **split)
 
     def make_state(params, batch, buf_len, window=0):
-        return make_state_fn(cfg, params, batch["tokens"].shape[0], buf_len,
+        return make_state_fn(run, params, batch["tokens"].shape[0], buf_len,
                              serve_window=window,
-                             **{key: _context(batch, params, key)})
+                             **{key: _context(batch, params, key)}, **split)
 
     def prefill_chunk(params, states, tokens, index, window=0):
-        return chunk_fn(cfg, params, states, _tokens(tokens, dev(params)),
-                        index, serve_window=window)
+        return chunk_fn(run, params, states, _tokens(tokens, dev(params)),
+                        index, serve_window=window, **split)
 
     return ModelAPI(cfg=cfg, init=init, loss=loss, prefill=prefill,
                     decode_step=decode_step, make_state=make_state,
-                    prefill_chunk=prefill_chunk)
+                    prefill_chunk=prefill_chunk, tp=tp)
 
 
 def _to_torch(a, device, dtype):
@@ -140,25 +163,40 @@ def _to_torch(a, device, dtype):
     return torch.tensor(a, dtype=dtype, device=device)    # a copy
 
 
-def params_from_numpy(cfg: ModelConfig, tree, *, device, dtype=None):
+def params_from_numpy(cfg: ModelConfig, tree, *, device, dtype=None,
+                      mesh=None, plan=None):
     """The reference's parameter tree (nested dicts of numpy arrays, as
     ``jax.tree.map(np.asarray, params)`` gives it) -> the port's params on
     ``device``: leaves the model keeps in its working type in ``dtype``
     (default: ``cfg.dtype``), fp32 leaves (Mamba's ``A_log``, ``D``,
     ``dt_bias``; the xLSTM gates' ``w_i``, ``b_i``, ``w_f``, ``b_f``,
     ``r_gates``, ``b_gates``; the MoE ``router``) in fp32. Enc-dec
-    configs take the reference's enc-dec tree. Raises ``ValueError`` on a
-    missing or extra leaf or a shape mismatch."""
+    configs take the reference's enc-dec tree. With a ``mesh`` whose
+    ``model`` group has more than one rank, only this rank's shard
+    (``launch.mesh.tp_split``) is cut and copied. Raises ``ValueError``
+    on a missing or extra leaf or a shape mismatch (of the full tree)."""
     if dtype is not None:
         cfg = dataclasses.replace(cfg,
                                   dtype=str(dtype).removeprefix("torch."))
-    return _tree_from_numpy(_init_fn(cfg)(cfg, None, device="meta"), tree,
-                            f"parameter tree of {cfg.name}", device)
+    want = _init_fn(cfg)(cfg, None, device="meta")
+    what = f"parameter tree of {cfg.name}"
+    tp = TP.of(cfg, mesh, plan)
+    if tp is None:
+        return _tree_from_numpy(want, tree, what, device)
+    from repro_torch.launch.mesh import shard_leaf, tp_split
+    _check_tree(want, tree, what)
+
+    def cut(t):
+        return tree_from_items([
+            (path, shard_leaf(leaf, tp_split(cfg, path, leaf.shape, tp.size),
+                              tp.index, tp.size))
+            for path, leaf in tree_items(t)])
+    return _tree_from_numpy(cut(want), cut(tree), what, device)
 
 
-def _tree_from_numpy(want, tree, what, device):
-    """Check a numpy tree against the port's ``want`` (paths and shapes)
-    and copy it onto ``device`` in ``want``'s dtypes."""
+def _check_tree(want, tree, what):
+    """Raise ``ValueError`` unless the numpy ``tree`` has ``want``'s paths
+    and shapes. Returns both as ``{path: leaf}``."""
     want = dict(tree_items(want))
     got = dict(tree_items(tree))
     missing = sorted(set(want) - set(got))
@@ -170,6 +208,13 @@ def _tree_from_numpy(want, tree, what, device):
         if tuple(np.shape(leaf)) != tuple(want[path].shape):
             raise ValueError(f"{'/'.join(path)}: shape {np.shape(leaf)} != "
                              f"{tuple(want[path].shape)}")
+    return want, got
+
+
+def _tree_from_numpy(want, tree, what, device):
+    """Check a numpy tree against the port's ``want`` (paths and shapes)
+    and copy it onto ``device`` in ``want``'s dtypes."""
+    want, got = _check_tree(want, tree, what)
     return tree_from_items([(p, _to_torch(got[p], device, want[p].dtype))
                             for p in sorted(got)])
 

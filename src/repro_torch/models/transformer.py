@@ -36,6 +36,12 @@ chunked scan as ``models/ssm.py`` says, sLSTM blocks their recurrence as
 says. ``lm_make_state`` runs a prefix through the stack at index 0 and
 returns start ``P``, so the serving lanes stream raw tokens only.
 
+Every block and lane takes ``tp``, a ``models.parallel.TP``: then ``cfg``
+is the rank's config, the parameters and states are its shards, and the
+embedding, each attention output and MLP, and the head meet the rank's
+``model`` group (that module says where). ``tp=None`` is the
+one-device model.
+
 ``lm_decode_step``'s ``index`` is a Python int (one position for the whole
 batch: ``generate``) or a (B,) tensor (the slot engine's batched step:
 each row its own position, cache slot, ``pos`` tags, band and MoE routing
@@ -93,11 +99,14 @@ def init_moe_block(gen, cfg, dtype, *, device):
     }
 
 
-def _self_attention(p, h, cfg, window, cache=None, index=0, active=None):
+def _self_attention(p, h, cfg, window, cache=None, index=0, active=None,
+                    tp=None):
     """Shared attention plumbing. Returns (attn output, cache). With a
     cache, ``index`` is the chunk's first absolute position (a Python
     int, or a (B,) tensor of per-row positions for one token a row) and
-    the cache is written in place (only in the ``active`` rows)."""
+    the cache is written in place (only in the ``active`` rows). Under a
+    ``TP`` ``cfg`` is the rank's: its heads, its cache, its part of
+    ``wo`` summed over the group."""
     S = h.shape[1]
     q, k, v = attn.qkv_proj(p, h, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
     pos = attn.positions(index, S, h.device)
@@ -106,7 +115,7 @@ def _self_attention(p, h, cfg, window, cache=None, index=0, active=None):
     if cache is None:
         o = attn.attend(q, k, v, q_pos=pos, kv_pos=pos, causal=True,
                         window=window, cap=cfg.attn_logit_softcap)
-        return attn.out_proj(p, o), None
+        return attn.out_proj(p, o, tp), None
     attn.cache_update(cache, k, v, index, active)
     if _blank_start(index):
         # blank cache: every slot the write left holds pos -1, so attention
@@ -118,7 +127,7 @@ def _self_attention(p, h, cfg, window, cache=None, index=0, active=None):
                         kv_pos=cache["pos"], causal=True, window=window,
                         cap=cfg.attn_logit_softcap,
                         block=attn.serve_block(*q.shape[:3]))
-    return attn.out_proj(p, o), cache
+    return attn.out_proj(p, o, tp), cache
 
 
 def _blank_start(index):
@@ -136,39 +145,45 @@ def _step_index(index):
     return int(index)
 
 
-def attn_block(p, x, cfg, window=None, cache=None, index=0, active=None):
+def attn_block(p, x, cfg, window=None, cache=None, index=0, active=None,
+               tp=None):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     o, cache = _self_attention(p["attn"], h, cfg, window, cache, index,
-                               active)
+                               active, tp)
     if "post1" in p:
         o = rms_norm(o, p["post1"], cfg.norm_eps)
     x = x + o
     if "mlp" in p:
-        m = mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act)
+        m = mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act, tp)
         if "post2" in p:
             m = rms_norm(m, p["post2"], cfg.norm_eps)
         x = x + m
     return x, cache
 
 
-def moe_block(p, x, cfg, window=None, cache=None, index=0, active=None):
+def moe_block(p, x, cfg, window=None, cache=None, index=0, active=None,
+              tp=None):
     """Attention, then the MoE MLP. Returns (x, cache, aux). A per-row
     ``index`` routes each row as its own group."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     o, cache = _self_attention(p["attn"], h, cfg, window, cache, index,
-                               active)
+                               active, tp)
     x = x + o
+    # without a group, the one-device call as it always was
+    split = {} if tp is None else {"tp": tp}
     m, aux = moe_lib.moe_mlp(p["moe"], rms_norm(x, p["ln2"], cfg.norm_eps),
-                             cfg, per_row=torch.is_tensor(index))
+                             cfg, per_row=torch.is_tensor(index), **split)
     return x + m, cache, aux
 
 
-def _apply_block_inner(kind, p, x, cfg, window, state, index, active):
+def _apply_block_inner(kind, p, x, cfg, window, state, index, active,
+                       tp=None):
     """(x, new_state, aux): aux is None for blocks that have none."""
     if kind in ("attn", "shared_attn"):
-        return attn_block(p, x, cfg, window, state, index, active) + (None,)
+        return attn_block(p, x, cfg, window, state, index, active,
+                          tp) + (None,)
     if kind == "moe":
-        return moe_block(p, x, cfg, window, state, index, active)
+        return moe_block(p, x, cfg, window, state, index, active, tp)
     if kind == "mamba":
         out, state = ssm_lib.mamba_forward(p, x, cfg, state, active)
     elif kind == "mlstm":
@@ -180,7 +195,8 @@ def _apply_block_inner(kind, p, x, cfg, window, state, index, active):
     return x + out, state, None
 
 
-def _apply_block(kind, p, x, cfg, window, state=None, index=0, active=None):
+def _apply_block(kind, p, x, cfg, window, state=None, index=0, active=None,
+                 tp=None):
     """Dispatch. Returns (x, new_state, aux). With ``cfg.remat`` (and no
     state) the block body is rematerialized in the backward pass
     (activation checkpointing); a MoE block's aux leaves the checkpoint
@@ -188,12 +204,13 @@ def _apply_block(kind, p, x, cfg, window, state=None, index=0, active=None):
     if cfg.remat and state is None:
         def body(pp, xx):
             out, _, aux = _apply_block_inner(kind, pp, xx, cfg, window,
-                                             None, index, None)
+                                             None, index, None, tp)
             return out if aux is None else (out, aux)
         res = torch.utils.checkpoint.checkpoint(body, p, x,
                                                 use_reentrant=False)
         return (res[0], None, res[1]) if kind == "moe" else (res, None, None)
-    return _apply_block_inner(kind, p, x, cfg, window, state, index, active)
+    return _apply_block_inner(kind, p, x, cfg, window, state, index, active,
+                              tp)
 
 
 _INIT = {
@@ -313,11 +330,12 @@ def _serve_windows(cfg, serve_window):
 
 
 def run_blocks(blocks, x, cfg, states=None, index=0, serve_window=0,
-               active=None):
+               active=None, tp=None):
     """Execute the block stack. Returns (x, states, aux), aux the fp32 sum
     of the blocks' aux losses (0 without MoE blocks); ``states`` (if
     given) are updated in place, layer by layer (with ``active``, only
-    their rows it marks True)."""
+    their rows it marks True). ``tp``: a ``models.parallel.TP`` whose
+    rank runs its shard (``cfg`` the rank's config)."""
     windows = _serve_windows(cfg, serve_window)
     pat, n_cycles, rem = _cycles(cfg)
     total = None
@@ -331,7 +349,7 @@ def run_blocks(blocks, x, cfg, states=None, index=0, serve_window=0,
             st = None if states is None else tree_at(states, layer)
             x, _, aux = _apply_block(pat[0][0],
                                      tree_at(blocks["stack"], layer), x,
-                                     cfg, window, st, index, active)
+                                     cfg, window, st, index, active, tp)
             add(aux)
     else:
         shared = blocks.get("shared")
@@ -349,7 +367,7 @@ def run_blocks(blocks, x, cfg, states=None, index=0, serve_window=0,
                 st = None if states is None else \
                     tree_at(states["cycle"][name], c)
             x, _, aux = _apply_block(kind, p, x, cfg, window, st, index,
-                                     active)
+                                     active, tp)
             add(aux)
     if total is None:
         total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -374,9 +392,13 @@ def init_lm(cfg, gen, *, device):
     return p
 
 
-def _embed(params, cfg, tokens, prefix=None):
-    """Scaled token embeddings, with the prefix (B, P, D) before them."""
+def _embed(params, cfg, tokens, prefix=None, tp=None):
+    """Scaled token embeddings, with the prefix (B, P, D) before them.
+    Under a ``TP`` the rank looks up its d_model columns, then the group
+    gathers them."""
     x = params["embed"][tokens]
+    if tp is not None:
+        x = tp.all_gather(x)
     # made on the device: a host tensor copied over would synchronise
     x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
                        device=x.device)
@@ -385,22 +407,29 @@ def _embed(params, cfg, tokens, prefix=None):
     return x
 
 
-def _head(params, cfg, x):
+def _head(params, cfg, x, tp=None):
+    """fp32 logits of x (B, S, D). Under a ``TP``: the rank's vocabulary
+    slice of ``lm_head``, gathered; tied embeddings give the rank's
+    partial logits from its d_model columns, summed over the group."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
-        logits = x @ params["embed"].T
+    if tp is None:
+        logits = x @ (params["embed"].T if cfg.tie_embeddings
+                      else params["lm_head"])
+    elif cfg.tie_embeddings:
+        part = x[..., tp.columns(x.shape[-1])] @ params["embed"].T
+        logits = tp.all_reduce(part.to(torch.float32))
     else:
-        logits = x @ params["lm_head"]
+        logits = tp.all_gather((x @ params["lm_head"]).to(torch.float32))
     return softcap(logits.to(torch.float32), cfg.final_logit_softcap)
 
 
-def lm_logits(cfg, params, tokens, prefix=None):
+def lm_logits(cfg, params, tokens, prefix=None, tp=None):
     """Teacher-forced logits over the token positions only."""
-    x = _embed(params, cfg, tokens, prefix)
-    x, _, aux = run_blocks(params["blocks"], x, cfg)
+    x = _embed(params, cfg, tokens, prefix, tp)
+    x, _, aux = run_blocks(params["blocks"], x, cfg, tp=tp)
     if prefix is not None:
         x = x[:, prefix.shape[1]:]
-    return _head(params, cfg, x), aux
+    return _head(params, cfg, x, tp), aux
 
 
 def cross_entropy(logits, labels):
@@ -426,19 +455,20 @@ def lm_loss(cfg, params, batch):
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def lm_prefill(cfg, params, tokens, buf_len, prefix=None, serve_window=0):
+def lm_prefill(cfg, params, tokens, buf_len, prefix=None, serve_window=0,
+               tp=None):
     """Run the prompt through the stack, filling fresh caches.
     Returns (last-token logits, states)."""
-    x = _embed(params, cfg, tokens, prefix)
+    x = _embed(params, cfg, tokens, prefix, tp)
     states = init_states(cfg, x.shape[0], buf_len, x.dtype, device=x.device)
     x, states, _ = run_blocks(params["blocks"], x, cfg, states=states,
-                              index=0, serve_window=serve_window)
-    return _head(params, cfg, x[:, -1:])[:, 0], states
+                              index=0, serve_window=serve_window, tp=tp)
+    return _head(params, cfg, x[:, -1:], tp)[:, 0], states
 
 
 @torch.no_grad()
 def lm_make_state(cfg, params, batch_size, buf_len, prefix=None,
-                  serve_window=0):
+                  serve_window=0, tp=None):
     """Blank decode states for ``batch_size`` sequences plus the stream
     start index (serving slot-reset / chunked-prefill entry point).
     Without a prefix the start is 0. A prefix (B, P, D) runs through the
@@ -450,33 +480,36 @@ def lm_make_state(cfg, params, batch_size, buf_len, prefix=None,
     if prefix is None:
         return states, 0
     run_blocks(params["blocks"], prefix.to(dtype), cfg, states=states,
-               index=0, serve_window=serve_window)
+               index=0, serve_window=serve_window, tp=tp)
     return states, prefix.shape[1]
 
 
 @torch.no_grad()
-def lm_prefill_chunk(cfg, params, states, tokens, index, serve_window=0):
+def lm_prefill_chunk(cfg, params, states, tokens, index, serve_window=0,
+                     tp=None):
     """Run ``tokens`` (B, C) through the stack at absolute positions
     ``index..index+C-1``, updating the (possibly ring) caches in place.
     Returns (last-token logits (B, V), states): feeding a prompt chunk by
     chunk reproduces the one-shot ``lm_prefill``."""
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, tp=tp)
     x, states, _ = run_blocks(params["blocks"], x, cfg, states=states,
-                              index=int(index), serve_window=serve_window)
-    return _head(params, cfg, x[:, -1:])[:, 0], states
+                              index=int(index), serve_window=serve_window,
+                              tp=tp)
+    return _head(params, cfg, x[:, -1:], tp)[:, 0], states
 
 
 @torch.no_grad()
 def lm_decode_step(cfg, params, states, token, index, serve_window=0,
-                   active=None):
+                   active=None, tp=None):
     """One decode step. token: (B, 1) int; index: the token's absolute
     position, a Python int for the whole batch, or a (B,) int tensor on
     the parameters' device, one a row (then ``states`` hold per-row
     (B, buf) ``pos`` tags, each row is its own MoE routing group, and
     the rows where the (B,) bool ``active`` is False keep every state).
     Returns (logits (B, V), states)."""
-    x = _embed(params, cfg, token)
+    x = _embed(params, cfg, token, tp=tp)
     x, states, _ = run_blocks(params["blocks"], x, cfg, states=states,
                               index=_step_index(index),
-                              serve_window=serve_window, active=active)
-    return _head(params, cfg, x)[:, 0], states
+                              serve_window=serve_window, active=active,
+                              tp=tp)
+    return _head(params, cfg, x, tp)[:, 0], states

@@ -40,6 +40,12 @@ pin carries over: one signature per lane across admissions and evictions.
 The model's states are updated in place. ``make_serve_step`` builds the
 single-token decode function; ``window`` selects the sliding-window
 (ring-buffer) variant.
+
+A model split over a ``model`` group (``build_model(cfg, mesh, plan)``)
+serves through ``generate`` and ``make_serve_step`` as it is: every rank
+calls them with its shard, the lanes gather the logits, and every rank
+samples the same tokens from the same keys. The slot engine does not
+take such a model yet.
 """
 from __future__ import annotations
 
@@ -336,6 +342,10 @@ class SlotEngine:
                  sampling: SamplingParams = GREEDY, example=None):
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
+        if model.tp is not None:
+            raise NotImplementedError(
+                "the slot engine over a model group is not ported: serve a "
+                "tensor-parallel model with generate")
         if buf_len < 1:
             raise ValueError(f"buf_len must be >= 1, got {buf_len}")
         if window < 0:

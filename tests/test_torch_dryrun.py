@@ -109,8 +109,14 @@ def test_dry_run_cli(tmp_path):
         dryrun.main(dec)
     rec = json.load(open(os.path.join(
         out_dir, "gemma2-2b_decode_32k_1n_decode_baseline.json")))
-    assert REF_KEYS <= set(rec) and rec["fits"] is True
-    assert rec["batch_per_card"] == 16 and rec["replicas"] == 8
+    # one replica over the node's model axis of 8 cards takes all 128
+    # sequences; gemma2-2b's 4 KV heads are each held by two ranks, so the
+    # cache (~111 GB a card) does not fit
+    assert REF_KEYS <= set(rec) and rec["fits"] is False
+    assert rec["batch_per_replica"] == 128 and rec["replicas"] == 1
+    assert rec["engine"] == "one replica over model = 8"
+    assert sorted(rec["placed_apart"]) == [
+        "blocks/stack/attn/wk", "blocks/stack/attn/wv", "k", "v"]
     stamp = {p: os.stat(os.path.join(out_dir, p)).st_mtime_ns
              for p in os.listdir(out_dir)}
     buf = io.StringIO()

@@ -12,6 +12,9 @@ its zero-sum quadratic forms are compared: the pre distances
 """
 from __future__ import annotations
 
+import dataclasses
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -206,6 +209,77 @@ def test_build_keeps_the_compiler_report_for_a_reused_library(
         assert _build._target(src).exists()
         assert "Used 42 registers" in _build.build_info["stand_in"]["log"]
     assert len(list((tmp_path / "build").glob("*.log"))) == 1
+
+
+def test_build_compiles_a_source_in_parts_then_links_them(monkeypatch,
+                                                         tmp_path):
+    """A ``Source`` of several parts: one ``nvcc -c -DKERNEL_PART=k`` a
+    part, then one link of their objects into the library; the objects are
+    removed and the log holds every part's compiler report. A stand-in
+    nvcc writes each object and copies torch's extension module as the
+    linked library."""
+    import json
+    import sys
+    lib = torch._C.__file__
+    calls = tmp_path / "calls.jsonl"
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        f"#!{sys.executable}\nimport json, shutil, sys\n"
+        "a = sys.argv[1:]\nout = a[a.index('-o') + 1]\n"
+        f"open({str(calls)!r}, 'a').write(json.dumps(a) + '\\n')\n"
+        "if '-c' in a:\n"
+        "    part = [f for f in a if f.startswith('-DKERNEL_PART=')][0]\n"
+        "    open(out, 'w').write(part)\n"
+        "    print('ptxas info    : Used 9 registers', part)\n"
+        f"else:\n    shutil.copy({lib!r}, out)\n")
+    fake.chmod(0o755)
+    cu = tmp_path / "k.cu"
+    cu.write_text("// stand-in source\n")
+    src = _build.Source("stand_in_parts", cu, lambda lib: None, parts=3)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "build_info", {})
+    _build.build(src)
+    argvs = [json.loads(line) for line in calls.read_text().splitlines()]
+    compiles, link = argvs[:-1], argvs[-1]
+    assert sorted(next(f for f in a if f.startswith("-DKERNEL_PART="))
+                  for a in compiles) == [f"-DKERNEL_PART={k}"
+                                         for k in range(3)]
+    assert all("-c" in a and "-shared" not in a for a in compiles)
+    objs = [a[a.index("-o") + 1] for a in compiles]
+    assert link[0] == "-shared" and sorted(link[3:]) == sorted(objs)
+    assert _build._target(src).exists()
+    assert not any(os.path.exists(o) for o in objs)
+    info = _build.build_info["stand_in_parts"]
+    for k in range(3):
+        assert f"-DKERNEL_PART={k}" in info["log"]
+    assert info["nvcc_seconds"] > 0
+    # one part is the default, and the part count names another library
+    assert _build._target(dataclasses.replace(src, parts=1)) \
+        != _build._target(src)
+
+
+def test_pullpush_parts_hold_each_entry_point_once():
+    """pullpush.cu's ``PP_PARTS`` is the ``SOURCE``'s part count, and every
+    entry point ``_bind`` binds lies in exactly one part (each part holds
+    some): a part that lost one would link a library without it."""
+    import re
+    text = pk.SOURCE.path.read_text()
+    assert int(re.search(r"#define PP_PARTS (\d+)", text).group(1)) \
+        == pk.SOURCE.parts == 5
+    body = text[text.index('extern "C" {'):]
+    where = {}
+    for k, block in re.findall(r"#if PP_IN\((\d+)\)\n(.*?)#endif", body,
+                               re.S):
+        for name in re.findall(r"^(?:int|const char\*) (pp_\w+)\(", block,
+                               re.M):
+            where.setdefault(name, []).append(int(k))
+    bound = set(re.findall(r"lib\.(pp_\w+)",
+                           open(pk.__file__).read()))
+    assert set(where) == bound
+    assert all(len(v) == 1 for v in where.values()), where
+    assert sorted({v[0] for v in where.values()}) == list(range(5))
 
 
 def test_kernel_module_imports_without_nvcc(tmp_path):
